@@ -1,0 +1,495 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+Usage, from the root of a checkout, on a machine with a CUDA card::
+
+    python3 chip_smoke.py [--profile]
+
+Phases (any failure raises and exits non-zero before the result line):
+
+1. device: require CUDA; print the card's name and power limit;
+2. build: compile the four hand-written CUDA kernels (``nvcc``, one
+   process per source, in parallel) and print the build seconds;
+3. kernels against their plain versions on the card, bit for bit, at
+   d in {997, 40522, 118282} and M in {1, 5, 100, 300}, plus the
+   padded-tail poison case and theta_hat against the Eq.-13 estimate of
+   the vote counts;
+4. main path: ``FLSimulation`` with probit_plus, dynamic b and the kernels,
+   on the paper's MLP at its default width (hidden 128, d = 118,282) with
+   100 clients, 3 rounds in each of four variants: (a) plain, (b) error
+   feedback, (c) 30% sign_flip Byzantines, (d) 30% bit_flip Byzantines.
+   Each variant's launch counts are zeroed just before it and read just
+   after, and must equal its own expected counts (per round: one
+   ``stoch_quant_pack``, or one ``stoch_quant_ef`` with error feedback,
+   one ``bit_aggregate`` and one ``prox_sgd`` per local step); every kernel
+   must have run. Then (a) again with ``engine="ref"`` (the plain versions,
+   on the card): every round's theta_hat, loss and b must equal the kernel
+   run exactly;
+5. times: each kernel at the shapes of (a) against its plain version, its
+   byte bound and the card's measured copy bandwidth;
+6. with ``--profile`` only: one round of (a) under ``torch.profiler``,
+   its device time by round step and by operator.
+
+The last three lines are the per-kernel JSON, the card line and
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+
+# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+
+MAIN = dict(n_clients=100, per_client=100, hidden=128, rounds=3, local_epochs=2, batch_size=10)
+VARIANTS = {
+    "a": {},
+    "b": {"error_feedback": True},
+    "c": {"byz_frac": 0.3, "attack": "sign_flip"},
+    "d": {"byz_frac": 0.3, "attack": "bit_flip"},
+}
+KERNELS = {
+    # name: (CUDA source, Pallas call it replaces)
+    "stoch_quant_pack": ("src/repro_torch/kernels/csrc/stoch_quant.cu", "src/repro/kernels/stoch_quant.py:77"),
+    "stoch_quant_ef": ("src/repro_torch/kernels/csrc/stoch_quant.cu", "src/repro/kernels/stoch_quant.py:114"),
+    "bit_aggregate": ("src/repro_torch/kernels/csrc/bit_aggregate.cu", "src/repro/kernels/bit_aggregate.py:89"),
+    "prox_sgd": ("src/repro_torch/kernels/csrc/prox_sgd.cu", "src/repro/kernels/prox_sgd.py:51"),
+}
+
+
+def require(cond, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def timed_ms(fn, reps: int = 30, warmup: int = 3, repeats: int = 5) -> float:
+    """Device milliseconds per call: the median over ``repeats`` batches of
+    ``reps`` calls, each batch timed by CUDA events.
+
+    A ``torch.cuda._sleep`` kernel runs before each batch and holds the
+    stream while the host queues every call behind it, so the events time
+    the device work back to back, not the host's Python overhead per
+    launch. The sleep grows until it outlasts the host's queueing.
+    """
+    import statistics
+
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    cycles = 20_000_000
+    batches = []
+    while len(batches) < repeats:
+        torch.cuda.synchronize()
+        s0, s1, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(4))
+        s0.record()
+        torch.cuda._sleep(cycles)
+        s1.record()
+        h0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - h0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms < s0.elapsed_time(s1):
+            batches.append(start.elapsed_time(end) / reps)
+        else:
+            require(cycles < 2_000_000_000, f"host needs {host_ms} ms to queue {reps} calls")
+            cycles *= 4
+    return statistics.median(batches)
+
+
+class Checker:
+    """Bitwise comparison of a kernel with its plain version; keeps the
+    largest absolute difference seen per kernel (0 when all agree)."""
+
+    def __init__(self):
+        self.max_err: dict[str, float] = {}
+        self.count: dict[str, int] = {}
+
+    def same(self, name: str, got, want, what: str) -> None:
+        import torch
+
+        require(got.shape == want.shape and got.dtype == want.dtype,
+                f"{name} {what}: {got.dtype}{tuple(got.shape)} vs {want.dtype}{tuple(want.shape)}")
+        err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
+        self.max_err[name] = max(self.max_err.get(name, 0.0), err)
+        self.count[name] = self.count.get(name, 0) + 1
+        require(torch.equal(got, want), f"{name} {what}: differs from its plain version (max |diff| {err})")
+
+
+def check_kernels(chk: Checker, dev) -> None:
+    """Phase 3: every kernel against its plain version on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import prng
+    from repro_torch.core.aggregation import ml_estimate_from_counts
+    from repro_torch.core.quantizer import packed_counts
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bit_aggregate import bit_aggregate
+    from repro_torch.kernels.prox_sgd import prox_sgd
+    from repro_torch.kernels.stoch_quant import stoch_quant_ef, stoch_quant_pack
+
+    gen = torch.Generator(device=dev).manual_seed(1234)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    for d in (997, 40522, 118282):
+        d_pad = ops.padded_len(d)
+        pad = d_pad - d
+        b = torch.full((d,), 0.01, device=dev)
+        b[:7] = torch.tensor([0.0, -0.01, 1e-30, 0.02, 0.005, 0.0, 3.0], device=dev)  # guards
+        b_p = F.pad(b, (0, pad), value=1.0)
+        for m in (1, 5, 100, 300):
+            tag = f"d={d} M={m}"
+            delta = F.pad(0.02 * randn(m, d), (0, pad), value=-1.0)
+            delta[:, 7] = b[7]  # |delta| == b exactly: p is 0 or 1
+            u = F.pad(torch.rand(m, d, generator=gen, device=dev), (0, pad), value=1.0)
+            res = F.pad(0.005 * randn(m, d), (0, pad))
+            packed = stoch_quant_pack(delta, b_p, u)
+            chk.same("stoch_quant_pack", packed, ref.stoch_quant_compress_ref(delta, b_p, u)[0], tag)
+            got_p, got_r = stoch_quant_ef(delta, res, b_p, u)
+            want_p, want_r = ref.stoch_quant_compress_ref(delta, b_p, u, res, want_residual=True)
+            chk.same("stoch_quant_ef", got_p, want_p, tag + " wire")
+            chk.same("stoch_quant_ef", got_r, want_r, tag + " residual")
+
+            # through ops: the Threefry uniform schedule and the wire width
+            key = prng.fold_in(prng.key(7, dev), m)
+            deltas = delta[:, :d].contiguous()
+            for resid in (None, res[:, :d].contiguous()):
+                kp, kr = ops.stoch_quant_compress_batch(key, deltas, b, residual=resid,
+                                                        want_residual=resid is not None, engine="cuda")
+                rp, rr = ops.stoch_quant_compress_batch(key, deltas, b, residual=resid,
+                                                        want_residual=resid is not None, engine="ref")
+                name = "stoch_quant_pack" if resid is None else "stoch_quant_ef"
+                chk.same(name, kp, rp, tag + " ops wire")
+                if resid is not None:
+                    chk.same(name, kr, rr, tag + " ops residual")
+
+            b_agg = F.pad(b.abs(), (0, pad))
+            theta = bit_aggregate(packed, b_agg)
+            chk.same("bit_aggregate", theta, ref.bit_aggregate_ref(packed, b_agg), tag)
+            theta_d = ops.bit_aggregate(packed, b.abs(), d, engine="cuda")
+            want = ml_estimate_from_counts(packed_counts(packed)[:d], m, b.abs())
+            chk.same("bit_aggregate", theta_d, want, tag + " vs Eq.-13 of packed_counts")
+
+            w, g, mom = randn(m, d), randn(m, d), 0.1 * randn(m, d)
+            for w0 in (0.9 * w[0], 0.9 * w):
+                got = prox_sgd(w, w0.contiguous(), g, mom, 0.01, 0.2, 0.5)
+                want = ref.prox_sgd_ref(w, w0, g, mom, 0.01, 0.2, 0.5)
+                chk.same("prox_sgd", got[0], want[0], tag + " w")
+                chk.same("prox_sgd", got[1], want[1], tag + " momentum")
+
+    # Padded-tail poison: n % 8 != 0 and M % 8 != 0; all-ones pad bits must
+    # never reach theta_hat[:n].
+    n, m = 997, 5
+    pbytes = ops.padded_len(n) // 8
+    packed = torch.randint(0, 256, (m, pbytes), generator=gen, device=dev, dtype=torch.uint8)
+    b = randn(n).abs()
+    base = ops.bit_aggregate(packed, b, n, engine="cuda")
+    poisoned = packed.clone()
+    full = n // 8
+    poisoned[:, full] |= (0xFF << (8 - (8 * (full + 1) - n))) & 0xFF
+    poisoned[:, full + 1:] = 0xFF
+    chk.same("bit_aggregate", ops.bit_aggregate(poisoned, b, n, engine="cuda"), base, "padded-tail poison")
+    chk.same("bit_aggregate", base, ops.bit_aggregate(packed, b, n, engine="ref"), "poison base vs ref")
+
+
+@functools.lru_cache(maxsize=None)
+def _task():
+    """The main path's data and initial weights (made once, from seeds)."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.data import make_classification, partition_label_skew
+    from repro_torch.models import init_mlp
+
+    (xtr, ytr), (xte, yte) = make_classification(0, n_train=10_000, n_test=2_000)
+    parts = partition_label_skew(ytr, MAIN["n_clients"], 2, MAIN["per_client"], seed=0)
+    cx = np.stack([xtr[i] for i in parts])
+    cy = np.stack([ytr[i] for i in parts])
+    return init_mlp(prng.key(0), hidden=MAIN["hidden"]), cx, cy, {"x": xte, "y": yte}
+
+
+def make_sim(dev, extra: dict, engine=None):
+    from repro_torch.fl import FLConfig, FLSimulation
+    from repro_torch.models import accuracy, mlp_logits, xent_loss
+
+    p0, cx, cy, test = _task()
+    cfg = FLConfig(
+        n_clients=MAIN["n_clients"], rounds=MAIN["rounds"], local_epochs=MAIN["local_epochs"],
+        batch_size=MAIN["batch_size"], aggregator="probit_plus", b_mode="dynamic",
+        use_kernels=True, **extra,
+    )
+    return FLSimulation(
+        cfg, p0, functools.partial(xent_loss, mlp_logits), functools.partial(accuracy, mlp_logits),
+        cx, cy, test, device=dev, engine=engine,
+    )
+
+
+def expected_launches(name: str) -> dict:
+    """Kernel launches of one variant's run: per round one compression (B2
+    with error feedback, else B1), one count (B3) and one prox step (B4)
+    per local step."""
+    rounds = MAIN["rounds"]
+    steps = MAIN["local_epochs"] * MAIN["per_client"] // MAIN["batch_size"]
+    ef = VARIANTS[name].get("error_feedback", False)
+    return {"stoch_quant_pack": 0 if ef else rounds, "stoch_quant_ef": rounds if ef else 0,
+            "bit_aggregate": rounds, "prox_sgd": rounds * steps}
+
+
+def main_path(dev, engine=None, variants=VARIANTS):
+    """Phase 4: FLSimulation on the card; returns per-variant round records
+    and the kernel launches of each variant's own run (counts zeroed just
+    before it and read just after)."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    out = {}
+    for name, extra in variants.items():
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        sim = make_sim(dev, extra, engine)
+        recs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t, met in sim.iter_rounds():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            recs.append({"loss": met["loss"].item(), "b": met["b"].item(),
+                         "theta": met["theta"].clone(), "seconds": t1 - t0})
+            t0 = t1
+        require(set(_build.launches) <= set(KERNELS), f"variant {name}: unknown kernel {dict(_build.launches)}")
+        launches = {k: _build.launches[k] for k in KERNELS}
+        out[name] = {"rounds": recs, "launches": launches, "acc": sim.evaluate(), "d": sim.d,
+                     "wire_row_bytes": sim.pipeline.compressor.wire_bytes(sim.d)}
+    return out
+
+
+def profile_round(dev) -> dict:
+    """``--profile``: one steady round of variant (a) under torch.profiler:
+    host and kernel time of each round step (the ``round.*`` ranges of
+    fl/rounds.py), device time by operator, and the device's busy share of
+    the round's wall time (the profiler's own overhead included)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_ms(e, attr):
+        us = getattr(e, attr, None)
+        if us is None:
+            us = getattr(e, attr.replace("device", "cuda"), 0.0)
+        return us / 1e3
+
+    it = make_sim(dev, VARIANTS["a"]).iter_rounds()
+    next(it)  # warm-up round
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        next(it)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA and not e.key.startswith("round.")]
+    busy_ms = sum(dev_ms(e, "self_device_time_total") for e in kernels)
+    require(busy_ms > 0, "the profiler saw no device time")
+    host_ops = [e for e in avgs if e.device_type == DeviceType.CPU and not e.key.startswith("round.")]
+    top = sorted(host_ops, key=lambda e: dev_ms(e, "self_device_time_total"), reverse=True)[:15]
+    steps = [e for e in prof.events() if e.name.startswith("round.") and e.device_type == DeviceType.CPU]
+    return {
+        "phase": "profile", "round_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "busy_share": busy_ms / wall_ms,
+        # per round step: host time inside its range, and the device time of
+        # the kernels it launched
+        "steps_host_ms": {e.name: e.cpu_time_total / 1e3 for e in steps},
+        "steps_kernel_ms": {e.name: dev_ms(e, "device_time_total") for e in steps},
+        "kernel_launches": sum(e.count for e in kernels),
+        "top_ops": [{"name": e.key, "device_ms": dev_ms(e, "self_device_time_total"), "calls": e.count}
+                    for e in top],
+    }
+
+
+def check_main_path(runs, b_init: float) -> None:
+    import numpy as np
+    import torch
+
+    for name, run in runs.items():
+        b_prev = np.float32(b_init)
+        for t, rec in enumerate(run["rounds"]):
+            require(np.isfinite(rec["loss"]), f"variant {name} round {t}: loss {rec['loss']}")
+            th = rec["theta"]
+            require(th.shape == (run["d"],) and bool(torch.isfinite(th).all()), f"variant {name}: bad theta")
+            moves = {np.float32(b_prev * np.float32(1.01)), np.float32(b_prev * np.float32(0.98))}
+            require(np.float32(rec["b"]) in moves, f"variant {name} round {t}: b {rec['b']} from {b_prev}")
+            b_prev = np.float32(rec["b"])
+
+
+def kernel_times(dev, runs, chk: Checker, copy_gbs: float):
+    """Phase 5: each kernel at the shapes of variant (a). ``launches`` is
+    the sum over the variants of each one's own count; the counts by
+    variant stand beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bit_aggregate import bit_aggregate
+    from repro_torch.kernels.prox_sgd import prox_sgd
+    from repro_torch.kernels.stoch_quant import stoch_quant_ef, stoch_quant_pack
+
+    gen = torch.Generator(device=dev).manual_seed(99)
+    m = MAIN["n_clients"]
+    d = 118_282
+    d_pad = ops.padded_len(d)
+    p = d_pad // 8
+    pad = d_pad - d
+    delta = F.pad(0.01 * torch.randn(m, d, generator=gen, device=dev), (0, pad), value=-1.0)
+    res = F.pad(0.005 * torch.randn(m, d, generator=gen, device=dev), (0, pad))
+    u = F.pad(torch.rand(m, d, generator=gen, device=dev), (0, pad), value=1.0)
+    b = F.pad(torch.full((d,), 0.01, device=dev), (0, pad), value=1.0)
+    packed = stoch_quant_pack(delta, b, u)
+    w = torch.randn(m, d, generator=gen, device=dev)
+    w0 = torch.randn(d, generator=gen, device=dev)
+    g = torch.randn(m, d, generator=gen, device=dev)
+    mom = torch.randn(m, d, generator=gen, device=dev)
+
+    # (kernel call, plain call, bytes moved, f32-class operations)
+    cases = {
+        "stoch_quant_pack": (lambda: stoch_quant_pack(delta, b, u),
+                             lambda: ref.stoch_quant_compress_ref(delta, b, u),
+                             8 * m * d_pad + 4 * d_pad + m * p, 7 * m * d_pad),
+        "stoch_quant_ef": (lambda: stoch_quant_ef(delta, res, b, u),
+                           lambda: ref.stoch_quant_compress_ref(delta, b, u, res, want_residual=True),
+                           16 * m * d_pad + 4 * d_pad + m * p, 9 * m * d_pad),
+        "bit_aggregate": (lambda: bit_aggregate(packed, b),
+                          lambda: ref.bit_aggregate_ref(packed, b),
+                          m * p + 8 * d_pad, 24 * m * p + 4 * d_pad),
+        "prox_sgd": (lambda: prox_sgd(w, w0, g, mom, 0.01, 0.2, 0.5),
+                     lambda: ref.prox_sgd_ref(w, w0, g, mom, 0.01, 0.2, 0.5),
+                     20 * m * d + 4 * d, 6 * m * d),
+    }
+    rows = []
+    for name, (kern, plain, nbytes, ops_n) in cases.items():
+        ms = timed_ms(kern)
+        plain_ms = timed_ms(plain, reps=10)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops_n / PEAK_F32_OPS_PER_S * 1e3
+        source, replaces = KERNELS[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(run["launches"][name] for run in runs.values()),
+            "launches_by_variant": {v: run["launches"][name] for v, run in runs.items()},
+            "max_abs_err": chk.max_err[name],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "bytes": nbytes, "gbs": nbytes / (ms * 1e-3) / 1e9,
+            "copy_bound_ms": nbytes / (copy_gbs * 1e9) * 1e3,
+            "shape": f"M={m} d={d} d_pad={d_pad}",
+        })
+    return rows
+
+
+def copy_bandwidth_gbs(dev) -> float:
+    """Measured device-to-device copy rate: (read + write) bytes / time of a
+    256 MiB f32 copy, the memcpy-bound method of benchmarks/kernels_micro.py."""
+    import torch
+
+    n = (256 << 20) // 4
+    src = torch.ones(n, device=dev)
+    dst = torch.empty_like(src)
+    ms = timed_ms(lambda: dst.copy_(src), reps=20)
+    return 2 * 4 * n / (ms * 1e-3) / 1e9
+
+
+def main() -> int:
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke run needs the card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+
+    build_s = _build.build_all()
+    print(json.dumps({"phase": "build", "seconds": build_s, "dir": str(_build.build_dir())}), flush=True)
+
+    chk = Checker()
+    t0 = time.perf_counter()
+    check_kernels(chk, dev)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "kernels_vs_plain", "checked": sorted(chk.count), "comparisons": chk.count,
+                      "max_abs_err": chk.max_err, "seconds": time.perf_counter() - t0}), flush=True)
+    require(sorted(chk.count) == sorted(KERNELS), f"not every kernel was checked: {sorted(chk.count)}")
+
+    from repro_torch.fl import FLConfig
+
+    runs = main_path(dev)
+    print(json.dumps({"phase": "main_path",
+                      **{k: {"launches": v["launches"], "expected_launches": expected_launches(k),
+                             "loss": [r["loss"] for r in v["rounds"]], "b": [r["b"] for r in v["rounds"]],
+                             "round_seconds": [r["seconds"] for r in v["rounds"]], "acc": v["acc"],
+                             "d": v["d"], "wire_row_bytes": v["wire_row_bytes"]}
+                         for k, v in runs.items()}}), flush=True)
+    for name, run in runs.items():
+        require(run["launches"] == expected_launches(name),
+                f"variant {name}: launches {run['launches']} != expected {expected_launches(name)}")
+    for name in KERNELS:
+        require(any(run["launches"][name] for run in runs.values()), f"main path never launched {name}")
+    check_main_path(runs, FLConfig().b_init)
+
+    ref_runs = main_path(dev, engine="ref", variants={"a": VARIANTS["a"]})
+    require(not any(ref_runs["a"]["launches"].values()),
+            f"the engine='ref' run launched a kernel: {ref_runs['a']['launches']}")
+    for t, (k_rec, r_rec) in enumerate(zip(runs["a"]["rounds"], ref_runs["a"]["rounds"])):
+        require(torch.equal(k_rec["theta"], r_rec["theta"]), f"round {t}: theta differs from the ref run")
+        require(k_rec["loss"] == r_rec["loss"], f"round {t}: loss {k_rec['loss']} vs ref {r_rec['loss']}")
+        require(k_rec["b"] == r_rec["b"], f"round {t}: b {k_rec['b']} vs ref {r_rec['b']}")
+    require(len(runs["a"]["rounds"]) == len(ref_runs["a"]["rounds"]) == MAIN["rounds"],
+            "the kernel and ref runs of (a) ran different numbers of rounds")
+    print(json.dumps({"phase": "ref_rerun", "equal_rounds": MAIN["rounds"],
+                      "round_seconds_ref": [r["seconds"] for r in ref_runs["a"]["rounds"]]}), flush=True)
+
+    copy_gbs = copy_bandwidth_gbs(dev)
+    rows = kernel_times(dev, runs, chk, copy_gbs)
+    print(json.dumps({"phase": "times", "card": card, "copy_gbs": copy_gbs,
+                      "round_seconds_a": [r["seconds"] for r in runs["a"]["rounds"]]}), flush=True)
+    if "--profile" in sys.argv[1:]:
+        print(json.dumps(profile_round(dev)), flush=True)
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

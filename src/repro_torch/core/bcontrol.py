@@ -1,0 +1,68 @@
+"""Dynamic quantization-range controller for ``b`` (paper §VI-B).
+
+Counterpart of ``repro/core/bcontrol.py``. Each client uploads one extra
+bit a round: +1 if its local loss decreased during local training, -1
+otherwise. The server sums the votes; on a positive sum ``b`` is
+multiplied by ``up`` (1.01), otherwise (a tie included) by ``down``
+(0.98). ``fixed`` mode freezes ``b``; the omniscient ``oracle`` mode comes
+with a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+__all__ = [
+    "BControlConfig",
+    "BState",
+    "init_b_state",
+    "loss_bit",
+    "update_b",
+    "update_b_from_vote",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class BControlConfig:
+    mode: str = "dynamic"  # dynamic | fixed
+    init: float = 0.01
+    up: float = 1.01
+    down: float = 0.98
+
+
+@dataclasses.dataclass(frozen=True)
+class BState:
+    """Scalar controller state as 0-dim f32 tensors on the round's device."""
+
+    b: torch.Tensor
+    prev_vote: torch.Tensor  # last vote sum, for logging
+
+
+def init_b_state(cfg: BControlConfig, device=None) -> BState:
+    return BState(
+        b=torch.tensor(cfg.init, dtype=torch.float32, device=device),
+        prev_vote=torch.tensor(0.0, dtype=torch.float32, device=device),
+    )
+
+
+def loss_bit(loss_before: torch.Tensor, loss_after: torch.Tensor) -> torch.Tensor:
+    """The one-bit training signal a client uploads: +1 = loss decreased
+    (strictly), else -1."""
+    return torch.where(loss_after < loss_before, 1, -1).to(torch.int8)
+
+
+def update_b(state: BState, bits: torch.Tensor, cfg: BControlConfig) -> BState:
+    """Sum the loss bits and rescale ``b``."""
+    return update_b_from_vote(state, bits.float().sum(), cfg)
+
+
+def update_b_from_vote(state: BState, vote: torch.Tensor, cfg: BControlConfig) -> BState:
+    """Rescale ``b`` from an already-summed vote: ``up`` only on vote > 0.
+    The factor is f32, as in the reference."""
+    if cfg.mode == "fixed":
+        return BState(b=state.b * 1.0, prev_vote=vote)
+    up = torch.tensor(cfg.up, dtype=torch.float32, device=state.b.device)
+    down = torch.tensor(cfg.down, dtype=torch.float32, device=state.b.device)
+    return BState(b=state.b * torch.where(vote > 0, up, down), prev_vote=vote)

@@ -1,0 +1,168 @@
+"""Stochastic one-bit compressor (paper Eq. 5) and the packed wire format.
+
+Counterpart of ``repro/core/quantizer.py`` for the one-bit wire. A client
+with model difference ``delta`` and public range ``b`` emits
+
+    c_i = +1  with probability (b_i + delta_i) / (2 b_i)
+    c_i = -1  otherwise
+
+packed 8 codes to a byte, LSB first (bit 1 encodes +1). The uniforms come
+from the port's Threefry (:mod:`repro_torch.prng`) on the reference's
+counter-derived schedule, so the wire is byte-identical to the JAX wire.
+
+Wire widths: the chunked packer here emits ``padded_dim(d)/8`` bytes a row;
+the kernel wire of :mod:`repro_torch.kernels.ops` emits
+``padded_len(d)/8``. Pad coordinates carry delta = -1, b = 1, so their bits
+are deterministically 0 and the two widths realign losslessly.
+
+The k-bit level grid, the 16-bit draws and the weighted counts of the
+reference come with later slices of the port.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import prng
+
+__all__ = [
+    "PACK_CHUNK",
+    "wire_bytes",
+    "binarize_prob",
+    "pack_bits",
+    "unpack_bits",
+    "padded_dim",
+    "client_uniforms",
+    "packed_binarize_batch",
+    "packed_counts",
+]
+
+PACK_CHUNK = 8192  # coordinates per uniform-draw chunk (multiple of 8)
+
+
+def wire_bytes(d: int, bits: int = 1, *, d_pad: int | None = None) -> int:
+    """Uplink bytes of one client's packed wire row (``bits`` per value).
+
+    ``d_pad`` is the padded coordinate count the producing wire emits
+    (``padded_dim`` for the chunked packer, ``ops.padded_len`` for the
+    kernel wire); ``None`` gives the unpadded ``ceil(d/8)`` floor.
+    """
+    n = d if d_pad is None else d_pad
+    return bits * ((n + 7) // 8)
+
+
+def binarize_prob(delta: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Probability that the compressor emits +1 (Eq. 5), with clipping.
+
+    Same f32 operation order as the reference: clip, then
+    ``0.5 + (0.5 * delta) / b``; a dead coordinate (``b <= 0``) gets 1/2.
+    """
+    delta = delta.float()
+    b = torch.broadcast_to(b, delta.shape).float()
+    delta = torch.clamp(delta, -b, b)
+    live = b > 0
+    safe_b = torch.where(live, b, torch.ones_like(b))
+    p = 0.5 + 0.5 * delta / safe_b
+    return torch.where(live, p, torch.full_like(p, 0.5))
+
+
+def _shifts(device) -> torch.Tensor:
+    return torch.arange(8, dtype=torch.int32, device=device)
+
+
+def _pack_bool_lastdim(bits: torch.Tensor) -> torch.Tensor:
+    """(..., 8k) bool -> (..., k) uint8, LSB-first within each byte."""
+    b8 = bits.reshape(bits.shape[:-1] + (bits.shape[-1] // 8, 8)).to(torch.int32)
+    return (b8 << _shifts(bits.device)).sum(-1).to(torch.uint8)
+
+
+def _unpack_lastdim(packed: torch.Tensor) -> torch.Tensor:
+    """(..., k) uint8 -> (..., 8k) {0, 1} uint8, LSB-first."""
+    x = packed.to(torch.int32).unsqueeze(-1) >> _shifts(packed.device)
+    return (x & 1).to(torch.uint8).reshape(packed.shape[:-1] + (-1,))
+
+
+def pack_bits(codes: torch.Tensor) -> torch.Tensor:
+    """Pack ±1 codes into uint8 words, 8 codes a byte (LSB first); the
+    flat length is padded to a multiple of 8 with -1 codes (0 bits)."""
+    flat = codes.reshape(-1)
+    pad = (-flat.shape[0]) % 8
+    flat = torch.nn.functional.pad(flat, (0, pad), value=-1)
+    return _pack_bool_lastdim(flat > 0)
+
+
+def unpack_bits(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bits`; returns ±1 int8 codes of length ``n``."""
+    bits = _unpack_lastdim(packed.reshape(-1))[:n]
+    return bits.to(torch.int8) * 2 - 1
+
+
+def padded_dim(d: int, chunk: int = PACK_CHUNK) -> int:
+    """Chunked-wire dimension: ``d`` rounded up to whole chunks."""
+    return ((d + chunk - 1) // chunk) * chunk
+
+
+def client_uniforms(client_key: torch.Tensor, n: int, chunk: int = PACK_CHUNK) -> torch.Tensor:
+    """The ``(n,)`` quantizer uniforms of a client, counter-derived per chunk.
+
+    Chunk ``j`` draws ``uniform(fold_in(client_key, j), (chunk,))``, the
+    schedule of the reference's ``client_uniforms`` and
+    ``packed_binarize_batch``. Keys ``(..., 2)`` give ``(..., n)``, one row
+    of uniforms per key.
+    """
+    n_chunks = padded_dim(n, chunk) // chunk
+    j = torch.arange(n_chunks, dtype=torch.int64, device=client_key.device)
+    chunk_keys = prng.fold_in(client_key.unsqueeze(-2), j)
+    u = prng.uniform(chunk_keys, (chunk,))
+    return u.reshape(client_key.shape[:-1] + (-1,))[..., :n]
+
+
+def _pad_batch(deltas: torch.Tensor, b: torch.Tensor, chunk: int):
+    """Pad (M, d) deltas / (d,) b to whole chunks: pad coordinates get
+    delta = -1, b = 1, so their bit is deterministically 0."""
+    m, d = deltas.shape
+    d_pad = padded_dim(d, chunk)
+    deltas = torch.nn.functional.pad(deltas.float(), (0, d_pad - d), value=-1.0)
+    b_full = torch.broadcast_to(torch.as_tensor(b, dtype=torch.float32, device=deltas.device), (d,))
+    b_full = torch.nn.functional.pad(b_full, (0, d_pad - d), value=1.0)
+    return deltas, b_full, d_pad
+
+
+def packed_binarize_batch(
+    key: torch.Tensor,
+    deltas: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    chunk: int = PACK_CHUNK,
+    want_residual: bool = False,
+    row_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Eq.-5 binarize + pack: (M, d) f32 -> (M, padded_dim(d)/8) uint8.
+
+    Client ``m``'s chunk ``j`` draws from
+    ``fold_in(fold_in(key, row_offset + m), j)``, exactly the reference's
+    schedule, so the bytes equal the JAX wire's. With ``want_residual``
+    the error-feedback residual ``delta - c * b`` comes back as (M, d).
+    Unlike the reference this materializes the (M, padded_dim) uniforms at
+    once rather than scanning chunks.
+    """
+    m, d = deltas.shape
+    deltas_p, b_full, d_pad = _pad_batch(deltas, b, chunk)
+    rows = row_offset + torch.arange(m, dtype=torch.int64, device=deltas.device)
+    u = client_uniforms(prng.fold_in(key, rows), d_pad, chunk)
+    bits = u < binarize_prob(deltas_p, b_full)
+    packed = _pack_bool_lastdim(bits)
+    if not want_residual:
+        return packed, None
+    res = deltas_p - torch.where(bits, b_full, -b_full)
+    return packed, res[:, :d]
+
+
+def packed_counts(packed: torch.Tensor) -> torch.Tensor:
+    """Vote counts ``N_i`` from the packed wire: (M, P) uint8 -> (8P,) int32.
+
+    Counts accumulate in int32, never in the uint8 wire dtype, which would
+    wrap past 255 clients. The reference reduces by octet transpose and
+    popcount; the integers are the same.
+    """
+    return _unpack_lastdim(packed).sum(0, dtype=torch.int32)

@@ -1,0 +1,7 @@
+"""Synthetic data and the label-skew partitioner: numpy copies of
+``repro/data`` (the port imports nothing of the JAX package)."""
+
+from .partition import partition_label_skew
+from .synthetic import make_classification
+
+__all__ = ["make_classification", "partition_label_skew"]

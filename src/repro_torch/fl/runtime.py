@@ -1,0 +1,278 @@
+"""FL simulation runtime: the stateful harness around the synchronous round.
+
+Counterpart of ``repro/fl/runtime.py``. :class:`FLConfig` keeps every field
+of the reference's config, so a config carries over unchanged; the fields
+of paths this slice does not port raise ``NotImplementedError`` naming the
+ROADMAP item that ports them. :class:`FLSimulation` runs rounds with the
+reference's key schedule (``key = PRNGKey(seed)``; each round
+``key, kb, kr = split(key, 3)``; batches from ``kb``, the round from
+``kr``), on the card unless ``device="cpu"`` is passed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterator
+
+import torch
+
+from .. import prng
+from ..core import (
+    ACCOUNTANTS,
+    BControlConfig,
+    DPConfig,
+    PrivacyLedger,
+    available_aggregators,
+    build_pipeline,
+    parse_attack,
+)
+from ..core.attacks import UNPORTED_ATTACKS
+from . import rounds as _rounds
+
+__all__ = ["FLConfig", "FLSimulation"]
+
+_B_MODES = ("dynamic", "fixed", "oracle")
+
+# Fields of paths not ported yet: (default, ROADMAP item that ports them).
+_UNPORTED = {
+    "participation": (1.0, "A7 (needs choice)"),
+    "async_buffer": (0, "A7"),
+    "async_latency": (0.0, "A7"),
+    "staleness_decay": (0.0, "A7"),
+    "client_chunk": (0, "A7"),
+    "stateless_clients": (False, "A7"),
+    "stream_shard": (False, "A7"),
+    "wire_bits": (1, "A8"),
+    "client_bits": (None, "A8"),
+    "topk_frac": (1.0, "A9"),
+    "tree_edges": (0, "A10"),
+    "edge_buffer": (0, "A10"),
+    "tree_shard": (False, "A10"),
+    "byz_edges": (0, "A10"),
+    "edge_attack": ("none", "A10"),
+    "edge_merge": ("sum", "A10"),
+    "edge_trim": (0, "A10"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class FLConfig:
+    """The reference's FL config; see ``repro/fl/runtime.py`` for each field."""
+
+    n_clients: int = 20
+    byz_frac: float = 0.0
+    attack: str = "none"
+    aggregator: str = "probit_plus"
+    rounds: int = 30
+    local_epochs: int = 5
+    batch_size: int = 10
+    lr: float = 0.01
+    momentum: float = 0.5
+    lam: float = 0.2
+    dp_epsilon: float = 0.0  # 0 disables DP
+    l1_sensitivity: float = 2e-4
+    b_mode: str = "dynamic"
+    b_init: float = 0.01
+    error_feedback: bool = False
+    topk_frac: float = 1.0
+    participation: float = 1.0
+    dp_accountant: str = "subsampled"
+    async_buffer: int = 0
+    async_latency: float = 0.0
+    staleness_decay: float = 0.0
+    agg_step: float = 0.01
+    gm_iters: int = 16
+    use_kernels: bool = False
+    client_chunk: int = 0
+    stateless_clients: bool = False
+    pack_chunk: int = 0
+    stream_shard: bool = False
+    wire_bits: int = 1
+    client_bits: tuple | None = None
+    tree_edges: int = 0
+    edge_buffer: int = 0
+    tree_shard: bool = False
+    byz_edges: int = 0
+    edge_attack: str = "none"
+    edge_merge: str = "sum"
+    edge_trim: int = 0
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.aggregator not in available_aggregators():
+            raise ValueError(
+                f"unknown aggregator {self.aggregator!r}; available: {available_aggregators()}"
+            )
+        payload, timing = parse_attack(self.attack)  # ValueError on unknown names
+        if self.dp_accountant not in ACCOUNTANTS:
+            raise ValueError(f"unknown dp_accountant {self.dp_accountant!r}; available: {ACCOUNTANTS}")
+        if not 0.0 < self.participation <= 1.0:
+            raise ValueError(f"participation must be in (0, 1], got {self.participation}")
+        if self.b_mode not in _B_MODES:
+            raise ValueError(f"unknown b_mode {self.b_mode!r}; available: {_B_MODES}")
+        if self.pack_chunk < 0 or self.pack_chunk % 8:
+            raise ValueError(f"pack_chunk must be a non-negative multiple of 8, got {self.pack_chunk}")
+        if timing and not self.async_buffer:
+            raise ValueError(
+                f"timing attack {self.attack!r} needs asynchronous rounds "
+                "(set async_buffer > 0); synchronous rounds have no arrival "
+                "schedule to attack"
+            )
+        for name, (default, item) in _UNPORTED.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(f"{name}={getattr(self, name)!r} is not ported yet (ROADMAP {item})")
+        if self.aggregator != "probit_plus":
+            raise NotImplementedError(
+                f"aggregator {self.aggregator!r} is not ported yet (ROADMAP A4: the other servers)"
+            )
+        if self.b_mode == "oracle":
+            raise NotImplementedError("b_mode='oracle' is not ported yet (ROADMAP A4)")
+        if payload in UNPORTED_ATTACKS:
+            raise NotImplementedError(f"attack {payload!r} draws from normal (ROADMAP A7)")
+
+    @property
+    def n_active(self) -> int:
+        return max(int(self.n_clients * self.participation), 1)
+
+    @property
+    def n_byz(self) -> int:
+        return int(self.n_clients * self.byz_frac)
+
+    @property
+    def dp(self) -> DPConfig:
+        return DPConfig(self.dp_epsilon, self.l1_sensitivity)
+
+    @property
+    def sampling_rate(self) -> float:
+        """Client sampling rate ``q``: 1.0 at full participation."""
+        return 1.0 if self.participation >= 1.0 else self.n_active / self.n_clients
+
+    def ledger(self) -> PrivacyLedger:
+        return PrivacyLedger(eps_per_round=self.dp_epsilon, q=self.sampling_rate, accountant=self.dp_accountant)
+
+    @property
+    def bctrl(self) -> BControlConfig:
+        return BControlConfig(self.b_mode, self.b_init)
+
+    def pipeline(self, engine: str | None = None):
+        """The aggregation pipeline of this run; ``engine`` forces the
+        kernel engine of every ``ops`` call."""
+        from ..core.quantizer import PACK_CHUNK
+
+        return build_pipeline(
+            self.aggregator,
+            dp=self.dp,
+            error_feedback=self.error_feedback,
+            use_kernels=self.use_kernels,
+            chunk=self.pack_chunk or PACK_CHUNK,
+            engine=engine,
+        )
+
+
+def _default_device() -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "FLSimulation runs on the card by default and no CUDA device is "
+            "available; pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
+class FLSimulation:
+    """The experiment harness: owns a :class:`~repro_torch.fl.rounds.RoundState`
+    and runs one round per loop iteration, evaluating every ``eval_every``
+    rounds.
+
+    ``device`` defaults to the card and raises when there is none;
+    ``engine`` (``"cuda"`` or ``"ref"``) forces the kernel engine down to
+    every ``ops`` call, e.g. to run the plain versions on the card.
+    """
+
+    def __init__(
+        self,
+        cfg: FLConfig,
+        init_params,
+        loss_fn: Callable,
+        acc_fn: Callable,
+        client_x,
+        client_y,
+        test: dict,
+        *,
+        device=None,
+        engine: str | None = None,
+    ):
+        self.cfg = cfg
+        self.device = torch.device(device) if device is not None else _default_device()
+        self.ctx = _rounds.make_context(
+            cfg, init_params, loss_fn, acc_fn, client_x, client_y, test,
+            device=self.device, engine=engine,
+        )
+        self.state = _rounds.init_state(self.ctx)
+        self._params = _rounds.cell_params(cfg)
+        self.history: list[dict] = []
+        self.ledger = cfg.ledger()
+
+    @property
+    def w_global(self) -> torch.Tensor:
+        return self.state.w_global
+
+    @property
+    def w_locals(self) -> torch.Tensor:
+        return self.state.w_locals
+
+    @property
+    def b_state(self):
+        return self.state.b
+
+    @property
+    def residuals(self) -> torch.Tensor:
+        return self.state.residuals
+
+    @property
+    def pipeline(self):
+        return self.ctx.pipeline
+
+    @property
+    def d(self) -> int:
+        return self.ctx.d
+
+    @property
+    def eps_trajectory(self):
+        """Cumulative DP budget after each executed round."""
+        return self.ledger.trajectory()
+
+    def evaluate(self) -> float:
+        return _rounds.evaluate(self.ctx, self.w_global)
+
+    def iter_rounds(self, rounds: int | None = None) -> Iterator[tuple[int, dict]]:
+        """Run ``rounds`` rounds from ``PRNGKey(seed)``, yielding
+        ``(t, metrics)`` after each (metrics as tensors, theta included)."""
+        rounds = rounds or self.cfg.rounds
+        key = prng.key(self.cfg.seed, self.device)
+        for t in range(rounds):
+            key, kb, kr = prng.split(key, 3)
+            batches = _rounds.round_batches(self.ctx, kb)
+            self.state, metrics = _rounds.fl_round(self.ctx, self._params, kr, self.state, batches)
+            self.ledger.record_round()
+            yield t, metrics
+
+    def run(self, rounds: int | None = None, eval_every: int = 5, verbose: bool = False):
+        cfg = self.cfg
+        rounds = rounds or cfg.rounds
+        for t, metrics in self.iter_rounds(rounds):
+            if (t + 1) % eval_every == 0 or t == rounds - 1:
+                rec = {
+                    "round": t + 1,
+                    "acc": self.evaluate(),
+                    "loss": float(metrics["loss"]),
+                    "b": float(self.state.b.b),
+                    "eps_spent": self.ledger.eps_spent,
+                }
+                self.history.append(rec)
+                if verbose:
+                    print(
+                        f"[{cfg.aggregator}|{cfg.attack}|byz={cfg.byz_frac:.0%}] "
+                        f"round {t+1}: acc={rec['acc']:.4f} loss={rec['loss']:.4f} "
+                        f"b={rec['b']:.5f} eps={rec['eps_spent']:.4g}"
+                    )
+        return self.history

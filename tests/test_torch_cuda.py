@@ -1,0 +1,124 @@
+"""The hand-written CUDA kernels against their plain versions, on the card.
+
+Needs an NVIDIA GPU with nvcc (sm_90a); skips elsewhere. Imports no JAX, so
+on a machine with the card run::
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch import prng  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("m", [1, 5, 300])
+@pytest.mark.parametrize("d", [997, 40522])
+def test_kernels_equal_plain_versions(dev, d, m):
+    from repro_torch.kernels.bit_aggregate import bit_aggregate
+    from repro_torch.kernels.prox_sgd import prox_sgd
+    from repro_torch.kernels.stoch_quant import stoch_quant_ef, stoch_quant_pack
+
+    gen = torch.Generator(device=dev).manual_seed(d + m)
+    d_pad = ops.padded_len(d)
+    pad = d_pad - d
+    b = torch.full((d,), 0.01, device=dev)
+    b[:3] = torch.tensor([0.0, -0.01, 0.02], device=dev)
+    b_p = F.pad(b, (0, pad), value=1.0)
+    delta = F.pad(0.02 * torch.randn(m, d, generator=gen, device=dev), (0, pad), value=-1.0)
+    u = F.pad(torch.rand(m, d, generator=gen, device=dev), (0, pad), value=1.0)
+    res = F.pad(0.005 * torch.randn(m, d, generator=gen, device=dev), (0, pad))
+    packed = stoch_quant_pack(delta, b_p, u)
+    assert torch.equal(packed, ref.stoch_quant_compress_ref(delta, b_p, u)[0])
+    got = stoch_quant_ef(delta, res, b_p, u)
+    want = ref.stoch_quant_compress_ref(delta, b_p, u, res, want_residual=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    b_agg = F.pad(b.abs(), (0, pad))
+    assert torch.equal(bit_aggregate(packed, b_agg), ref.bit_aggregate_ref(packed, b_agg))
+    w, g = torch.randn(m, d, generator=gen, device=dev), torch.randn(m, d, generator=gen, device=dev)
+    mom = torch.randn(m, d, generator=gen, device=dev)
+    for w0 in (w[0].contiguous(), 0.9 * w):
+        got = prox_sgd(w, w0, g, mom, 0.01, 0.2, 0.5)
+        want = ref.prox_sgd_ref(w, w0, g, mom, 0.01, 0.2, 0.5)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_ops_engines_agree_on_card(dev):
+    d, m = 40522, 9
+    gen = torch.Generator(device=dev).manual_seed(3)
+    deltas = 0.02 * torch.randn(m, d, generator=gen, device=dev)
+    res = 0.005 * torch.randn(m, d, generator=gen, device=dev)
+    b = torch.full((d,), 0.01, device=dev)
+    key = prng.key(4, dev)
+    for resid in (None, res):
+        k = ops.stoch_quant_compress_batch(key, deltas, b, residual=resid, want_residual=resid is not None)
+        r = ops.stoch_quant_compress_batch(key, deltas, b, residual=resid, want_residual=resid is not None,
+                                           engine="ref")
+        assert torch.equal(k[0], r[0])
+        assert (k[1] is None and r[1] is None) or torch.equal(k[1], r[1])
+        theta = ops.bit_aggregate(k[0], b, d)
+        assert torch.equal(theta, ops.bit_aggregate(k[0], b, d, engine="ref"))
+
+
+def test_bit_aggregate_padded_tail_on_card(dev):
+    n, m = 997, 5
+    pbytes = ops.padded_len(n) // 8
+    gen = torch.Generator(device=dev).manual_seed(11)
+    packed = torch.randint(0, 256, (m, pbytes), generator=gen, device=dev, dtype=torch.uint8)
+    b = torch.rand(n, generator=gen, device=dev)
+    base = ops.bit_aggregate(packed, b, n)
+    poisoned = packed.clone()
+    full = n // 8
+    poisoned[:, full] |= (0xFF << (8 - (8 * (full + 1) - n))) & 0xFF
+    poisoned[:, full + 1:] = 0xFF
+    assert torch.equal(ops.bit_aggregate(poisoned, b, n), base)
+
+
+def test_round_on_kernels_equals_round_on_plain_versions(dev):
+    """A small FLSimulation through the kernels equals the same run with
+    engine='ref' on the card, round by round, and launches every kernel.
+    With use_kernels=False (the plain versions and the chunked packer's
+    wire) it launches none and gives the same rounds."""
+    from repro_torch.data import make_classification, partition_label_skew
+    from repro_torch.fl import FLConfig, FLSimulation
+    from repro_torch.models import accuracy, init_mlp, mlp_logits, xent_loss
+
+    (xtr, ytr), (xte, yte) = make_classification(0, n_train=600, n_test=100)
+    parts = partition_label_skew(ytr, 6, 2, 20, seed=1)
+    cx, cy = np.stack([xtr[i] for i in parts]), np.stack([ytr[i] for i in parts])
+    p0 = init_mlp(prng.key(0), hidden=16)
+    runs = {}
+    for engine in (None, "ref", "off"):
+        for ef in (False, True):
+            _build.reset_launches()
+            sim = FLSimulation(FLConfig(n_clients=6, rounds=2, local_epochs=2, use_kernels=engine != "off",
+                                        error_feedback=ef),
+                               p0, functools.partial(xent_loss, mlp_logits),
+                               functools.partial(accuracy, mlp_logits), cx, cy, {"x": xte, "y": yte},
+                               device=dev, engine=None if engine == "off" else engine)
+            runs[engine, ef] = ([(m["theta"].clone(), m["loss"].item(), m["b"].item())
+                                 for _, m in sim.iter_rounds()], dict(_build.launches))
+    for ef in (False, True):
+        (kern, kl), (plain, pl), (off, ol) = runs[None, ef], runs["ref", ef], runs["off", ef]
+        assert pl == {} and ol == {}
+        assert kl["bit_aggregate"] == 2 and kl["prox_sgd"] == 2 * 4
+        assert kl["stoch_quant_ef" if ef else "stoch_quant_pack"] == 2
+        for (t1, l1, b1), (t2, l2, b2), (t3, l3, b3) in zip(kern, plain, off):
+            assert torch.equal(t1, t2) and l1 == l2 and b1 == b2
+            assert torch.equal(t1, t3) and l1 == l3 and b1 == b3

@@ -1,0 +1,221 @@
+"""The port's kernel dispatch (repro_torch.kernels.ops) on the CPU against
+the JAX package's: the plain versions the CUDA kernels are held to on the
+card must themselves equal the reference.
+
+JAX side: ``engine="ref"``, which the repo's own kernel tests hold
+bit-identical to Pallas, and ``engine="interpret"`` at tiny sizes only.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+import repro  # noqa: E402,F401
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch import prng  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.bit_aggregate import bit_aggregate as bit_aggregate_wrapper  # noqa: E402
+from repro_torch.kernels.prox_sgd import prox_sgd as prox_sgd_wrapper  # noqa: E402
+from repro_torch.kernels.stoch_quant import stoch_quant_ef, stoch_quant_pack  # noqa: E402
+
+
+def _rand(shape, seed, scale=1.0):
+    return (scale * np.random.default_rng(seed).standard_normal(shape)).astype(np.float32)
+
+
+def test_resolve_engine_policy():
+    assert ops.resolve_engine(None, torch.device("cpu")) == "ref"
+    assert ops.resolve_engine(None, torch.device("cuda")) == "cuda"
+    assert ops.resolve_engine("ref", torch.device("cuda")) == "ref"
+    assert ops.resolve_engine("cuda", torch.device("cpu")) == "cuda"
+    with pytest.raises(ValueError):
+        ops.resolve_engine("pallas")
+
+
+@pytest.mark.parametrize("d", [997, 1024, 40522])
+def test_padded_len(d):
+    assert ops.padded_len(d) == jops.padded_len(d)
+
+
+@pytest.mark.parametrize("ef", [False, True])
+@pytest.mark.parametrize("d,m", [(997, 5), (8193, 3), (40522, 9)])
+def test_stoch_quant_compress_batch_vs_jax_ref(d, m, ef):
+    """Kernel-width wire bytes (padded_len(d)/8) and EF residuals. The
+    reference compressor adds the residual before calling ops; the port
+    passes it in (the kernel fuses the add) — same f32 sum."""
+    deltas = _rand((m, d), d, 0.02)
+    res = _rand((m, d), d + 1, 0.005)
+    b = np.full((d,), 0.01, np.float32)
+    eff = deltas + res if ef else deltas
+    jp, jr = jops.stoch_quant_compress_batch(
+        jax.random.PRNGKey(4), eff, b, row_offset=2, want_residual=ef, engine="ref"
+    )
+    tp, tr = ops.stoch_quant_compress_batch(
+        prng.key(4), torch.from_numpy(deltas), torch.from_numpy(b),
+        residual=torch.from_numpy(res) if ef else None, row_offset=2, want_residual=ef,
+    )
+    assert tp.shape == (m, ops.padded_len(d) // 8)
+    np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
+    if ef:
+        np.testing.assert_array_equal(np.asarray(jr), tr.numpy())
+
+
+@pytest.mark.parametrize("ef", [False, True])
+def test_stoch_quant_compress_batch_vs_jax_interpret(ef):
+    """Against the Pallas kernels themselves, in interpret mode (tiny size)."""
+    d, m = 1500, 3
+    deltas = _rand((m, d), 5, 0.02)
+    b = np.full((d,), 0.012, np.float32)
+    jp, jr = jops.stoch_quant_compress_batch(
+        jax.random.PRNGKey(6), deltas, b, want_residual=ef, engine="interpret"
+    )
+    tp, tr = ops.stoch_quant_compress_batch(
+        prng.key(6), torch.from_numpy(deltas), torch.from_numpy(b), want_residual=ef
+    )
+    np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
+    if ef:
+        np.testing.assert_array_equal(np.asarray(jr), tr.numpy())
+
+
+@pytest.mark.parametrize("n,m", [(1024, 1), (5000, 16), (997, 5), (4096, 300)])
+def test_bit_aggregate_vs_jax_ref(n, m):
+    """theta_hat bit for bit, M = 300 included (a uint8 count would wrap)."""
+    rng = np.random.default_rng(n + m)
+    packed = rng.integers(0, 256, (m, ops.padded_len(n) // 8), dtype=np.uint8)
+    b = np.abs(rng.standard_normal(n)).astype(np.float32)
+    want = np.asarray(jops.bit_aggregate(packed, b, n, engine="ref"))
+    got = ops.bit_aggregate(torch.from_numpy(packed), torch.from_numpy(b), n)
+    np.testing.assert_array_equal(want, got.numpy())
+
+
+def test_bit_aggregate_vs_jax_interpret():
+    n, m = 2048, 3
+    rng = np.random.default_rng(9)
+    packed = rng.integers(0, 256, (m, n // 8), dtype=np.uint8)
+    b = np.abs(rng.standard_normal(n)).astype(np.float32)
+    want = np.asarray(jops.bit_aggregate(packed, b, n, engine="interpret"))
+    got = ops.bit_aggregate(torch.from_numpy(packed), torch.from_numpy(b), n)
+    np.testing.assert_array_equal(want, got.numpy())
+
+
+def test_bit_aggregate_padded_tail_never_leaks():
+    """tests/test_kernels.py's poison case: n % 8 != 0, M % 8 != 0, all-ones
+    pad bits must not reach theta_hat[:n]; and the result equals JAX's."""
+    n, m = 997, 5
+    pbytes = ops.padded_len(n) // 8
+    rng = np.random.default_rng(11)
+    packed = rng.integers(0, 256, (m, pbytes), dtype=np.uint8)
+    b = np.abs(rng.standard_normal(n)).astype(np.float32)
+    base = ops.bit_aggregate(torch.from_numpy(packed), torch.from_numpy(b), n)
+    poisoned = packed.copy()
+    full = n // 8
+    poisoned[:, full] |= (0xFF << (8 - (8 * (full + 1) - n))) & 0xFF
+    poisoned[:, full + 1:] = 0xFF
+    got = ops.bit_aggregate(torch.from_numpy(poisoned), torch.from_numpy(b), n)
+    np.testing.assert_array_equal(base.numpy(), got.numpy())
+    want = np.asarray(jops.bit_aggregate(jnp.asarray(poisoned), b, n, engine="ref"))
+    np.testing.assert_array_equal(want, got.numpy())
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_server_count_protocol_in_client_chunks(use_kernels):
+    """Vote counts folded in over client chunks finalize to the JAX server's
+    estimate (its division by M compiled under jit, as the round runs it),
+    and the one-shot aggregate of the whole wire gives the same."""
+    from repro.core import aggregation as jagg
+    from repro_torch.core import aggregation as tagg
+
+    n, m, splits = 997, 7, ((0, 3), (3, 7))
+    rng = np.random.default_rng(13)
+    packed = rng.integers(0, 256, (m, ops.padded_len(n) // 8), dtype=np.uint8)
+    b = np.abs(rng.standard_normal(n)).astype(np.float32)
+    jserver = jagg.ProBitPlusServer()
+    jcounts = jserver.init_counts(packed.shape[1])
+    for lo, hi in splits:
+        jcounts = jserver.accumulate_counts(jcounts, jnp.asarray(packed[lo:hi]))
+    want = np.asarray(jax.jit(lambda c, bb: jserver.finalize(c, m, bb))(jcounts, b))
+
+    server = tagg.ProBitPlusServer(use_kernels=use_kernels)
+    counts = server.init_counts(packed.shape[1])
+    for lo, hi in splits:
+        counts = server.accumulate_counts(counts, torch.from_numpy(packed[lo:hi]))
+    assert counts.dtype == torch.int32
+    np.testing.assert_array_equal(want, server.finalize(counts, m, torch.from_numpy(b)).numpy())
+    wire = tagg.PackedWire(packed=torch.from_numpy(packed), b=torch.from_numpy(b), d=n)
+    np.testing.assert_array_equal(want, server.aggregate(wire).numpy())
+
+
+@pytest.mark.parametrize("shared_w0", [False, True])
+@pytest.mark.parametrize("n", [1024, 3333])
+def test_prox_sgd(n, shared_w0):
+    """Exact against the separate-op f32 formula. Against JAX within two
+    roundings of each term: XLA on the CPU contracts lam*(w - w0) + grad
+    and w - eta*m' into fused multiply-adds, the port (and its kernel)
+    rounds every operation."""
+    m = 4
+    w, g = _rand((m, n), 1), _rand((m, n), 2)
+    mom = _rand((m, n), 3, 0.1)
+    w0 = 0.9 * w[0] if shared_w0 else 0.9 * w
+    eta, lam, mu = 0.01, 0.2, 0.5
+    tw, tm = ops.prox_sgd(*(torch.from_numpy(x) for x in (w, w0, g, mom)), eta, lam, mu)
+    f32 = np.float32
+    gt = g + f32(lam) * (w - w0)
+    nm = f32(mu) * mom + gt
+    np.testing.assert_array_equal(tm.numpy(), nm)
+    np.testing.assert_array_equal(tw.numpy(), w - f32(eta) * nm)
+    jw, jm = jax.vmap(lambda *a: jops.prox_sgd(*a, eta, lam, mu, engine="ref"))(
+        w, np.broadcast_to(w0, w.shape), g, mom
+    )
+    eps = np.finfo(np.float32).eps
+    tol_m = 2 * eps * (np.abs(g) + np.abs(f32(lam) * (w - w0)) + np.abs(f32(mu) * mom))
+    tol_w = 2 * eps * (np.abs(w) + f32(eta) * (np.abs(nm) + tol_m))
+    assert np.all(np.abs(np.asarray(jm) - tm.numpy()) <= tol_m)
+    assert np.all(np.abs(np.asarray(jw) - tw.numpy()) <= tol_w)
+
+
+def test_wrappers_take_plain_version_on_cpu_tensors():
+    """A kernel wrapper given CPU tensors computes the plain version and
+    launches nothing."""
+    _build.reset_launches()
+    d_pad, m = 2048, 3
+    delta = torch.from_numpy(_rand((m, d_pad), 1, 0.02))
+    res = torch.from_numpy(_rand((m, d_pad), 2, 0.005))
+    u = torch.rand(m, d_pad, generator=torch.Generator().manual_seed(0))
+    b = torch.full((d_pad,), 0.01)
+    assert torch.equal(stoch_quant_pack(delta, b, u), ref.stoch_quant_compress_ref(delta, b, u)[0])
+    got = stoch_quant_ef(delta, res, b, u)
+    want = ref.stoch_quant_compress_ref(delta, b, u, res, want_residual=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    packed = got[0]
+    assert torch.equal(bit_aggregate_wrapper(packed, b), ref.bit_aggregate_ref(packed, b))
+    w = delta[:, :1000].contiguous()
+    pw = prox_sgd_wrapper(w, w[0].contiguous(), w, w, 0.01, 0.2, 0.5)
+    rw = ref.prox_sgd_ref(w, w[0], w, w, 0.01, 0.2, 0.5)
+    assert torch.equal(pw[0], rw[0]) and torch.equal(pw[1], rw[1])
+    assert sum(_build.launches.values()) == 0
+
+
+def test_wrappers_reject_bad_inputs():
+    with pytest.raises(ValueError):
+        stoch_quant_pack(torch.zeros(2, 12), torch.zeros(12), torch.zeros(2, 12))  # 12 % 8
+    with pytest.raises(ValueError):
+        stoch_quant_pack(torch.zeros(2, 16, dtype=torch.float64), torch.zeros(16), torch.zeros(2, 16))
+    with pytest.raises(ValueError):
+        bit_aggregate_wrapper(torch.zeros(2, 4, dtype=torch.uint8), torch.zeros(31))
+    with pytest.raises(ValueError):
+        prox_sgd_wrapper(torch.zeros(2, 5), torch.zeros(4), torch.zeros(2, 5), torch.zeros(2, 5), 0.1, 0.1, 0.1)
+
+
+def test_build_dir_is_the_checkout_or_the_variable(monkeypatch, tmp_path):
+    """Kernels build inside the source checkout unless a directory is named."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    monkeypatch.delenv("REPRO_TORCH_BUILD_DIR", raising=False)
+    assert _build.build_dir() == root / "build" / "torch_ext"
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "ext"))
+    assert _build.build_dir() == (tmp_path / "ext").resolve()

@@ -1,0 +1,175 @@
+"""One synchronous PRoBit+ round of the port against the JAX package's.
+
+Stage test: the JAX round's own deltas go through the port's compressor,
+estimate and epilogue, so wire, theta_hat and b can be held exact. End to
+end: both FLSimulations on the same config, data and weights.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import repro  # noqa: E402,F401
+from repro.data import make_classification, partition_label_skew  # noqa: E402
+from repro.fl import FLConfig as JConfig, FLSimulation as JSim  # noqa: E402
+from repro.fl import rounds as jr  # noqa: E402
+from repro.models import vision as jv  # noqa: E402
+from repro_torch import prng  # noqa: E402
+from repro_torch.fl import FLConfig, FLSimulation  # noqa: E402
+from repro_torch.fl import rounds as tr  # noqa: E402
+from repro_torch.models import vision as tv  # noqa: E402
+
+N_CLIENTS, PER_CLIENT, HIDDEN = 6, 20, 16
+
+
+@functools.lru_cache(maxsize=None)
+def _task():
+    (xtr, ytr), (xte, yte) = make_classification(0, n_train=600, n_test=100)
+    parts = partition_label_skew(ytr, N_CLIENTS, 2, PER_CLIENT, seed=1)
+    cx = np.stack([xtr[i] for i in parts])
+    cy = np.stack([ytr[i] for i in parts])
+    p0 = {k: np.asarray(v) for k, v in jv.init_mlp(jax.random.PRNGKey(0), hidden=HIDDEN).items()}
+    return p0, cx, cy, {"x": xte, "y": yte}
+
+
+def _sims(**kw):
+    p0, cx, cy, test = _task()
+    base = dict(n_clients=N_CLIENTS, rounds=3, local_epochs=2, use_kernels=True)
+    base.update(kw)
+    js = JSim(JConfig(**base), p0, functools.partial(jv.xent_loss, jv.mlp_logits),
+              functools.partial(jv.accuracy, jv.mlp_logits), cx, cy, test)
+    ts = FLSimulation(FLConfig(**base), p0, functools.partial(tv.xent_loss, tv.mlp_logits),
+                      functools.partial(tv.accuracy, tv.mlp_logits), cx, cy, test, device="cpu")
+    return js, ts
+
+
+def test_batch_indices_follow_the_key_schedule():
+    js, ts = _sims()
+    jkey, tkey = jax.random.PRNGKey(0), prng.key(0)
+    ids = torch.arange(N_CLIENTS)
+    for _ in range(3):
+        jkey, jkb, _ = jax.random.split(jkey, 3)
+        tkey, tkb, _ = prng.split(tkey, 3)
+        want = jax.vmap(lambda m: jr._client_batch_idx(js.ctx, jkb, m))(np.arange(N_CLIENTS))
+        got = tr._client_batch_idx(ts.ctx, tkb, ids)
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+        np.testing.assert_array_equal(
+            np.asarray(jr.round_batches(js.ctx, jkb)["y"]), tr.round_batches(ts.ctx, tkb)["y"].numpy()
+        )
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    {"error_feedback": True},
+    {"byz_frac": 0.34, "attack": "bit_flip"},
+    {"dp_epsilon": 0.5},
+    {"use_kernels": False},
+], ids=["plain", "ef", "bit_flip", "dp", "chunked_wire"])
+def test_stage_jax_deltas_through_port_server(kw):
+    """JAX _client_uploads' deltas, fed to the port's compress -> estimate
+    -> _finish_round: wire bytes, theta_hat and b exact."""
+    js, ts = _sims(**kw)
+    jctx, tctx = js.ctx, ts.ctx
+    params = jr.cell_params(jctx.cfg)
+    jkey, tkey = jax.random.fold_in(jax.random.PRNGKey(9), 1), prng.fold_in(prng.key(9), 1)
+    state = js.state
+    # give the EF path a non-zero carry and b a non-default value
+    state = jr.RoundState(w_global=state.w_global, w_locals=state.w_locals,
+                          b=jr.BState(b=np.float32(0.0123), prev_vote=np.float32(0.0)),
+                          residuals=0.001 * jax.random.normal(jax.random.PRNGKey(2), state.residuals.shape))
+    batches = jr.round_batches(jctx, jax.random.PRNGKey(5))
+    up = jax.jit(lambda k, s, b: jr._client_uploads(jctx, params, k, s, b))
+    sel, w_new, lb, la, deltas_att, jwire, jres = up(jkey, state, batches)
+    jtheta = jax.jit(jctx.pipeline.estimate)(jwire)
+
+    t_state = tr.RoundState(
+        w_global=torch.from_numpy(np.array(state.w_global)),
+        w_locals=torch.from_numpy(np.array(state.w_locals)),
+        b=tr.BState(b=torch.tensor(np.float32(0.0123)), prev_vote=torch.tensor(0.0)),
+        residuals=torch.from_numpy(np.array(state.residuals)),
+    )
+    _, k_q = prng.split(prng.fold_in(tkey, 1), 2)
+    twire, tres = tctx.pipeline.compress_wire(
+        k_q, torch.from_numpy(np.array(deltas_att)), t_state.b.b, t_state.residuals, flip_n=tctx.flip_n
+    )
+    np.testing.assert_array_equal(np.asarray(jwire.packed), twire.packed.numpy())
+    np.testing.assert_array_equal(np.asarray(jres), tres.numpy())
+    ttheta = tctx.pipeline.estimate(twire)
+    np.testing.assert_array_equal(np.asarray(jtheta), ttheta.numpy())
+
+    jnew, _ = jax.jit(lambda s, *a: jr._finish_round(jctx, s, *a, jr.RoundState))(
+        state, sel, w_new, lb, la, jres, jtheta, deltas_att
+    )
+    t2 = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    tnew, met = tr._finish_round(tctx, t_state, t2(w_new), t2(lb), t2(la), tres, ttheta, t2(deltas_att))
+    assert np.float32(jnew.b.b) == tnew.b.b.item()
+    assert met["b"].item() == tnew.b.b.item()
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    {"error_feedback": True},
+    {"byz_frac": 0.34, "attack": "sign_flip"},
+    {"byz_frac": 0.34, "attack": "bit_flip"},
+    {"byz_frac": 0.34, "attack": "zero_gradient"},
+    {"dp_epsilon": 0.5, "dp_accountant": "advanced"},
+], ids=["plain", "ef", "sign_flip", "bit_flip", "zero_gradient", "dp"])
+def test_flsimulation_end_to_end(kw):
+    """Three rounds of both simulations (JAX's use_kernels resolves to its
+    ref engine on the CPU). The b trajectory is exact and the loss within
+    float tolerance. w_global: theta_hat is exact given equal deltas, but
+    the deltas differ in the last bits (XLA contracts the prox step into
+    fused multiply-adds, and the autograd and XLA gradients sum in other
+    orders), so a bit whose uniform lies within an ulp of its probability
+    may flip: such a coordinate differs by exactly 2b/M. XLA also fuses
+    w + theta into one FMA, so the others agree to an ulp, not exactly."""
+    js, ts = _sims(**kw)
+    jh = js.run(eval_every=1)
+    th = ts.run(eval_every=1)
+    assert [h["b"] for h in jh] == [h["b"] for h in th]
+    np.testing.assert_allclose([h["loss"] for h in th], [h["loss"] for h in jh], rtol=1e-4)
+    np.testing.assert_allclose([h["eps_spent"] for h in th], [h["eps_spent"] for h in jh], rtol=0, atol=0)
+    diff = np.abs(np.asarray(js.w_global) - ts.w_global.numpy())
+    bad = diff > 1e-5
+    assert bad.sum() <= 0.001 * diff.size
+    flips = np.array([2 * h["b"] / N_CLIENTS for h in [{"b": 0.01}] + th[:-1]])
+    for v in diff[bad]:
+        assert np.min(np.abs(v - flips)) <= 1e-6, v
+
+
+def test_flsimulation_needs_a_card_unless_told(monkeypatch):
+    p0, cx, cy, test = _task()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FLSimulation(FLConfig(n_clients=N_CLIENTS), p0, None, None, cx, cy, test)
+
+
+@pytest.mark.parametrize("kw", [
+    {"participation": 0.5},
+    {"client_chunk": 2},
+    {"async_buffer": 2},
+    {"tree_edges": 2},
+    {"topk_frac": 0.5},
+    {"wire_bits": 2},
+    {"client_bits": (1, 2)},
+    {"b_mode": "oracle"},
+    {"aggregator": "fedavg"},
+    {"aggregator": "signsgd_mv"},
+    {"byz_frac": 0.2, "attack": "gaussian"},
+    {"byz_frac": 0.2, "attack": "alie"},
+    {"byz_frac": 0.2, "attack": "ipm"},
+])
+def test_unported_options_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FLConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [{"aggregator": "nope"}, {"attack": "nope"}, {"b_mode": "nope"},
+                                {"attack": "straggler"}, {"dp_accountant": "nope"}])
+def test_bad_options_raise_value_error(kw):
+    with pytest.raises(ValueError):
+        FLConfig(**kw)
