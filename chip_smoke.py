@@ -9,11 +9,14 @@ Phases (any failure raises and exits non-zero before the result line):
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the four hand-written CUDA kernels (``nvcc``, one
-   process per source, in parallel) and print the build seconds;
+   process per source, in parallel) and print the build seconds and
+   ptxas's registers, shared memory and spills of every kernel;
 3. kernels against their plain versions on the card, bit for bit, at
    d in {997, 40522, 118282} and M in {1, 5, 100, 300}, plus the
    padded-tail poison case and theta_hat against the Eq.-13 estimate of
-   the vote counts;
+   the vote counts; then ``bit_aggregate`` at d = 997 for M from 1 to
+   150,001 (random, all-ones and all-zeros wires) and at M = 10,000 with
+   d = 118,282, writing nothing at or beyond n;
 4. main path: ``FLSimulation`` with probit_plus, dynamic b and the kernels,
    on the paper's MLP at its default width (hidden 128, d = 118,282) with
    100 clients, 3 rounds in each of four variants: (a) plain, (b) error
@@ -26,7 +29,10 @@ Phases (any failure raises and exits non-zero before the result line):
    on the card): every round's theta_hat, loss and b must equal the kernel
    run exactly;
 5. times: each kernel at the shapes of (a) against its plain version, its
-   byte bound and the card's measured copy bandwidth;
+   byte bound and the card's measured copy bandwidth; then
+   ``bit_aggregate`` at d = 118,282 and M from 100 to 10,000, through the
+   wrapper and at every cluster size, beside the time of an empty kernel
+   launched the same way, and the SASS instructions of its counting loop;
 6. with ``--profile`` only: one round of (a) under ``torch.profiler``,
    its device time by round step and by operator.
 
@@ -36,17 +42,22 @@ The last three lines are the per-kernel JSON, the card line and
 
 from __future__ import annotations
 
+import argparse
 import functools
 import json
 import os
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
+# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit). A
+# kernel's operations are counted against the f32 rate, B3's one-bit vote
+# adds too: bytes bound B3 at any rate above 8 operations per wire byte at
+# 3.35 TB/s (26.8 T/s), which one-bit adds, 32 to a logic instruction, exceed.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
@@ -80,7 +91,12 @@ def card_line() -> str:
 
 
 def timed_ms(fn, reps: int = 30, warmup: int = 3, repeats: int = 5) -> float:
-    """Device milliseconds per call: the median over ``repeats`` batches of
+    """Device milliseconds per call: the median of :func:`timed_batches`."""
+    return statistics.median(timed_batches(fn, reps, warmup, repeats))
+
+
+def timed_batches(fn, reps: int = 30, warmup: int = 3, repeats: int = 5) -> list[float]:
+    """Device milliseconds per call in each of ``repeats`` batches of
     ``reps`` calls, each batch timed by CUDA events.
 
     A ``torch.cuda._sleep`` kernel runs before each batch and holds the
@@ -88,8 +104,6 @@ def timed_ms(fn, reps: int = 30, warmup: int = 3, repeats: int = 5) -> float:
     the device work back to back, not the host's Python overhead per
     launch. The sleep grows until it outlasts the host's queueing.
     """
-    import statistics
-
     import torch
 
     for _ in range(warmup):
@@ -114,7 +128,7 @@ def timed_ms(fn, reps: int = 30, warmup: int = 3, repeats: int = 5) -> float:
         else:
             require(cycles < 2_000_000_000, f"host needs {host_ms} ms to queue {reps} calls")
             cycles *= 4
-    return statistics.median(batches)
+    return batches
 
 
 class Checker:
@@ -213,6 +227,52 @@ def check_kernels(chk: Checker, dev) -> None:
     poisoned[:, full + 1:] = 0xFF
     chk.same("bit_aggregate", ops.bit_aggregate(poisoned, b, n, engine="cuda"), base, "padded-tail poison")
     chk.same("bit_aggregate", base, ops.bit_aggregate(packed, b, n, engine="ref"), "poison base vs ref")
+
+
+# B3's client counts (phase 3): every cluster size of launch_geometry (1
+# block a tile to M = 384, 2 at 500, 4 at 1,000, 8 beyond), past 2**16
+# votes a coordinate (70,001), and past one flush of the byte-lane counters,
+# which every row stream reaches beyond 4,080 rows (150,001).
+B3_CHECK_M = (1, 7, 8, 100, 255, 256, 257, 500, 1_000, 70_001, 150_001)
+
+
+def check_bit_aggregate(chk: Checker, dev) -> None:
+    """Phase 3, B3 in depth: bit for bit against its plain version at d = 997
+    for every M of B3_CHECK_M (random, all-ones and all-zeros wires) and at
+    M = 10,000 with the main path's d = 118,282; no write at or beyond n (a
+    poisoned tail of the output buffer survives the launch); and rows that
+    are not 4-byte aligned."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bit_aggregate import bit_aggregate
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    cases = [(997, m) for m in B3_CHECK_M] + [(118_282, 10_000)]
+    for n, m in cases:
+        p = ops.padded_len(n) // 8
+        b = torch.rand(8 * p, generator=gen, device=dev) + 0.5
+        random = torch.randint(0, 256, (m, p), generator=gen, device=dev, dtype=torch.uint8)
+        fills = {"random": random}
+        if n == 997 and m in (255, 256, 70_001, 150_001) or n == 118_282:
+            fills["ones"] = torch.full_like(random, 0xFF)
+            fills["zeros"] = torch.zeros_like(random)
+        for fill, packed in fills.items():
+            tag = f"n={n} M={m} {fill}"
+            buf = torch.full((8 * p,), float("nan"), device=dev)
+            got = bit_aggregate(packed, b[:n], out=buf[:n])
+            chk.same("bit_aggregate", got, ref.bit_aggregate_ref(packed, b[:n]), tag)
+            chk.same("bit_aggregate", got, ref.bit_aggregate_ref(packed, b)[:n], tag + " vs the 8P result")
+            require(bool(buf[n:].isnan().all()), f"bit_aggregate {tag}: wrote at or beyond n")
+
+    # Rows off 4-byte boundaries (P = 125, and a wire one byte past its
+    # allocation): the kernel reads bytes, not words.
+    for m in (7, 500, 70_001):
+        flat = torch.randint(0, 256, (m * 125 + 1,), generator=gen, device=dev, dtype=torch.uint8)
+        b = torch.rand(997, generator=gen, device=dev)
+        for packed in (flat[:-1].view(m, 125), flat[1:].view(m, 125)):
+            chk.same("bit_aggregate", bit_aggregate(packed, b), ref.bit_aggregate_ref(packed, b),
+                     f"n=997 P=125 M={m} unaligned")
 
 
 @functools.lru_cache(maxsize=None)
@@ -381,9 +441,9 @@ def kernel_times(dev, runs, chk: Checker, copy_gbs: float):
         "stoch_quant_ef": (lambda: stoch_quant_ef(delta, res, b, u),
                            lambda: ref.stoch_quant_compress_ref(delta, b, u, res, want_residual=True),
                            16 * m * d_pad + 4 * d_pad + m * p, 9 * m * d_pad),
-        "bit_aggregate": (lambda: bit_aggregate(packed, b),
-                          lambda: ref.bit_aggregate_ref(packed, b),
-                          m * p + 8 * d_pad, 24 * m * p + 4 * d_pad),
+        "bit_aggregate": (lambda: bit_aggregate(packed, b[:d]),
+                          lambda: ref.bit_aggregate_ref(packed, b[:d]),
+                          *b3_work(m, d)),
         "prox_sgd": (lambda: prox_sgd(w, w0, g, mom, 0.01, 0.2, 0.5),
                      lambda: ref.prox_sgd_ref(w, w0, g, mom, 0.01, 0.2, 0.5),
                      20 * m * d + 4 * d, 6 * m * d),
@@ -410,6 +470,139 @@ def kernel_times(dev, runs, chk: Checker, copy_gbs: float):
     return rows
 
 
+def b3_work(m: int, d: int) -> tuple[int, int]:
+    """(bytes, operations) that B3's inputs need for ``m`` clients and ``d``
+    coordinates, whatever the implementation: the ceil(d / 8) wire bytes of
+    each row, b read and theta_hat written at length d; one vote add per
+    coordinate per client (8 a wire byte) and the estimate's 4 operations
+    per coordinate. Wire bytes past ceil(d / 8) hold no coordinate and are
+    not read."""
+    return m * ((d + 7) // 8) + 8 * d, m * d + 4 * d
+
+
+# B3 over the cohort (phase 5): the main path's M = 100; 1,000, whose wire
+# stays in the 50 MB L2 across repetitions; 10,000, well past it; and 300
+# and 3,000, between the cluster sizes that launch_geometry picks.
+B3_SWEEP_M = (100, 300, 1_000, 3_000, 10_000)
+L2_BYTES = 50 << 20
+
+
+def b3_sweep(dev, copy_gbs: float) -> dict:
+    """Phase 5, B3 over the cohort: d = 118,282 and M in B3_SWEEP_M, each
+    with its bytes, bound and share of bound through the wrapper (the
+    cluster size launch_geometry picks), and the C entry's time at every
+    cluster size, each checked against the wrapper's result first; the
+    time of an empty kernel launched like B3 at M = 100
+    (``launch_floor_ms``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.bit_aggregate import bit_aggregate, launch_geometry
+
+    d = 118_282
+    p = ops.padded_len(d) // 8
+    gen = torch.Generator(device=dev).manual_seed(77)
+    b = torch.rand(d, generator=gen, device=dev)
+    out = torch.empty(d, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.library("bit_aggregate")
+    tiles, cluster = launch_geometry(B3_SWEEP_M[0], d)
+
+    def empty():
+        require(lib.probit_bit_aggregate_empty(tiles * cluster, cluster, stream) == 0, "empty launch failed")
+
+    floor_batches = timed_batches(empty)
+    rows = []
+    for m in B3_SWEEP_M:
+        packed = torch.randint(0, 256, (m, p), generator=gen, device=dev, dtype=torch.uint8)
+        wrapper = functools.partial(bit_aggregate, packed, b)
+        want = wrapper()
+        batches = timed_batches(wrapper)
+        ms = statistics.median(batches)
+        nbytes, ops_n = b3_work(m, d)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound = max(t_bytes, ops_n / PEAK_F32_OPS_PER_S * 1e3)
+        tiles_m, picked = launch_geometry(m, d)
+        recip = float(np.float32(1.0) / np.float32(m))
+        by_cluster = {}
+        for size in (1, 2, 4, 8):
+            def launch():
+                rc = lib.probit_bit_aggregate(packed.data_ptr(), b.data_ptr(), out.data_ptr(), m, p, d, recip,
+                                              tiles_m, size, stream)
+                require(rc == 0, f"bit_aggregate M={m} cluster={size}: cudaError_t {rc}")
+
+            out.fill_(float("nan"))
+            launch()
+            require(torch.equal(out, want), f"bit_aggregate M={m} cluster={size}: differs from the wrapper")
+            by_cluster[size] = timed_ms(launch)
+        rows.append({"M": m, "d": d, "P": p, "bytes": nbytes, "l2_resident": nbytes < L2_BYTES,
+                     "bound_ms": bound, "bound_by": "bytes" if bound == t_bytes else "operations",
+                     "copy_bound_ms": nbytes / (copy_gbs * 1e9) * 1e3,
+                     "ms": ms, "min_ms": min(batches), "max_ms": max(batches),
+                     "gbs": nbytes / (ms * 1e-3) / 1e9, "share_of_bound": bound / ms,
+                     "tiles": tiles_m, "cluster": picked, "ms_by_cluster": by_cluster})
+    return {"phase": "b3_sweep", "launch_floor_ms": statistics.median(floor_batches),
+            "launch_floor_range_ms": [min(floor_batches), max(floor_batches)],
+            "launch_floor_geometry": {"blocks": tiles * cluster, "cluster": cluster}, "rows": rows,
+            "sass": b3_sass()}
+
+
+def kernel_resources() -> dict:
+    """ptxas's report of every kernel (the build's ``-Xptxas -v`` log):
+    registers, barriers, shared memory, stack and spills, by kernel."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    report, name = {}, None
+    for source in _build.SOURCES:
+        for line in _build.build_log(source).splitlines():
+            if m := re.search(r"Function properties for (\S+)", line):
+                name = m.group(1)
+                report[name] = []
+            elif name and ("stack frame" in line or "Used" in line):
+                report[name].append(line.split(":", 1)[-1].strip())
+    require(report, "no ptxas report in the build log")
+    demangled = subprocess.run([str(pathlib.Path(_build._nvcc()).with_name("cu++filt"))], input="\n".join(report),
+                               capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()
+    return {re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::|\((?:int|bool)\)", "", full[:full.rindex("(")]):
+            ", ".join(lines) for full, lines in zip(demangled, report.values())}
+
+
+def b3_sass() -> dict:
+    """SASS of B3's counting loop in the aligned kernel with 8 blocks a tile
+    (``cuobjdump -sass`` of the built library). The loop runs from the
+    target of its longest backward branch to that branch; its steady path
+    takes every forward branch inside it (the full 16-row group, no
+    flush), and covers 64 wire bytes a thread."""
+    import collections
+    import re
+
+    from repro_torch.kernels import _build
+
+    cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(_build._target("bit_aggregate"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    body = text.split("bit_aggregate_kernelILi8ELb1E", 1)[1].split("Function :", 1)[0]
+    ins = {int(a, 16): op.strip() for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)}
+    jumps = {a: int(t, 16) for a, op in ins.items() for t in re.findall(r"\bBRA\s+0x([0-9a-f]+)", op)}
+    head, edge = max(((t, a) for a, t in jumps.items() if t < a), key=lambda x: x[1] - x[0])
+    addrs = sorted(ins)
+    following = dict(zip(addrs, addrs[1:]))
+    path, at = [], head
+    while at != edge:
+        require(head <= at < edge, f"B3's SASS: the steady path leaves the loop at {at:#x}")
+        path.append(at)
+        at = jumps[at] if jumps.get(at, -1) > at else following[at]
+    path.append(edge)
+    opcodes = collections.Counter(
+        next(t for t in ins[a].split() if not t.startswith("@")).split(".")[0] for a in path)
+    return {"kernel": "bit_aggregate_kernel<8, aligned>", "loop_instructions": sum(head <= a <= edge for a in ins),
+            "full_group_instructions": len(path), "per_wire_byte": len(path) / 64,
+            "full_group_opcodes": dict(opcodes)}
+
+
 def copy_bandwidth_gbs(dev) -> float:
     """Measured device-to-device copy rate: (read + write) bytes / time of a
     256 MiB f32 copy, the memcpy-bound method of benchmarks/kernels_micro.py."""
@@ -423,6 +616,9 @@ def copy_bandwidth_gbs(dev) -> float:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true", help="phase 6: one profiled round of (a)")
+    args = parser.parse_args()
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
@@ -440,11 +636,13 @@ def main() -> int:
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     build_s = _build.build_all()
-    print(json.dumps({"phase": "build", "seconds": build_s, "dir": str(_build.build_dir())}), flush=True)
+    print(json.dumps({"phase": "build", "seconds": build_s, "dir": str(_build.build_dir()),
+                      "ptxas": kernel_resources()}), flush=True)
 
     chk = Checker()
     t0 = time.perf_counter()
     check_kernels(chk, dev)
+    check_bit_aggregate(chk, dev)
     torch.cuda.synchronize()
     print(json.dumps({"phase": "kernels_vs_plain", "checked": sorted(chk.count), "comparisons": chk.count,
                       "max_abs_err": chk.max_err, "seconds": time.perf_counter() - t0}), flush=True)
@@ -478,11 +676,15 @@ def main() -> int:
     print(json.dumps({"phase": "ref_rerun", "equal_rounds": MAIN["rounds"],
                       "round_seconds_ref": [r["seconds"] for r in ref_runs["a"]["rounds"]]}), flush=True)
 
+    # Phase 5 times kernels, not allocations: under deterministic algorithms
+    # every torch.empty is filled with NaN by a kernel of its own.
+    torch.utils.deterministic.fill_uninitialized_memory = False
     copy_gbs = copy_bandwidth_gbs(dev)
     rows = kernel_times(dev, runs, chk, copy_gbs)
     print(json.dumps({"phase": "times", "card": card, "copy_gbs": copy_gbs,
                       "round_seconds_a": [r["seconds"] for r in runs["a"]["rounds"]]}), flush=True)
-    if "--profile" in sys.argv[1:]:
+    print(json.dumps(b3_sweep(dev, copy_gbs)), flush=True)
+    if args.profile:
         print(json.dumps(profile_round(dev)), flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -7,7 +7,9 @@ seconds. All sources build in parallel, one ``nvcc`` each, at first use, into
 :func:`build_dir`: ``$REPRO_TORCH_BUILD_DIR`` when it is set, else
 ``build/torch_ext/`` at the root of the source checkout the package runs
 from. A library is named by the hash of its source and flags, so an
-unchanged source is not rebuilt.
+unchanged source is not rebuilt; the compiler's output, with ptxas's
+registers and shared memory of every kernel (``-Xptxas -v``), is kept
+beside it (:func:`build_log`).
 
 Flags: ``-gencode=arch=compute_90a,code=sm_90a -O3`` and no
 ``--use_fast_math`` (the kernels must round exactly like their plain
@@ -28,7 +30,7 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["SOURCES", "build_dir", "build_all", "library", "check", "launches", "reset_launches"]
+__all__ = ["SOURCES", "build_dir", "build_all", "build_log", "library", "check", "launches", "reset_launches"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("stoch_quant", "bit_aggregate", "prox_sgd")
@@ -39,6 +41,8 @@ NVCC_FLAGS = (
     "-shared",
     "-Xcompiler",
     "-fPIC",
+    "-Xptxas",
+    "-v",
 )
 
 _P = ctypes.c_void_p
@@ -50,7 +54,10 @@ _SIGNATURES = {
         "probit_stoch_quant_pack": (_P, _P, _P, _P, _I64, _I64, _P),
         "probit_stoch_quant_ef": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P),
     },
-    "bit_aggregate": {"probit_bit_aggregate": (_P, _P, _P, _I64, _I64, _F, _P)},
+    "bit_aggregate": {
+        "probit_bit_aggregate": (_P, _P, _P, _I64, _I64, _I64, _F, _I64, _I64, _P),
+        "probit_bit_aggregate_empty": (_I64, _I64, _P),
+    },
     "prox_sgd": {"probit_prox_sgd": (_P, _P, _P, _P, _P, _P, _F, _F, _F, _I64, _I64, _I64, _P)},
 }
 
@@ -96,6 +103,12 @@ def _target(name: str) -> pathlib.Path:
     return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
+def build_log(name: str) -> str:
+    """The compiler's output for ``csrc/<name>.cu`` (ptxas's resource
+    report of each kernel), written when its library was built."""
+    return _target(name).with_suffix(".log").read_text()
+
+
 def build_all(names=SOURCES) -> float:
     """Compile every missing library, one ``nvcc`` per source in parallel.
     Returns the wall seconds spent; raises with the compiler's output."""
@@ -116,6 +129,7 @@ def build_all(names=SOURCES) -> float:
             if proc.returncode:
                 errors.append(f"nvcc failed for {name}.cu:\n{out}")
             else:
+                target.with_suffix(".log").write_text(out)
                 os.replace(tmp, target)
         if errors:
             raise RuntimeError("\n".join(errors))

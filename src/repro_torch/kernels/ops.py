@@ -111,10 +111,10 @@ def stoch_quant_compress_batch(
 
 
 def bit_aggregate(packed: torch.Tensor, b: torch.Tensor, n: int, *, engine: str | None = None) -> torch.Tensor:
-    """packed (M, P) uint8, b (n,) -> theta_hat (n,) f32 (Eq. 13).
+    """packed (M, P) uint8, b (n,) or a scalar -> theta_hat (n,) f32 (Eq. 13).
 
-    Pad coordinates (>= n) are sliced away before they can reach the
-    estimate.
+    Pad coordinates (>= n) never reach the estimate: both engines take b at
+    its true length n.
     """
     engine = resolve_engine(engine, packed.device)
     b_full = torch.broadcast_to(b.float(), (n,))
@@ -122,8 +122,7 @@ def bit_aggregate(packed: torch.Tensor, b: torch.Tensor, n: int, *, engine: str 
         return ref.bit_aggregate_ref(packed, b_full)
     from .bit_aggregate import bit_aggregate as kernel
 
-    b_pad = F.pad(b_full, (0, 8 * packed.shape[1] - n))
-    return kernel(packed.contiguous(), b_pad)[:n]
+    return kernel(packed.contiguous(), b_full.contiguous())
 
 
 def prox_sgd(w, w0, grad, momentum, eta: float, lam: float, mu: float, *, engine: str | None = None):

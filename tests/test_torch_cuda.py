@@ -90,6 +90,50 @@ def test_bit_aggregate_padded_tail_on_card(dev):
     assert torch.equal(ops.bit_aggregate(poisoned, b, n), base)
 
 
+@pytest.mark.parametrize("fill", ["random", "ones", "zeros"])
+@pytest.mark.parametrize(
+    "n,m",
+    [(997, m) for m in (1, 7, 8, 100, 255, 256, 257, 500, 1_000, 70_001, 150_001)] + [(118_282, 10_000)],
+)
+def test_bit_aggregate_equals_plain_version(dev, n, m, fill):
+    """B3 bit for bit at every cluster size (1 block a tile up to M = 384,
+    2 at 500, 4 at 1,000, 8 beyond), past 2**16 votes a
+    coordinate (70,001), past a flush of its byte-lane counters (150,001:
+    more than 4,080 rows a row stream) and at the main path's width; all-ones
+    and all-zeros wires put every count at M and at 0. Nothing is written at
+    or beyond n."""
+    from repro_torch.kernels.bit_aggregate import bit_aggregate
+
+    p = ops.padded_len(n) // 8
+    gen = torch.Generator(device=dev).manual_seed(n + m)
+    if fill == "random":
+        packed = torch.randint(0, 256, (m, p), generator=gen, device=dev, dtype=torch.uint8)
+    else:
+        packed = torch.full((m, p), 0xFF if fill == "ones" else 0, device=dev, dtype=torch.uint8)
+    b = torch.rand(8 * p, generator=gen, device=dev) + 0.5
+    buf = torch.full((8 * p,), float("nan"), device=dev)
+    got = bit_aggregate(packed, b[:n], out=buf[:n])
+    assert torch.equal(got, ref.bit_aggregate_ref(packed, b[:n]))
+    assert torch.equal(got, ref.bit_aggregate_ref(packed, b)[:n])
+    assert bool(buf[n:].isnan().all())
+
+
+@pytest.mark.parametrize("m", [7, 500, 70_001])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_bit_aggregate_unaligned_rows(dev, m, offset):
+    """P = 125 bytes a row (P % 4 != 0), and a wire that starts one byte
+    past an allocation: rows are not on 4-byte boundaries, so the kernel
+    reads bytes; the last word of a row is cut at n = 997 (125 bytes)."""
+    from repro_torch.kernels.bit_aggregate import bit_aggregate
+
+    n, p = 997, 125
+    gen = torch.Generator(device=dev).manual_seed(m + offset)
+    flat = torch.randint(0, 256, (m * p + offset,), generator=gen, device=dev, dtype=torch.uint8)
+    packed = flat[offset:].view(m, p)
+    b = torch.rand(n, generator=gen, device=dev)
+    assert torch.equal(bit_aggregate(packed, b), ref.bit_aggregate_ref(packed, b))
+
+
 def test_round_on_kernels_equals_round_on_plain_versions(dev):
     """A small FLSimulation through the kernels equals the same run with
     engine='ref' on the card, round by round, and launches every kernel.

@@ -81,9 +81,12 @@ def test_stoch_quant_compress_batch_vs_jax_interpret(ef):
         np.testing.assert_array_equal(np.asarray(jr), tr.numpy())
 
 
-@pytest.mark.parametrize("n,m", [(1024, 1), (5000, 16), (997, 5), (4096, 300)])
+@pytest.mark.parametrize(
+    "n,m", [(1024, 1), (5000, 16), (997, 5), (4096, 300), (997, 255), (997, 256), (997, 257), (2048, 1000)]
+)
 def test_bit_aggregate_vs_jax_ref(n, m):
-    """theta_hat bit for bit, M = 300 included (a uint8 count would wrap)."""
+    """theta_hat bit for bit, M = 300 included (a uint8 count would wrap),
+    and M around the reference's 256-client tile."""
     rng = np.random.default_rng(n + m)
     packed = rng.integers(0, 256, (m, ops.padded_len(n) // 8), dtype=np.uint8)
     b = np.abs(rng.standard_normal(n)).astype(np.float32)
@@ -100,6 +103,65 @@ def test_bit_aggregate_vs_jax_interpret():
     want = np.asarray(jops.bit_aggregate(packed, b, n, engine="interpret"))
     got = ops.bit_aggregate(torch.from_numpy(packed), torch.from_numpy(b), n)
     np.testing.assert_array_equal(want, got.numpy())
+
+
+def test_bit_aggregate_m257_vs_jax_interpret():
+    """M = 257: the Pallas kernel's second client tile holds one client."""
+    n, m = 997, 257
+    rng = np.random.default_rng(257)
+    packed = rng.integers(0, 256, (m, ops.padded_len(n) // 8), dtype=np.uint8)
+    b = np.abs(rng.standard_normal(n)).astype(np.float32)
+    want = np.asarray(jops.bit_aggregate(packed, b, n, engine="interpret"))
+    got = ops.bit_aggregate(torch.from_numpy(packed), torch.from_numpy(b), n)
+    np.testing.assert_array_equal(want, got.numpy())
+
+
+@pytest.mark.parametrize("m,n", [(1, 8), (7, 997), (65, 997), (257, 5000), (500, 997), (1000, 2048), (2000, 1)])
+def test_bit_aggregate_geometry_tiles_and_streams(m, n):
+    """The tiles cover the ceil(n/8) wire bytes that hold coordinates and
+    none lies wholly beyond them; the cluster is a launchable size, and it
+    stays at one block a tile until a row stream would take more than
+    STREAM_ROWS rows, and then is the smallest that keeps it there (or
+    MAX_CLUSTER)."""
+    from repro_torch.kernels import bit_aggregate as b3
+
+    tiles, cluster = b3.launch_geometry(m, n)
+    assert tiles * b3.TILE_BYTES >= -(-n // 8) > (tiles - 1) * b3.TILE_BYTES
+    assert cluster in (1, 2, 4, 8) and cluster <= b3.MAX_CLUSTER
+    rows_per_stream = [-(-m // (c * b3.WARPS)) for c in (cluster, max(cluster // 2, 1))]
+    assert cluster == b3.MAX_CLUSTER or rows_per_stream[0] <= b3.STREAM_ROWS
+    assert cluster == 1 or rows_per_stream[1] > b3.STREAM_ROWS
+
+
+@pytest.mark.parametrize(
+    "m,cluster", [(1, 1), (100, 1), (384, 1), (385, 2), (768, 2), (1000, 4), (1537, 8), (10_000, 8), (2**24 - 1, 8)]
+)
+def test_bit_aggregate_geometry_follows_the_cohort(m, cluster):
+    """At the main path's wire (P = 14,848 bytes): one block a column tile
+    while a row stream takes at most 96 rows (M = 100: the launch and one
+    round of loads bound the time, and one block a tile measured fastest),
+    then 2, 4 and 8 blocks; from M = 1,000 on at least two blocks per SM
+    of the H100 (132)."""
+    from repro_torch.kernels.bit_aggregate import launch_geometry
+
+    tiles, got = launch_geometry(m, 118_282)
+    assert (tiles, got) == (14_848 // 128, cluster)
+    if m >= 1000:
+        assert tiles * got >= 2 * 132
+
+
+def test_bit_aggregate_wrapper_takes_b_at_length_n():
+    """The wrapper's plain version at n < 8P, into a given buffer too."""
+    n, m = 997, 9
+    rng = np.random.default_rng(5)
+    packed = torch.from_numpy(rng.integers(0, 256, (m, 128), dtype=np.uint8))
+    b = torch.from_numpy(np.abs(rng.standard_normal(n)).astype(np.float32))
+    want = ref.bit_aggregate_ref(packed, b)
+    assert want.shape == (n,)
+    assert torch.equal(bit_aggregate_wrapper(packed, b), want)
+    buf = torch.full((1024,), float("nan"))
+    assert torch.equal(bit_aggregate_wrapper(packed, b, out=buf[:n]), want)
+    assert torch.equal(buf[:n], want) and bool(buf[n:].isnan().all())
 
 
 def test_bit_aggregate_padded_tail_never_leaks():
@@ -204,8 +266,14 @@ def test_wrappers_reject_bad_inputs():
         stoch_quant_pack(torch.zeros(2, 12), torch.zeros(12), torch.zeros(2, 12))  # 12 % 8
     with pytest.raises(ValueError):
         stoch_quant_pack(torch.zeros(2, 16, dtype=torch.float64), torch.zeros(16), torch.zeros(2, 16))
+    wire = torch.zeros(2, 4, dtype=torch.uint8)
+    for bad_b in (torch.zeros(33), torch.zeros(0), torch.zeros(2, 8), torch.zeros(31, dtype=torch.float64)):
+        with pytest.raises(ValueError):
+            bit_aggregate_wrapper(wire, bad_b)  # b: 1 <= n <= 8P, 1-D f32
     with pytest.raises(ValueError):
-        bit_aggregate_wrapper(torch.zeros(2, 4, dtype=torch.uint8), torch.zeros(31))
+        bit_aggregate_wrapper(wire, torch.zeros(31), out=torch.zeros(32))
+    with pytest.raises(ValueError):
+        bit_aggregate_wrapper(torch.zeros(2, 4, 1, dtype=torch.uint8), torch.zeros(31))
     with pytest.raises(ValueError):
         prox_sgd_wrapper(torch.zeros(2, 5), torch.zeros(4), torch.zeros(2, 5), torch.zeros(2, 5), 0.1, 0.1, 0.1)
 
