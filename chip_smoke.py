@@ -28,11 +28,27 @@ Phases (any failure raises and exits non-zero before the result line):
    must have run. Then (a) again with ``engine="ref"`` (the plain versions,
    on the card): every round's theta_hat, loss and b must equal the kernel
    run exactly;
+4b. Byzantine grid (the paper's Table I, ``benchmarks/table1_byzantine.py``)
+   at the main path's width with the kernels, fixed b and 10% Byzantines:
+   probit_plus under gaussian, alie and ipm; signsgd_mv, rsa, fedavg and
+   fed_gm under gaussian, sign_flip, zero_gradient and sample_duplicate;
+   probit_plus with oracle b and with half participation. Each run's launch
+   counts are zeroed just before it and must equal its own expected counts
+   (the baselines launch only ``prox_sgd``), every round must equal its
+   ``engine="ref"`` rerun exactly, theta_hat must keep its scheme's bound
+   (PRoBit+ ``|theta_i| <= b_i``, signSGD-MV ``|theta_i|`` in {0, step},
+   RSA ``|theta_i| <= step * M``) and every loss must be finite; each run
+   prints its round wall times and final accuracy. ``prng.normal`` and
+   ``prng.choice`` on the card must equal their CPU results bit for bit;
 5. times: each kernel at the shapes of (a) against its plain version, its
    byte bound and the card's measured copy bandwidth; then
    ``bit_aggregate`` at d = 118,282 and M from 100 to 10,000, through the
    wrapper and at every cluster size, beside the time of an empty kernel
    launched the same way, and the SASS instructions of its counting loop;
+   and the grid's plain-torch stages (FedAvg, Fed-GM's 16 Weiszfeld steps,
+   the sign wire and its counts, the oracle range, the gaussian attack's
+   draw) at the main path's shapes, each as device time (one call captured
+   in a CUDA graph and replayed) and as eager stream time;
 6. with ``--profile`` only: one round of (a) under ``torch.profiler``,
    its device time by round step and by operator.
 
@@ -67,6 +83,16 @@ VARIANTS = {
     "b": {"error_feedback": True},
     "c": {"byz_frac": 0.3, "attack": "sign_flip"},
     "d": {"byz_frac": 0.3, "attack": "bit_flip"},
+}
+# Phase 4b: the Table I grid, on the main path's model and cohort.
+GRID_BASE = {"b_mode": "fixed", "byz_frac": 0.1}
+GRID = {
+    **{f"probit_plus/{a}": {"attack": a} for a in ("gaussian", "alie", "ipm")},
+    **{f"{agg}/{a}": {"aggregator": agg, "attack": a}
+       for agg in ("signsgd_mv", "rsa", "fedavg", "fed_gm")
+       for a in ("gaussian", "sign_flip", "zero_gradient", "sample_duplicate")},
+    "probit_plus/oracle_b": {"b_mode": "oracle"},
+    "probit_plus/participation_0.5": {"participation": 0.5},
 }
 KERNELS = {
     # name: (CUDA source, Pallas call it replaces)
@@ -298,8 +324,8 @@ def make_sim(dev, extra: dict, engine=None):
     p0, cx, cy, test = _task()
     cfg = FLConfig(
         n_clients=MAIN["n_clients"], rounds=MAIN["rounds"], local_epochs=MAIN["local_epochs"],
-        batch_size=MAIN["batch_size"], aggregator="probit_plus", b_mode="dynamic",
-        use_kernels=True, **extra,
+        batch_size=MAIN["batch_size"], use_kernels=True,
+        **{"aggregator": "probit_plus", "b_mode": "dynamic", **extra},
     )
     return FLSimulation(
         cfg, p0, functools.partial(xent_loss, mlp_logits), functools.partial(accuracy, mlp_logits),
@@ -345,6 +371,105 @@ def main_path(dev, engine=None, variants=VARIANTS):
         out[name] = {"rounds": recs, "launches": launches, "acc": sim.evaluate(), "d": sim.d,
                      "wire_row_bytes": sim.pipeline.compressor.wire_bytes(sim.d)}
     return out
+
+
+def grid_expected_launches(extra: dict) -> dict:
+    """One grid run's launches: PRoBit+ compresses (B1) and counts (B3)
+    once a round whatever its cohort; every scheme takes one prox step (B4)
+    a local step for the whole active cohort."""
+    rounds = MAIN["rounds"]
+    probit = extra.get("aggregator", "probit_plus") == "probit_plus"
+    return {"stoch_quant_pack": rounds if probit else 0, "stoch_quant_ef": 0,
+            "bit_aggregate": rounds if probit else 0,
+            "prox_sgd": rounds * MAIN["local_epochs"] * MAIN["per_client"] // MAIN["batch_size"]}
+
+
+def grid_run(dev, name: str, extra: dict, engine=None) -> dict:
+    """One Byzantine-grid run: launches of its own run, each round's theta,
+    loss, b and wall time, and the bound its scheme puts on theta (checked
+    after the round's timing)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    sim = make_sim(dev, extra, engine)
+    cfg = sim.cfg
+    recs = []
+    w_prev = sim.w_global
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t, met in sim.iter_rounds():
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        theta, loss = met["theta"].clone(), met["loss"].item()
+        tag = f"grid {name} round {t}"
+        require(np.isfinite(loss) and bool(torch.isfinite(theta).all()), f"{tag}: loss {loss} or theta not finite")
+        mag = theta.abs()
+        if cfg.aggregator == "probit_plus":
+            if cfg.b_mode == "oracle":
+                # b_i = max_m |delta_i^m|, and the deltas of an attack-free
+                # full cohort are the new local models minus the old global
+                require(cfg.attack == "none" and cfg.participation == 1.0, f"{tag}: no oracle bound")
+                bound = (sim.w_locals - w_prev).abs().amax(0)
+            else:
+                require(cfg.b_mode == "fixed" and not cfg.dp_epsilon, f"{tag}: no scalar bound")
+                bound = torch.tensor(np.float32(cfg.b_init), device=dev)
+            require(bool((mag <= bound).all()), f"{tag}: |theta| exceeds b by {(mag - bound).max().item()}")
+        elif cfg.aggregator == "signsgd_mv":
+            step = np.float32(cfg.agg_step)
+            require(bool(((mag == 0) | (mag == step)).all()), f"{tag}: |theta| outside {{0, step}}")
+        elif cfg.aggregator == "rsa":
+            cap = np.float32(cfg.agg_step) * np.float32(cfg.n_active)
+            require(bool((mag <= cap).all()), f"{tag}: |theta| {mag.max().item()} > step * M = {cap}")
+        recs.append({"loss": loss, "b": met["b"].item(), "theta": theta, "seconds": seconds})
+        w_prev = sim.w_global
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+    launches = {k: _build.launches[k] for k in KERNELS}
+    require(set(_build.launches) <= set(KERNELS), f"grid {name}: unknown kernel {dict(_build.launches)}")
+    return {"rounds": recs, "launches": launches, "acc": sim.evaluate()}
+
+
+def byzantine_grid(dev) -> dict:
+    """Phase 4b: every GRID run through the kernels, its launch counts, its
+    engine="ref" rerun round for round, and its printed times; then
+    prng.normal and prng.choice on the card against the CPU."""
+    import torch
+
+    from repro_torch import prng
+
+    runs = {}
+    for name, over in GRID.items():
+        extra = {**GRID_BASE, **over}
+        run = grid_run(dev, name, extra)
+        ref = grid_run(dev, name, extra, engine="ref")
+        want = grid_expected_launches(extra)
+        require(run["launches"] == want, f"grid {name}: launches {run['launches']} != expected {want}")
+        require(not any(ref["launches"].values()), f"grid {name}: the engine='ref' run launched {ref['launches']}")
+        require(len(run["rounds"]) == len(ref["rounds"]) == MAIN["rounds"], f"grid {name}: rounds differ")
+        for t, (k, r) in enumerate(zip(run["rounds"], ref["rounds"])):
+            require(torch.equal(k["theta"], r["theta"]) and k["loss"] == r["loss"] and k["b"] == r["b"],
+                    f"grid {name} round {t}: differs from the engine='ref' run")
+        print(json.dumps({"phase": "byzantine_grid", "run": name, "config": extra, "launches": run["launches"],
+                          "round_seconds": [r["seconds"] for r in run["rounds"]],
+                          "round_seconds_ref": [r["seconds"] for r in ref["rounds"]],
+                          "loss": [r["loss"] for r in run["rounds"]], "b": [r["b"] for r in run["rounds"]],
+                          "acc": run["acc"]}), flush=True)
+        runs[name] = run
+
+    key = prng.fold_in(prng.key(13), 1)
+    normal = prng.normal(key.to(dev), (30, 118_282), scale=10.0).cpu()
+    require(torch.equal(normal.view(torch.int32), prng.normal(key, (30, 118_282), scale=10.0).view(torch.int32)),
+            "prng.normal on the card differs from the CPU's")
+    for n in (100, 1_000, 2_000):
+        require(torch.equal(prng.choice(key.to(dev), n, (n // 2,)).cpu(), prng.choice(key, n, (n // 2,))),
+                f"prng.choice(n={n}) on the card differs from the CPU's")
+    print(json.dumps({"phase": "byzantine_grid_done", "runs": len(runs), "equal_rounds": MAIN["rounds"],
+                      "normal_shape": [30, 118_282], "choice_n": [100, 1_000, 2_000]}), flush=True)
+    return runs
 
 
 def profile_round(dev) -> dict:
@@ -407,8 +532,8 @@ def check_main_path(runs, b_init: float) -> None:
 
 def kernel_times(dev, runs, chk: Checker, copy_gbs: float):
     """Phase 5: each kernel at the shapes of variant (a). ``launches`` is
-    the sum over the variants of each one's own count; the counts by
-    variant stand beside it."""
+    the sum over the main-path variants and the grid runs of each one's own
+    count; the counts by run stand beside it."""
     import torch
     import torch.nn.functional as F
 
@@ -468,6 +593,75 @@ def kernel_times(dev, runs, chk: Checker, copy_gbs: float):
             "shape": f"M={m} d={d} d_pad={d_pad}",
         })
     return rows
+
+
+def graph_ms(fn) -> float:
+    """Device ms of one call of a many-kernel stage: the call is captured
+    once in a CUDA graph and :func:`timed_ms` replays the graph, one launch a
+    call (eager calls queued behind the device sleep would fill the
+    launch queue and stall the host)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return timed_ms(graph.replay, reps=10)
+
+
+def stream_ms(fn, reps: int = 5) -> float:
+    """Ms of one eager call on the stream, the host's launch gaps included:
+    CUDA events around ``reps`` back-to-back calls after a synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def stage_times(dev) -> dict:
+    """Phase 5: the grid's plain-torch stages at the main path's shapes
+    (M = 100, d = 118,282): the servers' estimates, the sign wire, the
+    oracle range and the gaussian attack's draw. ``device_ms`` is the
+    kernels' time (:func:`graph_ms`); ``eager_ms`` what an eager call
+    holds the stream, launch gaps included (:func:`stream_ms`)."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core.bcontrol import oracle_b
+    from repro_torch.core.privacy import DPConfig
+    from repro_torch.core.quantizer import packed_counts, packed_sign_batch
+
+    m, d = MAIN["n_clients"], 118_282
+    gen = torch.Generator(device=dev).manual_seed(5)
+    u = 0.01 * torch.randn(m, d, generator=gen, device=dev)
+    packed = packed_sign_batch(u)
+    wire = agg.PackedWire(packed=packed, b=torch.ones(d, device=dev), d=d)
+    key = prng.key(3, dev)
+    n_byz = int(m * GRID_BASE["byz_frac"])
+    cases = {
+        "fedavg_aggregate": lambda: agg.fedavg_aggregate(u),
+        "geometric_median_16": lambda: agg.geometric_median(u, 16),
+        "packed_sign_batch": lambda: packed_sign_batch(u),
+        "packed_counts": lambda: packed_counts(packed),
+        "signsgd_mv_estimate": lambda: agg.SignSGDMVServer().aggregate(wire),
+        "oracle_b": lambda: oracle_b(u, DPConfig(0.0)),
+        "normal_gaussian_attack": lambda: prng.normal(key, (n_byz, d), scale=10.0),
+    }
+    return {"phase": "stage_times", "shape": f"M={m} d={d} n_byz={n_byz}",
+            "device_ms": {name: graph_ms(fn) for name, fn in cases.items()},
+            "eager_ms": {name: stream_ms(fn) for name, fn in cases.items()}}
 
 
 def b3_work(m: int, d: int) -> tuple[int, int]:
@@ -676,13 +870,16 @@ def main() -> int:
     print(json.dumps({"phase": "ref_rerun", "equal_rounds": MAIN["rounds"],
                       "round_seconds_ref": [r["seconds"] for r in ref_runs["a"]["rounds"]]}), flush=True)
 
+    grid = byzantine_grid(dev)
+
     # Phase 5 times kernels, not allocations: under deterministic algorithms
     # every torch.empty is filled with NaN by a kernel of its own.
     torch.utils.deterministic.fill_uninitialized_memory = False
     copy_gbs = copy_bandwidth_gbs(dev)
-    rows = kernel_times(dev, runs, chk, copy_gbs)
+    rows = kernel_times(dev, {**runs, **grid}, chk, copy_gbs)
     print(json.dumps({"phase": "times", "card": card, "copy_gbs": copy_gbs,
                       "round_seconds_a": [r["seconds"] for r in runs["a"]["rounds"]]}), flush=True)
+    print(json.dumps(stage_times(dev)), flush=True)
     print(json.dumps(b3_sweep(dev, copy_gbs)), flush=True)
     if args.profile:
         print(json.dumps(profile_round(dev)), flush=True)

@@ -1,22 +1,34 @@
-"""PRoBit+ aggregation pipeline: client compressor, server, registry.
+"""Aggregation pipelines: client compressor, server, registry.
 
-Counterpart of ``repro/core/aggregation.py`` for the one-bit PRoBit+ wire.
-Two halves joined by the packed wire:
+Counterpart of ``repro/core/aggregation.py`` for the synchronous,
+unweighted round. Two halves joined by a wire:
 
-* :class:`ClientCompressor` — error feedback -> Eq.-5 binarize -> bit pack,
-  emitting a :class:`PackedWire` (``(M, P)`` uint8 rows plus the public
-  range ``b``). With ``use_kernels`` it goes through
-  :func:`repro_torch.kernels.ops.stoch_quant_compress_batch` (the kernel
-  wire, ``padded_len(d)/8`` bytes a row); without, through the chunked
-  packer (``padded_dim(d)/8`` bytes a row).
+* :class:`ClientCompressor` — ``mode="pack_stochastic"`` (PRoBit+):
+  error feedback -> Eq.-5 binarize -> bit pack, emitting a
+  :class:`PackedWire` (``(M, P)`` uint8 rows plus the public range ``b``,
+  the controller's scalar or, with ``b_mode="oracle"``, the per-coordinate
+  :func:`~repro_torch.core.bcontrol.oracle_b`). With ``use_kernels`` it goes
+  through :func:`repro_torch.kernels.ops.stoch_quant_compress_batch` (the
+  kernel wire, ``padded_len(d)/8`` bytes a row); without, through the
+  chunked packer (``padded_dim(d)/8`` bytes a row). ``mode="pack_sign"``
+  (signSGD-MV, RSA) packs ``delta >= 0`` on the chunked wire;
+  ``mode="dense"`` (FedAvg, Fed-GM) passes the updates through as a
+  :class:`DenseWire`.
 * :class:`ServerAggregator` — the vote-count protocol (init, accumulate,
-  finalize); :class:`ProBitPlusServer` finalizes with the Eq.-13 ML
-  estimate ``(2 N_i - M)/M * b_i``, through
-  :func:`repro_torch.kernels.ops.bit_aggregate` (its plain version,
-  ``engine="ref"``, without ``use_kernels``).
+  finalize) for packed wires, ``from_dense`` for dense ones.
+  :class:`ProBitPlusServer` finalizes with the Eq.-13 ML estimate
+  ``(2 N_i - M)/M * b_i`` through :func:`repro_torch.kernels.ops.bit_aggregate`
+  (its plain version, ``engine="ref"``, without ``use_kernels``);
+  :class:`SignSGDMVServer` and :class:`RSAServer` count with
+  :func:`~repro_torch.core.quantizer.packed_counts`, as the reference does.
 
-Not ported yet: the top-k, k-bit, heterogeneous and dense wires, the
-weighted counts, and the signSGD-MV, RSA, FedAvg and Fed-GM servers.
+Every mean is a sum times the f32 reciprocal of the count
+(:func:`mean_rows`): the reference computes its means so under ``jit``
+(XLA folds a division by a constant), and on the card torch divides by a
+Python number the same way, so the CPU and the card agree.
+
+Not ported yet: the top-k, k-bit and heterogeneous wires and the weighted
+counts of the asynchronous server.
 """
 
 from __future__ import annotations
@@ -27,30 +39,62 @@ import numpy as np
 import torch
 
 from .privacy import DPConfig
-from .quantizer import PACK_CHUNK, packed_binarize_batch, packed_counts, padded_dim, wire_bytes
+from .quantizer import PACK_CHUNK, packed_binarize_batch, packed_counts, packed_sign_batch, padded_dim, wire_bytes
 
 __all__ = [
+    "recip32",
+    "mean_rows",
     "ml_estimate_from_counts",
+    "fedavg_aggregate",
+    "geometric_median",
     "PackedWire",
+    "DenseWire",
     "ClientCompressor",
     "ServerAggregator",
     "ProBitPlusServer",
+    "SignSGDMVServer",
+    "RSAServer",
+    "FedAvgServer",
+    "FedGMServer",
     "AggregatorPipeline",
     "build_pipeline",
     "available_aggregators",
 ]
 
 
+def recip32(n: int) -> float:
+    """``f32(1 / n)`` as a Python float."""
+    return float(np.float32(1.0) / np.float32(n))
+
+
+def mean_rows(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the leading axis as ``sum * f32(1/n)``."""
+    return x.sum(0) * recip32(x.shape[0])
+
+
 def ml_estimate_from_counts(counts: torch.Tensor, m: int, b: torch.Tensor) -> torch.Tensor:
     """Eq. 13: ``theta_hat_i = (2 N_i - M)/M * b_i`` in f32.
 
     The division is a multiply by the f32 reciprocal of M: that is what the
-    reference computes under ``jit`` (XLA folds the division by the
-    constant M), and the kernel does the same, so all three agree bit for
-    bit.
+    reference computes under ``jit``, and the kernel does the same, so all
+    three agree bit for bit.
     """
-    recip = float(np.float32(1.0) / np.float32(m))
-    return (2.0 * counts.float() - m) * recip * b
+    return (2.0 * counts.float() - m) * recip32(m) * b
+
+
+def fedavg_aggregate(updates: torch.Tensor) -> torch.Tensor:
+    """FedAvg: the mean of the (M, d) client updates."""
+    return mean_rows(updates)
+
+
+def geometric_median(updates: torch.Tensor, iters: int = 16, eps: float = 1e-8) -> torch.Tensor:
+    """Fed-GM (Yin et al. 2018): ``iters`` smoothed Weiszfeld steps from the
+    mean, each weighting row ``m`` by ``1 / sqrt(||u_m - y||^2 + eps)``."""
+    y = fedavg_aggregate(updates)
+    for _ in range(iters):
+        w = 1.0 / torch.sqrt(((updates - y) ** 2).sum(-1) + eps)
+        y = (updates * w[:, None]).sum(0) / torch.clamp(w.sum(), min=1e-12)
+    return y
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,32 +115,50 @@ class PackedWire:
 
 
 @dataclasses.dataclass(frozen=True)
+class DenseWire:
+    """Full-precision passthrough (FedAvg / Fed-GM)."""
+
+    updates: torch.Tensor  # (M, d) f32
+
+
+@dataclasses.dataclass(frozen=True)
 class ClientCompressor:
-    """Client half: error feedback -> Eq.-5 binarize -> bit pack.
+    """Client half: ``mode`` is ``"pack_stochastic"`` (PRoBit+: error
+    feedback -> Eq.-5 binarize -> bit pack), ``"pack_sign"`` (sign codes)
+    or ``"dense"`` (identity).
 
     ``engine`` is passed to :mod:`repro_torch.kernels.ops` (None: resolve
     from the tensors' device).
     """
 
+    mode: str = "pack_stochastic"
     error_feedback: bool = False
     dp: DPConfig = DPConfig(0.0)
+    b_mode: str = "dynamic"
     use_kernels: bool = False
     chunk: int = PACK_CHUNK
     engine: str | None = None
 
-    def wire_bytes(self, d: int) -> int:
-        """Bytes per packed wire row for dimension ``d``."""
-        if self.use_kernels:
+    def wire_bytes(self, d: int) -> int | None:
+        """Bytes per packed wire row for dimension ``d`` (None for dense)."""
+        if self.mode == "dense":
+            return None
+        if self.use_kernels and self.mode == "pack_stochastic":
             from ..kernels.ops import padded_len
 
             return wire_bytes(d, d_pad=padded_len(d))
         return wire_bytes(d, d_pad=padded_dim(d, self.chunk))
 
-    def b_vector(self, d: int, b_scalar: torch.Tensor) -> torch.Tensor:
-        """The public (d,) range: the controller's b plus the Theorem-3
-        margin when DP is on."""
+    def _b_vector(self, eff: torch.Tensor, b_scalar: torch.Tensor) -> torch.Tensor:
+        """The public (d,) range: the oracle's per-coordinate max of
+        ``|eff|``, or the controller's b; each plus the Theorem-3 margin when
+        DP is on."""
+        if self.b_mode == "oracle":
+            from .bcontrol import oracle_b
+
+            return oracle_b(eff, self.dp)
         b_eff = b_scalar + self.dp.b_margin if self.dp.enabled else b_scalar
-        return torch.broadcast_to(b_eff.float(), (d,)).contiguous()
+        return torch.broadcast_to(b_eff.float(), (eff.shape[1],)).contiguous()
 
     def compress(
         self,
@@ -106,12 +168,19 @@ class ClientCompressor:
         residuals: torch.Tensor,
         *,
         row_offset: int = 0,
-    ) -> tuple[PackedWire, torch.Tensor]:
+    ):
         """(M, d) updates -> (wire, residuals'). Residuals pass through
-        unchanged unless error feedback is on (never under DP)."""
-        m, d = deltas.shape
+        unchanged unless PRoBit+'s error feedback is on (never under DP)."""
+        d = deltas.shape[1]
+        if self.mode == "dense":
+            return DenseWire(updates=deltas), residuals
+        if self.mode == "pack_sign":
+            packed = packed_sign_batch(deltas, chunk=self.chunk)
+            return PackedWire(packed=packed, b=torch.ones(d, device=deltas.device), d=d), residuals
         use_ef = self.error_feedback and not self.dp.enabled
-        b_vec = self.b_vector(d, b_scalar)
+        # the oracle ranges the error-feedback sum that is quantized
+        oracle_eff = use_ef and self.b_mode == "oracle"
+        b_vec = self._b_vector(deltas + residuals if oracle_eff else deltas, b_scalar)
         if self.use_kernels:
             from ..kernels import ops as kops
 
@@ -135,10 +204,14 @@ class ServerAggregator:
     :meth:`init_counts` makes a zero int32 carry for a ``P``-byte row,
     :meth:`accumulate_counts` folds any client chunk into it (counts are
     additive over clients), :meth:`finalize` applies the scheme's estimate.
-    A scheme's :meth:`aggregate` estimates from a whole wire in one shot.
+    :meth:`aggregate` estimates from a whole wire in one shot: a dense wire
+    through :meth:`from_dense`, a packed one through its vote counts.
     """
 
     def from_counts(self, counts: torch.Tensor, m: int, b: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def from_dense(self, updates: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
     def init_counts(self, p_bytes: int, device=None) -> torch.Tensor:
@@ -152,8 +225,10 @@ class ServerAggregator:
         """The estimate from accumulated counts (pad bits sliced off)."""
         return self.from_counts(counts[: b.shape[0]], m, b)
 
-    def aggregate(self, wire: PackedWire) -> torch.Tensor:
-        raise NotImplementedError
+    def aggregate(self, wire) -> torch.Tensor:
+        if isinstance(wire, DenseWire):
+            return self.from_dense(wire.updates)
+        return self.finalize(packed_counts(wire.packed), wire.n_clients, wire.b)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,6 +255,41 @@ class ProBitPlusServer(ServerAggregator):
 
 
 @dataclasses.dataclass(frozen=True)
+class SignSGDMVServer(ServerAggregator):
+    """signSGD with majority vote (Bernstein et al. 2019): ``step`` times the
+    sign of ``2 N_i - M`` (0 at a tie)."""
+
+    step: float = 0.01
+
+    def from_counts(self, counts, m, b):
+        return self.step * torch.sign(2.0 * counts.float() - m)
+
+
+@dataclasses.dataclass(frozen=True)
+class RSAServer(ServerAggregator):
+    """RSA (Li et al. 2019): ``step`` times the sum of the client signs."""
+
+    step: float = 0.01
+
+    def from_counts(self, counts, m, b):
+        return self.step * (2.0 * counts.float() - m)
+
+
+@dataclasses.dataclass(frozen=True)
+class FedAvgServer(ServerAggregator):
+    def from_dense(self, updates):
+        return fedavg_aggregate(updates)
+
+
+@dataclasses.dataclass(frozen=True)
+class FedGMServer(ServerAggregator):
+    iters: int = 16
+
+    def from_dense(self, updates):
+        return geometric_median(updates, self.iters)
+
+
+@dataclasses.dataclass(frozen=True)
 class AggregatorPipeline:
     """One named aggregation scheme: compressor + server."""
 
@@ -195,10 +305,11 @@ class AggregatorPipeline:
         residuals: torch.Tensor,
         *,
         flip_n: int = 0,
-    ) -> tuple[PackedWire, torch.Tensor]:
+    ):
         """Client half: compress every client onto the wire. ``flip_n > 0``
-        arms the ``bit_flip`` adversary, which inverts the first ``flip_n``
-        rows after compression (their residuals stay the honest ones)."""
+        arms the ``bit_flip`` adversary, which inverts (or, on a dense wire,
+        negates) the first ``flip_n`` rows after compression; their
+        residuals stay the honest ones."""
         wire, residuals = self.compressor.compress(key, deltas, b_scalar, residuals)
         if flip_n:
             from .attacks import flip_wire
@@ -206,40 +317,54 @@ class AggregatorPipeline:
             wire = flip_wire(wire, flip_n)
         return wire, residuals
 
-    def estimate(self, wire: PackedWire) -> torch.Tensor:
+    def estimate(self, wire) -> torch.Tensor:
         """Server half: theta_hat (d,) from the wire."""
         return self.server.aggregate(wire)
 
 
-_AGGREGATORS = ("probit_plus", "fedavg", "fed_gm", "signsgd_mv", "rsa")
+def _build_probit_plus(*, dp, b_mode, error_feedback, use_kernels, chunk, engine, **_):
+    return (
+        ClientCompressor(error_feedback=error_feedback, dp=dp, b_mode=b_mode,
+                         use_kernels=use_kernels, chunk=chunk, engine=engine),
+        ProBitPlusServer(use_kernels=use_kernels, engine=engine),
+    )
+
+
+_PIPELINES = {
+    "probit_plus": _build_probit_plus,
+    "fedavg": lambda *, chunk, **_: (ClientCompressor(mode="dense", chunk=chunk), FedAvgServer()),
+    "fed_gm": lambda *, gm_iters, chunk, **_: (ClientCompressor(mode="dense", chunk=chunk),
+                                               FedGMServer(iters=gm_iters)),
+    "signsgd_mv": lambda *, agg_step, chunk, **_: (ClientCompressor(mode="pack_sign", chunk=chunk),
+                                                   SignSGDMVServer(step=agg_step)),
+    "rsa": lambda *, agg_step, chunk, **_: (ClientCompressor(mode="pack_sign", chunk=chunk),
+                                            RSAServer(step=agg_step)),
+}
 
 
 def available_aggregators() -> tuple[str, ...]:
-    """Every aggregator the reference knows; only probit_plus is ported."""
-    return tuple(sorted(_AGGREGATORS))
+    return tuple(sorted(_PIPELINES))
 
 
 def build_pipeline(
     name: str,
     *,
     dp: DPConfig = DPConfig(0.0),
+    b_mode: str = "dynamic",
     error_feedback: bool = False,
+    agg_step: float = 0.01,
+    gm_iters: int = 16,
     use_kernels: bool = False,
     chunk: int = PACK_CHUNK,
     engine: str | None = None,
 ) -> AggregatorPipeline:
-    """Resolve an aggregator name into a configured pipeline."""
-    if name not in _AGGREGATORS:
+    """Resolve an aggregator name into a configured pipeline. Only PRoBit+
+    reads ``dp``, ``b_mode``, ``error_feedback`` and ``use_kernels``; the
+    sign and dense baselines ignore them, as in the reference."""
+    if name not in _PIPELINES:
         raise ValueError(f"unknown aggregator {name!r}; available: {available_aggregators()}")
-    if name != "probit_plus":
-        raise NotImplementedError(
-            f"aggregator {name!r} is not ported yet (ROADMAP A4: the other servers)"
-        )
-    return AggregatorPipeline(
-        name=name,
-        compressor=ClientCompressor(
-            error_feedback=error_feedback, dp=dp,
-            use_kernels=use_kernels, chunk=chunk, engine=engine,
-        ),
-        server=ProBitPlusServer(use_kernels=use_kernels, engine=engine),
+    compressor, server = _PIPELINES[name](
+        dp=dp, b_mode=b_mode, error_feedback=error_feedback, agg_step=agg_step, gm_iters=gm_iters,
+        use_kernels=use_kernels, chunk=chunk, engine=engine,
     )
+    return AggregatorPipeline(name=name, compressor=compressor, server=server)

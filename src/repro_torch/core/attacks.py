@@ -4,24 +4,31 @@ Counterpart of ``repro/core/attacks.py``. Each delta-level attack rewrites
 the first ``n_byz`` rows; bit schemes then compress the malicious rows with
 the honest quantizer, whose clipping is the paper's amplitude immunity.
 ``bit_flip`` is a no-op at the delta level and instead inverts the first
-``n_byz`` rows of the packed wire (:func:`flip_wire`).
+``n_byz`` rows of the packed wire, or negates them on a dense wire
+(:func:`flip_wire`).
 
-This slice ports the attacks that draw nothing. ``gaussian`` needs
-``normal`` and ``alie``/``ipm`` come with it (ROADMAP A7); the attack ids
-keep the reference's numbering so a later slice only fills them in.
+Every attack takes ``(key, updates, n_byz)``; only ``gaussian`` draws, from
+the port's bit-exact :func:`repro_torch.prng.normal`. The means of
+``zero_gradient``, ``alie`` and ``ipm`` are sums times the f32 reciprocal
+of the count, as the reference computes them under ``jit``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import statistics
 from typing import Callable
 
 import torch
 
+from .. import prng
+from .aggregation import DenseWire, mean_rows, recip32
+
 __all__ = [
+    "alie_z",
     "ATTACK_IDS",
     "ATTACKS",
-    "UNPORTED_ATTACKS",
     "WIRE_ATTACKS",
     "TIMING_ATTACKS",
     "attack_id",
@@ -33,29 +40,66 @@ __all__ = [
 ]
 
 
-def _no_attack(updates, n_byz):
+def _set_byz(updates, n_byz, rows):
+    out = updates.clone()
+    out[:n_byz] = rows
+    return out
+
+
+def _no_attack(key, updates, n_byz):
     return updates
 
 
-def _sign_flip(updates, n_byz):
+def _gaussian(key, updates, n_byz):
+    """Each Byzantine uploads i.i.d. N(0, 100) (sigma = 10), drawn at the
+    true width: the flat index counts over ``n_byz * d``."""
+    return _set_byz(updates, n_byz, prng.normal(key, (n_byz, updates.shape[1]), scale=10.0))
+
+
+def _sign_flip(key, updates, n_byz):
     """Scale the honest update by -5."""
-    out = updates.clone()
-    out[:n_byz] = -5.0 * updates[:n_byz]
-    return out
+    return _set_byz(updates, n_byz, -5.0 * updates[:n_byz])
 
 
-def _zero_gradient(updates, n_byz):
+def _zero_gradient(key, updates, n_byz):
     """Colluding: every Byzantine sends the value that zeroes the sum."""
-    out = updates.clone()
-    out[:n_byz] = -updates[n_byz:].sum(0) / max(n_byz, 1)
-    return out
+    return _set_byz(updates, n_byz, -updates[n_byz:].sum(0) * recip32(max(n_byz, 1)))
 
 
-def _sample_duplicate(updates, n_byz):
+def _sample_duplicate(key, updates, n_byz):
     """Every Byzantine replicates the first honest client's update."""
-    out = updates.clone()
-    out[:n_byz] = updates[n_byz]
-    return out
+    return _set_byz(updates, n_byz, updates[n_byz])
+
+
+@functools.lru_cache(maxsize=None)
+def alie_z(n: int, n_byz: int) -> float:
+    """The ALIE perturbation size ``z`` (Baruch et al. 2019): with ``n``
+    workers of which ``n_byz`` collude, ``s = floor(n/2 + 1) - n_byz``
+    honest supporters are needed and ``z = Phi^-1((n - n_byz - s) /
+    (n - n_byz))``; a quantile at or below 1/2 (the breakdown point is not
+    reached) or ``n_byz = 0`` gives ``z = 0``."""
+    if n_byz <= 0 or n - n_byz <= 0:
+        return 0.0
+    s = n // 2 + 1 - n_byz
+    frac = (n - n_byz - s) / (n - n_byz)
+    if frac <= 0.5:
+        return 0.0
+    frac = min(frac, 1.0 - 1e-9)
+    return float(statistics.NormalDist().inv_cdf(frac))
+
+
+def _alie(key, updates, n_byz):
+    """ALIE: ``mean - z * std`` of the honest updates (``std`` with
+    ``ddof = 0``, as ``jnp.std``), ``z`` from :func:`alie_z`."""
+    honest = updates[n_byz:]
+    mu = mean_rows(honest)
+    sigma = torch.sqrt(mean_rows((honest - mu) ** 2))
+    return _set_byz(updates, n_byz, mu - alie_z(updates.shape[0], n_byz) * sigma)
+
+
+def _ipm(key, updates, n_byz):
+    """Inner-product manipulation: the honest mean scaled by -1.1."""
+    return _set_byz(updates, n_byz, -1.1 * mean_rows(updates[n_byz:]))
 
 
 # Delta-level ids in the reference's order (its lax.switch branch order).
@@ -71,14 +115,14 @@ ATTACK_IDS: tuple[str, ...] = (
 
 ATTACKS: dict[str, Callable] = {
     "none": _no_attack,
+    "gaussian": _gaussian,
     "sign_flip": _sign_flip,
     "zero_gradient": _zero_gradient,
     "sample_duplicate": _sample_duplicate,
-    "bit_flip": _no_attack,  # wire-level: the pipeline flips packed codes
+    "alie": _alie,
+    "ipm": _ipm,
+    "bit_flip": _no_attack,  # wire-level: the pipeline flips the wire
 }
-
-# Known to the reference, not yet ported: they draw from ``normal``.
-UNPORTED_ATTACKS: frozenset[str] = frozenset({"gaussian", "alie", "ipm"})
 
 WIRE_ATTACKS: frozenset[str] = frozenset({"bit_flip"})
 TIMING_ATTACKS: frozenset[str] = frozenset({"straggler"})
@@ -88,16 +132,15 @@ _TIMING_PREFIX = "straggler+"
 def parse_attack(name: str) -> tuple[str, bool]:
     """Split an attack name into ``(payload, straggler)``, as the reference
     does; raises ``ValueError`` on a name the reference does not know."""
-    known = set(ATTACKS) | UNPORTED_ATTACKS
     if name in TIMING_ATTACKS:
         return "none", True
     if name.startswith(_TIMING_PREFIX):
         payload = name[len(_TIMING_PREFIX):]
-        if payload == "none" or payload not in known:
+        if payload == "none" or payload not in ATTACKS:
             raise ValueError(f"unknown straggler payload {payload!r}")
         return payload, True
-    if name not in known:
-        raise ValueError(f"unknown attack {name!r}; known: {tuple(sorted(known))}")
+    if name not in ATTACKS:
+        raise ValueError(f"unknown attack {name!r}; known: {tuple(sorted(ATTACKS))}")
     return name, False
 
 
@@ -115,21 +158,19 @@ def is_timing_attack(name: str) -> bool:
     return parse_attack(name)[1]
 
 
-def apply_attack(idx: int, updates: torch.Tensor, n_byz: int) -> torch.Tensor:
-    """``ATTACKS[ATTACK_IDS[idx]](updates, n_byz)``; returns a new tensor
-    for every attack that rewrites rows."""
-    name = ATTACK_IDS[idx]
-    if name in UNPORTED_ATTACKS:
-        raise NotImplementedError(f"attack {name!r} draws from normal (ROADMAP A7)")
+def apply_attack(idx: int, key: torch.Tensor, updates: torch.Tensor, n_byz: int) -> torch.Tensor:
+    """``ATTACKS[ATTACK_IDS[idx]](key, updates, n_byz)``; returns a new
+    tensor for every attack that rewrites rows."""
     if n_byz == 0:
         return updates
-    return ATTACKS[name](updates, n_byz)
+    return ATTACKS[ATTACK_IDS[idx]](key, updates, n_byz)
 
 
 def flip_wire(wire, n_byz: int):
     """The ``bit_flip`` attack: invert every bit of the first ``n_byz``
-    packed rows. Pad bits flip too; every consumer slices the estimate to
-    the true dimension, so they are inert."""
-    packed = wire.packed.clone()
-    packed[:n_byz] = torch.bitwise_not(packed[:n_byz])
-    return dataclasses.replace(wire, packed=packed)
+    packed rows (pad bits flip too; every consumer slices the estimate to
+    the true dimension, so they are inert), or negate the first ``n_byz``
+    rows of a dense wire."""
+    if isinstance(wire, DenseWire):
+        return DenseWire(updates=_set_byz(wire.updates, n_byz, -wire.updates[:n_byz]))
+    return dataclasses.replace(wire, packed=_set_byz(wire.packed, n_byz, torch.bitwise_not(wire.packed[:n_byz])))

@@ -4,8 +4,9 @@ Counterpart of ``repro/core/bcontrol.py``. Each client uploads one extra
 bit a round: +1 if its local loss decreased during local training, -1
 otherwise. The server sums the votes; on a positive sum ``b`` is
 multiplied by ``up`` (1.01), otherwise (a tie included) by ``down``
-(0.98). ``fixed`` mode freezes ``b``; the omniscient ``oracle`` mode comes
-with a later slice of the port.
+(0.98). ``fixed`` mode freezes ``b``. The omniscient ``oracle`` mode
+ranges each coordinate by the cohort's largest update (:func:`oracle_b`);
+the scalar controller still votes beside it, as in the reference.
 """
 
 from __future__ import annotations
@@ -14,11 +15,14 @@ import dataclasses
 
 import torch
 
+from .privacy import DPConfig, dp_b_floor
+
 __all__ = [
     "BControlConfig",
     "BState",
     "init_b_state",
     "loss_bit",
+    "oracle_b",
     "update_b",
     "update_b_from_vote",
 ]
@@ -26,7 +30,7 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class BControlConfig:
-    mode: str = "dynamic"  # dynamic | fixed
+    mode: str = "dynamic"  # dynamic | fixed | oracle
     init: float = 0.01
     up: float = 1.01
     down: float = 0.98
@@ -66,3 +70,9 @@ def update_b_from_vote(state: BState, vote: torch.Tensor, cfg: BControlConfig) -
     up = torch.tensor(cfg.up, dtype=torch.float32, device=state.b.device)
     down = torch.tensor(cfg.down, dtype=torch.float32, device=state.b.device)
     return BState(b=state.b * torch.where(vote > 0, up, down), prev_vote=vote)
+
+
+def oracle_b(updates: torch.Tensor, dp: DPConfig) -> torch.Tensor:
+    """Omniscient per-coordinate range: ``max_m |delta_i^m|`` plus the DP
+    margin (:func:`~repro_torch.core.privacy.dp_b_floor`)."""
+    return dp_b_floor(updates.abs().amax(0), dp)

@@ -34,6 +34,7 @@ __all__ = [
     "padded_dim",
     "client_uniforms",
     "packed_binarize_batch",
+    "packed_sign_batch",
     "packed_counts",
 ]
 
@@ -156,6 +157,14 @@ def packed_binarize_batch(
         return packed, None
     res = deltas_p - torch.where(bits, b_full, -b_full)
     return packed, res[:, :d]
+
+
+def packed_sign_batch(deltas: torch.Tensor, *, chunk: int = PACK_CHUNK) -> torch.Tensor:
+    """Deterministic sign codes (the signSGD-MV / RSA wire): bit =
+    ``delta >= 0``, (M, d) -> (M, padded_dim(d)/8) uint8; pad coordinates
+    (delta -1) pack 0."""
+    deltas_p, _, _ = _pad_batch(deltas, torch.ones((), device=deltas.device), chunk)
+    return _pack_bool_lastdim(deltas_p >= 0)
 
 
 def packed_counts(packed: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""One synchronous PRoBit+ round (paper Algorithm 1) as state -> state.
+"""One synchronous round (paper Algorithm 1) as state -> state.
 
 Counterpart of the synchronous half of ``repro/fl/rounds.py``
 (:func:`fl_round` and what it calls), with the reference's key schedule,
@@ -6,24 +6,29 @@ so at a fixed seed the port draws the reference's client batches and
 quantizer bits:
 
 * client ``m``'s batch indices: ``randint(fold_in(kb, m), (steps, batch))``;
+* the active cohort under partial participation:
+  ``sel = choice(fold_in(kr, 99), n_clients, (n_active,))``;
 * attack and quantizer keys: ``k_att, k_q = split(fold_in(kr, 1))``;
 * client ``i``'s uniforms: chunk ``j`` from ``fold_in(fold_in(k_q, i), j)``.
 
-The round runs in five steps: every client trains from its personal
-model, prox-regularized toward the global one (the ``prox_sgd`` kernel);
-the deltas pass through the delta-level attack; the compressor puts them on
-the packed wire (``stoch_quant_pack`` or, with error feedback,
-``stoch_quant_ef``); the server estimates theta_hat from the vote counts
-(``bit_aggregate``); the global model steps and the b-controller votes.
+The round runs in five steps: every active client trains from its
+personal model, prox-regularized toward the global one (the ``prox_sgd``
+kernel); the deltas pass through the delta-level attack, whose Byzantines
+are the first ``int(n_active * byz_frac)`` rows of the active cohort; the
+compressor puts them on the wire (PRoBit+: ``stoch_quant_pack`` or, with
+error feedback, ``stoch_quant_ef``); the server estimates theta_hat
+(PRoBit+: ``bit_aggregate``); the global model steps, the b-controller
+votes and the active clients' state is written back at ``sel``.
 
 Each step runs under a ``torch.profiler.record_function`` range
-(``round.batches``, ``round.local_train``, ``round.compress``,
+(``round.batches``, ``round.sample`` under partial participation,
+``round.local_train``, ``round.compress``,
 ``round.estimate``, ``round.finish``), so a profiler trace splits a
 round's device time by step; with no profiler active a range costs a few
 microseconds of host time.
 
-Not ported yet: the streaming, asynchronous and tree rounds, partial
-participation, and the masked campaign contexts.
+Not ported yet: the streaming, asynchronous and tree rounds and the
+masked campaign contexts.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from torch.profiler import record_function
 
 from .. import prng
 from ..core import BState, apply_attack, attack_id, init_b_state, is_wire_attack, loss_bit, update_b
+from ..core.aggregation import mean_rows
 from ..interop import ravel_params
 from ..optim import local_prox_train
 
@@ -176,12 +182,19 @@ def round_batches(ctx: RoundContext, key: torch.Tensor) -> dict:
 
 
 def _client_uploads(ctx, params, key, state, batches):
-    """The client side of a round: local prox-training, delta attack, and
-    compression onto the wire."""
+    """The client side of a round: participation sampling, local
+    prox-training, delta attack, and compression onto the wire. ``sel`` is
+    None at full participation."""
     cfg = ctx.cfg
+    w_sel, res_sel, sel = state.w_locals, state.residuals, None
+    if cfg.participation < 1.0:
+        with record_function("round.sample"):
+            sel = prng.choice(prng.fold_in(key, 99), cfg.n_clients, (cfg.n_active,))
+            w_sel, res_sel = w_sel.index_select(0, sel), res_sel.index_select(0, sel)
+            batches = {k: v.index_select(0, sel) for k, v in batches.items()}
     with record_function("round.local_train"):
         w_new, loss_before, loss_after = local_prox_train(
-            ctx.loss_fn, state.w_global, state.w_locals, ctx.unravel, batches,
+            ctx.loss_fn, state.w_global, w_sel, ctx.unravel, batches,
             lr=params.lr, mu=params.momentum, lam=params.lam,
             use_kernel=cfg.use_kernels, engine=ctx.engine,
         )
@@ -189,24 +202,28 @@ def _client_uploads(ctx, params, key, state, batches):
         deltas = w_new - state.w_global
         k_att, k_q = prng.split(prng.fold_in(key, 1), 2)
         n_byz = int(cfg.n_active * cfg.byz_frac)
-        deltas_att = apply_attack(params.attack_id, deltas, n_byz)
+        deltas_att = apply_attack(params.attack_id, k_att, deltas, n_byz)
         wire, res_new = ctx.pipeline.compress_wire(
-            k_q, deltas_att, state.b.b, state.residuals, flip_n=ctx.flip_n
+            k_q, deltas_att, state.b.b, res_sel, flip_n=ctx.flip_n
         )
-    return w_new, loss_before, loss_after, deltas_att, wire, res_new
+    return sel, w_new, loss_before, loss_after, deltas_att, wire, res_new
 
 
-def _finish_round(ctx, state, w_new, loss_before, loss_after, res_new, theta, deltas_att):
-    """Server epilogue: global step, b-control, state write-back, metrics."""
+def _finish_round(ctx, state, w_new, loss_before, loss_after, res_new, theta, deltas_att, sel=None):
+    """Server epilogue: global step, b-control, write-back of the active
+    clients' state at ``sel`` (all clients when None), metrics."""
     cfg = ctx.cfg
     b_new = update_b(state.b, loss_bit(loss_before, loss_after), cfg.bctrl)
+    if sel is not None:
+        w_new = state.w_locals.index_copy(0, sel, w_new)
+        res_new = state.residuals.index_copy(0, sel, res_new)
     new_state = RoundState(
         w_global=state.w_global + theta, w_locals=w_new, b=b_new, residuals=res_new
     )
     metrics = {
-        "loss": loss_after.mean(),
+        "loss": mean_rows(loss_after),
         "b": b_new.b,
-        "theta_mse": ((theta - deltas_att.mean(0)) ** 2).mean(),
+        "theta_mse": mean_rows((theta - mean_rows(deltas_att)) ** 2),
         "theta": theta,
     }
     return new_state, metrics
@@ -223,13 +240,13 @@ def fl_round(
     update, the aggregation error Theorem 1 bounds) and ``theta``, the
     (d,) estimate itself.
     """
-    w_new, loss_before, loss_after, deltas_att, wire, res_new = _client_uploads(
+    sel, w_new, loss_before, loss_after, deltas_att, wire, res_new = _client_uploads(
         ctx, params, key, state, batches
     )
     with record_function("round.estimate"):
         theta = ctx.pipeline.estimate(wire)
     with record_function("round.finish"):
-        return _finish_round(ctx, state, w_new, loss_before, loss_after, res_new, theta, deltas_att)
+        return _finish_round(ctx, state, w_new, loss_before, loss_after, res_new, theta, deltas_att, sel)
 
 
 @torch.no_grad()

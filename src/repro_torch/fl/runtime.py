@@ -26,7 +26,6 @@ from ..core import (
     build_pipeline,
     parse_attack,
 )
-from ..core.attacks import UNPORTED_ATTACKS
 from . import rounds as _rounds
 
 __all__ = ["FLConfig", "FLSimulation"]
@@ -35,7 +34,6 @@ _B_MODES = ("dynamic", "fixed", "oracle")
 
 # Fields of paths not ported yet: (default, ROADMAP item that ports them).
 _UNPORTED = {
-    "participation": (1.0, "A7 (needs choice)"),
     "async_buffer": (0, "A7"),
     "async_latency": (0.0, "A7"),
     "staleness_decay": (0.0, "A7"),
@@ -103,7 +101,7 @@ class FLConfig:
             raise ValueError(
                 f"unknown aggregator {self.aggregator!r}; available: {available_aggregators()}"
             )
-        payload, timing = parse_attack(self.attack)  # ValueError on unknown names
+        _, timing = parse_attack(self.attack)  # ValueError on unknown names
         if self.dp_accountant not in ACCOUNTANTS:
             raise ValueError(f"unknown dp_accountant {self.dp_accountant!r}; available: {ACCOUNTANTS}")
         if not 0.0 < self.participation <= 1.0:
@@ -121,14 +119,6 @@ class FLConfig:
         for name, (default, item) in _UNPORTED.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(f"{name}={getattr(self, name)!r} is not ported yet (ROADMAP {item})")
-        if self.aggregator != "probit_plus":
-            raise NotImplementedError(
-                f"aggregator {self.aggregator!r} is not ported yet (ROADMAP A4: the other servers)"
-            )
-        if self.b_mode == "oracle":
-            raise NotImplementedError("b_mode='oracle' is not ported yet (ROADMAP A4)")
-        if payload in UNPORTED_ATTACKS:
-            raise NotImplementedError(f"attack {payload!r} draws from normal (ROADMAP A7)")
 
     @property
     def n_active(self) -> int:
@@ -162,7 +152,10 @@ class FLConfig:
         return build_pipeline(
             self.aggregator,
             dp=self.dp,
+            b_mode=self.b_mode,
             error_feedback=self.error_feedback,
+            agg_step=self.agg_step,
+            gm_iters=self.gm_iters,
             use_kernels=self.use_kernels,
             chunk=self.pack_chunk or PACK_CHUNK,
             engine=engine,

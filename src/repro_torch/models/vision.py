@@ -17,15 +17,9 @@ __all__ = ["init_mlp", "mlp_logits", "xent_loss", "accuracy"]
 
 
 def _dense_init(key, shape, device):
-    """``shape[0] ** -0.5 * normal``. The normal draw maps the port's
-    Threefry uniforms through ``sqrt(2) erfinv`` as ``jax.random.normal``
-    does, but torch's ``erfinv`` is not XLA's f32 polynomial, so the weights
-    match the reference's only to a tolerance (a bit-exact ``normal`` is
-    ROADMAP A7)."""
-    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item()
-    u = prng.uniform(key, shape).to(device)
-    z = torch.special.erfinv(u * (1.0 - lo) + lo) * (2.0**0.5)
-    return shape[0] ** -0.5 * z
+    """``shape[0] ** -0.5 * normal``, with the port's bit-exact
+    :func:`repro_torch.prng.normal`."""
+    return shape[0] ** -0.5 * prng.normal(key, shape).to(device)
 
 
 def init_mlp(key: torch.Tensor, in_dim: int = 784, hidden: int = 128, classes: int = 10, *, device=None) -> dict:

@@ -166,3 +166,50 @@ def test_round_on_kernels_equals_round_on_plain_versions(dev):
         for (t1, l1, b1), (t2, l2, b2), (t3, l3, b3) in zip(kern, plain, off):
             assert torch.equal(t1, t2) and l1 == l2 and b1 == b2
             assert torch.equal(t1, t3) and l1 == l3 and b1 == b3
+
+
+def test_normal_and_choice_on_card_equal_cpu(dev):
+    """The card's prng.normal equals the CPU's bit for bit at the gaussian
+    attack's full-width shape, and choice/permutation equal theirs."""
+    k = prng.fold_in(prng.key(21), 1)
+    got = prng.normal(k.to(dev), (30, 118_282), scale=10.0).cpu()
+    assert torch.equal(got.view(torch.int32), prng.normal(k, (30, 118_282), scale=10.0).view(torch.int32))
+    for n in (1, 7, 100, 1000, 2000):
+        assert torch.equal(prng.permutation(k.to(dev), n).cpu(), prng.permutation(k, n))
+        assert torch.equal(prng.choice(k.to(dev), n, (max(n // 2, 1),)).cpu(), prng.choice(k, n, (max(n // 2, 1),)))
+
+
+@pytest.mark.parametrize("aggregator", ["probit_plus", "fedavg", "fed_gm", "signsgd_mv", "rsa"])
+def test_every_attack_b_mode_and_participation_on_card(dev, aggregator):
+    """Each attack under every b_mode at full and half participation, a
+    third of each cohort Byzantine: one round through the kernels equals
+    the engine='ref' round and launches B1 and B3 once (PRoBit+ only) and
+    B4 once a local step."""
+    from repro_torch.data import make_classification, partition_label_skew
+    from repro_torch.fl import FLConfig, FLSimulation
+    from repro_torch.models import accuracy, init_mlp, mlp_logits, xent_loss
+
+    (xtr, ytr), (xte, yte) = make_classification(0, n_train=600, n_test=100)
+    parts = partition_label_skew(ytr, 6, 2, 20, seed=1)
+    cx, cy = np.stack([xtr[i] for i in parts]), np.stack([ytr[i] for i in parts])
+    p0 = init_mlp(prng.key(0), hidden=16)
+    attacks = ("none", "gaussian", "sign_flip", "zero_gradient", "sample_duplicate", "alie", "ipm", "bit_flip")
+    for attack in attacks:
+        for b_mode in ("dynamic", "fixed", "oracle"):
+            for participation in (0.5, 1.0):
+                cfg = FLConfig(n_clients=6, rounds=1, local_epochs=1, use_kernels=True, aggregator=aggregator,
+                               attack=attack, byz_frac=0.34, b_mode=b_mode, participation=participation)
+                out = []
+                for engine in (None, "ref"):
+                    _build.reset_launches()
+                    sim = FLSimulation(cfg, p0, functools.partial(xent_loss, mlp_logits),
+                                       functools.partial(accuracy, mlp_logits), cx, cy, {"x": xte, "y": yte},
+                                       device=dev, engine=engine)
+                    (_, met), = sim.iter_rounds()
+                    out.append((met["theta"].clone(), met["loss"].item(), met["b"].item(), dict(_build.launches)))
+                (t1, l1, b1, kl), (t2, l2, b2, rl) = out
+                pp = aggregator == "probit_plus"
+                assert kl == {"prox_sgd": 2, **({"stoch_quant_pack": 1, "bit_aggregate": 1} if pp else {})}, cfg
+                assert rl == {}
+                assert torch.equal(t1, t2) and l1 == l2 and b1 == b2, cfg
+                assert np.isfinite(l1) and bool(torch.isfinite(t1).all()), cfg

@@ -1,8 +1,9 @@
-"""One synchronous PRoBit+ round of the port against the JAX package's.
+"""One synchronous round of the port against the JAX package's.
 
 Stage test: the JAX round's own deltas go through the port's compressor,
 estimate and epilogue, so wire, theta_hat and b can be held exact. End to
-end: both FLSimulations on the same config, data and weights.
+end: both FLSimulations on the same config, data and weights, for PRoBit+
+and its baselines, every attack, oracle b and partial participation.
 """
 
 import functools
@@ -19,6 +20,7 @@ from repro.fl import FLConfig as JConfig, FLSimulation as JSim  # noqa: E402
 from repro.fl import rounds as jr  # noqa: E402
 from repro.models import vision as jv  # noqa: E402
 from repro_torch import prng  # noqa: E402
+from repro_torch.core import ACCOUNTANTS  # noqa: E402
 from repro_torch.fl import FLConfig, FLSimulation  # noqa: E402
 from repro_torch.fl import rounds as tr  # noqa: E402
 from repro_torch.models import vision as tv  # noqa: E402
@@ -27,9 +29,9 @@ N_CLIENTS, PER_CLIENT, HIDDEN = 6, 20, 16
 
 
 @functools.lru_cache(maxsize=None)
-def _task():
+def _task(n_clients=N_CLIENTS):
     (xtr, ytr), (xte, yte) = make_classification(0, n_train=600, n_test=100)
-    parts = partition_label_skew(ytr, N_CLIENTS, 2, PER_CLIENT, seed=1)
+    parts = partition_label_skew(ytr, n_clients, 2, PER_CLIENT, seed=1)
     cx = np.stack([xtr[i] for i in parts])
     cy = np.stack([ytr[i] for i in parts])
     p0 = {k: np.asarray(v) for k, v in jv.init_mlp(jax.random.PRNGKey(0), hidden=HIDDEN).items()}
@@ -37,7 +39,7 @@ def _task():
 
 
 def _sims(**kw):
-    p0, cx, cy, test = _task()
+    p0, cx, cy, test = _task(kw.get("n_clients", N_CLIENTS))
     base = dict(n_clients=N_CLIENTS, rounds=3, local_epochs=2, use_kernels=True)
     base.update(kw)
     js = JSim(JConfig(**base), p0, functools.partial(jv.xent_loss, jv.mlp_logits),
@@ -141,6 +143,84 @@ def test_flsimulation_end_to_end(kw):
         assert np.min(np.abs(v - flips)) <= 1e-6, v
 
 
+def _jax_rounds(js):
+    """JAX FLSimulation.run's loop, keeping every round's metrics."""
+    key, out = jax.random.PRNGKey(js.cfg.seed), []
+    for _ in range(js.cfg.rounds):
+        key, kb, kr = jax.random.split(key, 3)
+        js.state, met = js._round(kr, js.state, js._round_batches(kb))
+        js.ledger.record_round()
+        out.append({k: float(met[k]) for k in ("loss", "b", "theta_mse")})
+    return out
+
+
+@pytest.mark.parametrize("kw", [
+    {"aggregator": "fedavg"},
+    {"aggregator": "fed_gm"},
+    {"aggregator": "signsgd_mv"},
+    {"aggregator": "rsa", "agg_step": 0.002},
+    {"byz_frac": 0.2, "attack": "gaussian"},
+    {"byz_frac": 0.2, "attack": "alie"},
+    {"byz_frac": 0.2, "attack": "ipm"},
+    {"byz_frac": 0.2, "attack": "sample_duplicate"},
+    {"aggregator": "signsgd_mv", "byz_frac": 0.2, "attack": "gaussian"},
+    {"aggregator": "fedavg", "byz_frac": 0.2, "attack": "bit_flip"},
+    {"aggregator": "fed_gm", "byz_frac": 0.2, "attack": "zero_gradient", "gm_iters": 4},
+    {"b_mode": "oracle"},
+    {"b_mode": "oracle", "dp_epsilon": 0.5, "error_feedback": True},
+    {"participation": 0.5},
+    {"participation": 0.5, "byz_frac": 0.4, "attack": "alie", "error_feedback": True},
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_flsimulation_end_to_end_new_paths(kw):
+    """Three rounds of both simulations at 10 clients, round by round: b
+    exact, loss and theta_mse within the tolerance of
+    test_flsimulation_end_to_end (the deltas agree to float tolerance, not
+    bit for bit; see there)."""
+    js, ts = _sims(n_clients=10, **kw)
+    jm = _jax_rounds(js)
+    tm = [{k: float(met[k]) for k in ("loss", "b", "theta_mse")} for _, met in ts.iter_rounds()]
+    assert [m["b"] for m in tm] == [m["b"] for m in jm]
+    np.testing.assert_allclose([m["loss"] for m in tm], [m["loss"] for m in jm], rtol=1e-4)
+    np.testing.assert_allclose([m["theta_mse"] for m in tm], [m["theta_mse"] for m in jm], rtol=1e-4, atol=1e-12)
+    assert ts.eps_trajectory.tolist() == js.eps_trajectory.tolist()
+
+
+def test_participation_samples_the_reference_cohort():
+    """The active cohort, the gather of its state and batches, and the
+    write-back at sel: the JAX round's uploads fed through the port's
+    epilogue update exactly the sampled rows."""
+    js, ts = _sims(n_clients=10, participation=0.5, error_feedback=True)
+    jctx, tctx = js.ctx, ts.ctx
+    params = jr.cell_params(jctx.cfg)
+    jkey, tkey = jax.random.PRNGKey(4), prng.key(4)
+    batches = jr.round_batches(jctx, jax.random.PRNGKey(5))
+    sel, w_new, lb, la, deltas_att, jwire, jres = jax.jit(
+        lambda k, s, b: jr._client_uploads(jctx, params, k, s, b))(jkey, js.state, batches)
+    tsel = prng.choice(prng.fold_in(tkey, 99), 10, (5,))
+    np.testing.assert_array_equal(np.asarray(sel), tsel.numpy())
+    t2 = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    theta = jax.jit(jctx.pipeline.estimate)(jwire)
+    jnew, _ = jax.jit(lambda s, *a: jr._finish_round(jctx, s, *a, jr.RoundState))(
+        js.state, sel, w_new, lb, la, jres, theta, deltas_att
+    )
+    tnew, _ = tr._finish_round(tctx, ts.state, t2(w_new), t2(lb), t2(la), t2(jres), t2(theta), t2(deltas_att), tsel)
+    np.testing.assert_array_equal(np.asarray(jnew.w_locals), tnew.w_locals.numpy())
+    np.testing.assert_array_equal(np.asarray(jnew.residuals), tnew.residuals.numpy())
+
+
+@pytest.mark.parametrize("accountant", ACCOUNTANTS)
+def test_ledger_at_partial_participation(accountant):
+    """Each config's ledger samples at the realized cohort, q = 5/10."""
+    kw = dict(n_clients=10, participation=0.5, dp_epsilon=0.5, dp_accountant=accountant)
+    j, t = JConfig(**kw).ledger(), FLConfig(**kw).ledger()
+    assert t.q == j.q == 0.5
+    for _ in range(7):
+        j.record_round()
+        t.record_round()
+    assert t.eps_spent == j.eps_spent
+    np.testing.assert_array_equal(t.trajectory(), j.trajectory())
+
+
 def test_flsimulation_needs_a_card_unless_told(monkeypatch):
     p0, cx, cy, test = _task()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -149,19 +229,19 @@ def test_flsimulation_needs_a_card_unless_told(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"participation": 0.5},
+    {"stateless_clients": True},
     {"client_chunk": 2},
     {"async_buffer": 2},
     {"tree_edges": 2},
     {"topk_frac": 0.5},
     {"wire_bits": 2},
     {"client_bits": (1, 2)},
-    {"b_mode": "oracle"},
-    {"aggregator": "fedavg"},
-    {"aggregator": "signsgd_mv"},
-    {"byz_frac": 0.2, "attack": "gaussian"},
-    {"byz_frac": 0.2, "attack": "alie"},
-    {"byz_frac": 0.2, "attack": "ipm"},
+    {"stream_shard": True},
+    {"edge_buffer": 1},
+    {"tree_shard": True},
+    {"byz_edges": 1},
+    {"edge_merge": "median"},
+    {"edge_trim": 1},
 ])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -173,3 +253,41 @@ def test_unported_options_raise(kw):
 def test_bad_options_raise_value_error(kw):
     with pytest.raises(ValueError):
         FLConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"participation": 0.0}, {"participation": 1.5}, {"participation": -0.5},
+    {"aggregator": "krum"}, {"b_mode": "adaptive"}, {"attack": "straggler+none"},
+    {"attack": "straggler+alie"}, {"attack": "straggler+nope"}, {"pack_chunk": 12},
+])
+def test_rejections_match_reference(kw):
+    """What the reference's FLConfig rejects with a ValueError, the port
+    rejects with one too."""
+    with pytest.raises(ValueError):
+        JConfig(**kw)
+    with pytest.raises(ValueError):
+        FLConfig(**kw)
+
+
+GRID_AGGREGATORS = ("probit_plus", "fedavg", "fed_gm", "signsgd_mv", "rsa")
+GRID_ATTACKS = ("none", "gaussian", "sign_flip", "zero_gradient", "sample_duplicate", "alie", "ipm", "bit_flip")
+
+
+@pytest.mark.parametrize("attack", GRID_ATTACKS)
+@pytest.mark.parametrize("aggregator", GRID_AGGREGATORS)
+def test_every_aggregator_attack_b_mode_and_participation_runs(aggregator, attack):
+    """Each (aggregator, attack) pair under every b_mode, at full and at
+    half participation: the reference accepts the config and builds its
+    pipeline, and the port runs a round of it to a finite loss and a theta
+    of the model's width (a third of each cohort Byzantine)."""
+    p0, cx, cy, test = _task()
+    for b_mode in ("dynamic", "fixed", "oracle"):
+        for participation in (0.5, 1.0):
+            kw = dict(n_clients=N_CLIENTS, aggregator=aggregator, attack=attack, byz_frac=0.34, b_mode=b_mode,
+                      participation=participation, rounds=1, local_epochs=1)
+            JConfig(**kw).pipeline()
+            ts = FLSimulation(FLConfig(**kw), p0, functools.partial(tv.xent_loss, tv.mlp_logits),
+                              functools.partial(tv.accuracy, tv.mlp_logits), cx, cy, test, device="cpu")
+            (_, met), = ts.iter_rounds()
+            assert np.isfinite(met["loss"].item()) and met["theta"].shape == (ts.d,), kw
+            assert bool(torch.isfinite(met["theta"]).all()), kw
