@@ -12,7 +12,8 @@ Phases (any failure raises and exits non-zero before the result line):
    process per source, in parallel) and print the build seconds and
    ptxas's registers, shared memory and spills of every kernel;
 3. kernels against their plain versions on the card, bit for bit, at
-   d in {997, 40522, 118282} and M in {1, 5, 100, 300}, plus the
+   d in {997, 40522, 118282} and M in {1, 5, 100, 300}, and at ResNet-18's
+   d = 11,172,042 with M in {1, 8}, plus the
    padded-tail poison case and theta_hat against the Eq.-13 estimate of
    the vote counts; then ``bit_aggregate`` at d = 997 for M from 1 to
    150,001 (random, all-ones and all-zeros wires) and at M = 10,000 with
@@ -40,7 +41,17 @@ Phases (any failure raises and exits non-zero before the result line):
    RSA ``|theta_i| <= step * M``) and every loss must be finite; each run
    prints its round wall times and final accuracy. ``prng.normal`` and
    ``prng.choice`` on the card must equal their CPU results bit for bit;
-5. times: each kernel at the shapes of (a) against its plain version, its
+4c. vision: the paper's image models through the same round (probit_plus,
+   dynamic b, the kernels) on ``make_image_classification`` data with the
+   main path's cohort: ``cnn16-m100`` (``init_cnn`` at its defaults, 28x28x1,
+   d = 206,874) in variants (a) and (b), and ``resnet18w64-m100``
+   (``init_resnet(width=64)``, ResNet-18's blocks, 32x32x3, d = 11,172,042)
+   in (a). Each run has its own launch counts (those of phase 4), equals
+   its ``engine="ref"`` rerun in theta_hat, loss and b in every round, has
+   finite losses, and prints its round wall times, peak device memory, d,
+   wire row bytes and accuracy;
+5. times: each kernel at the shapes of (a) and at ResNet-18's (M = 100,
+   d = 11,172,042) against its plain version, its
    byte bound and the card's measured copy bandwidth; then
    ``bit_aggregate`` at d = 118,282 and M from 100 to 10,000, through the
    wrapper and at every cluster size, beside the time of an empty kernel
@@ -49,8 +60,11 @@ Phases (any failure raises and exits non-zero before the result line):
    the sign wire and its counts, the oracle range, the gaussian attack's
    draw) at the main path's shapes, each as device time (one call captured
    in a CUDA graph and replayed) and as eager stream time;
-6. with ``--profile`` only: one round of (a) under ``torch.profiler``,
-   its device time by round step and by operator.
+6. with ``--profile`` only: (a) on the MLP and on ``resnet18w64-m100``:
+   the device busy share as nvidia-smi reads it over unprofiled rounds and
+   as the union of the kernels' records of one round under
+   ``torch.profiler`` (by CUDA stream), stream ms by round step (CUDA
+   events), the round's FLOPs and its top operators and kernels.
 
 The last three lines are the per-kernel JSON, the card line and
 ``{"ok": true, "device": {...}}``.
@@ -94,6 +108,12 @@ GRID = {
     "probit_plus/oracle_b": {"b_mode": "oracle"},
     "probit_plus/participation_0.5": {"participation": 0.5},
 }
+# Phase 4c: (model, init kwargs, image side, channels, variants, d).
+VISION = {
+    "cnn16-m100": ("cnn", {"width": 16}, 28, 1, ("a", "b"), 206_874),
+    "resnet18w64-m100": ("resnet", {"width": 64, "blocks": (2, 2, 2, 2), "in_ch": 3}, 32, 3, ("a",), 11_172_042),
+}
+RESNET_D = VISION["resnet18w64-m100"][-1]
 KERNELS = {
     # name: (CUDA source, Pallas call it replaces)
     "stoch_quant_pack": ("src/repro_torch/kernels/csrc/stoch_quant.cu", "src/repro/kernels/stoch_quant.py:77"),
@@ -194,13 +214,14 @@ def check_kernels(chk: Checker, dev) -> None:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    for d in (997, 40522, 118282):
+    shapes = [(d, (1, 5, 100, 300)) for d in (997, 40522, 118282)] + [(RESNET_D, (1, 8))]
+    for d, cohorts in shapes:
         d_pad = ops.padded_len(d)
         pad = d_pad - d
         b = torch.full((d,), 0.01, device=dev)
         b[:7] = torch.tensor([0.0, -0.01, 1e-30, 0.02, 0.005, 0.0, 3.0], device=dev)  # guards
         b_p = F.pad(b, (0, pad), value=1.0)
-        for m in (1, 5, 100, 300):
+        for m in cohorts:
             tag = f"d={d} M={m}"
             delta = F.pad(0.02 * randn(m, d), (0, pad), value=-1.0)
             delta[:, 7] = b[7]  # |delta| == b exactly: p is 0 or 1
@@ -301,36 +322,49 @@ def check_bit_aggregate(chk: Checker, dev) -> None:
                      f"n=997 P=125 M={m} unaligned")
 
 
-@functools.lru_cache(maxsize=None)
-def _task():
-    """The main path's data and initial weights (made once, from seeds)."""
+def _split_clients(x, y):
+    """Label-skew partition of the main path's cohort (2 classes a client)."""
     import numpy as np
 
+    from repro_torch.data import partition_label_skew
+
+    parts = partition_label_skew(y, MAIN["n_clients"], 2, MAIN["per_client"], seed=0)
+    return np.stack([x[i] for i in parts]), np.stack([y[i] for i in parts])
+
+
+@functools.lru_cache(maxsize=None)
+def _task(name: str = "mlp128-m100", dev=None):
+    """A configuration's data, initial weights (on the card when ``dev``
+    is given), loss and accuracy, made once from seeds: the main path's MLP
+    or one of VISION."""
     from repro_torch import prng
-    from repro_torch.data import make_classification, partition_label_skew
-    from repro_torch.models import init_mlp
+    from repro_torch.data import make_classification, make_image_classification
+    from repro_torch.models import MODELS, accuracy, init_mlp, mlp_logits, xent_loss
 
-    (xtr, ytr), (xte, yte) = make_classification(0, n_train=10_000, n_test=2_000)
-    parts = partition_label_skew(ytr, MAIN["n_clients"], 2, MAIN["per_client"], seed=0)
-    cx = np.stack([xtr[i] for i in parts])
-    cy = np.stack([ytr[i] for i in parts])
-    return init_mlp(prng.key(0), hidden=MAIN["hidden"]), cx, cy, {"x": xte, "y": yte}
+    if name == "mlp128-m100":
+        (xtr, ytr), (xte, yte) = make_classification(0, n_train=10_000, n_test=2_000)
+        p0, logits = init_mlp(prng.key(0), hidden=MAIN["hidden"]), mlp_logits
+    else:
+        model, init_kw, img, channels, _, _ = VISION[name]
+        (xtr, ytr), (xte, yte) = make_image_classification(0, img=img, channels=channels,
+                                                           n_train=10_000, n_test=2_000)
+        init, logits = MODELS[model]
+        p0 = init(prng.key(0, dev), **init_kw)
+    cx, cy = _split_clients(xtr, ytr)
+    return (p0, cx, cy, {"x": xte, "y": yte}, functools.partial(xent_loss, logits),
+            functools.partial(accuracy, logits))
 
 
-def make_sim(dev, extra: dict, engine=None):
+def make_sim(dev, extra: dict, engine=None, task: str = "mlp128-m100"):
     from repro_torch.fl import FLConfig, FLSimulation
-    from repro_torch.models import accuracy, mlp_logits, xent_loss
 
-    p0, cx, cy, test = _task()
+    p0, cx, cy, test, loss_fn, acc_fn = _task(task, None if task == "mlp128-m100" else dev)
     cfg = FLConfig(
         n_clients=MAIN["n_clients"], rounds=MAIN["rounds"], local_epochs=MAIN["local_epochs"],
         batch_size=MAIN["batch_size"], use_kernels=True,
         **{"aggregator": "probit_plus", "b_mode": "dynamic", **extra},
     )
-    return FLSimulation(
-        cfg, p0, functools.partial(xent_loss, mlp_logits), functools.partial(accuracy, mlp_logits),
-        cx, cy, test, device=dev, engine=engine,
-    )
+    return FLSimulation(cfg, p0, loss_fn, acc_fn, cx, cy, test, device=dev, engine=engine)
 
 
 def expected_launches(name: str) -> dict:
@@ -344,33 +378,77 @@ def expected_launches(name: str) -> dict:
             "bit_aggregate": rounds, "prox_sgd": rounds * steps}
 
 
-def main_path(dev, engine=None, variants=VARIANTS):
-    """Phase 4: FLSimulation on the card; returns per-variant round records
-    and the kernel launches of each variant's own run (counts zeroed just
-    before it and read just after)."""
+def run_sim(dev, name: str, extra: dict, engine=None, task: str = "mlp128-m100") -> dict:
+    """One FLSimulation run on the card: each round's loss, b, theta_hat and
+    wall time, the kernel launches of this run alone (counts zeroed just
+    before it and read just after), the accuracy, d, the wire row bytes and
+    the peak device memory (allocator peak from before the set-up)."""
     import torch
 
     from repro_torch.kernels import _build
 
-    out = {}
-    for name, extra in variants.items():
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    sim = make_sim(dev, extra, engine, task)
+    recs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t, met in sim.iter_rounds():
         torch.cuda.synchronize()
-        _build.reset_launches()
-        sim = make_sim(dev, extra, engine)
-        recs = []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for t, met in sim.iter_rounds():
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            recs.append({"loss": met["loss"].item(), "b": met["b"].item(),
-                         "theta": met["theta"].clone(), "seconds": t1 - t0})
-            t0 = t1
-        require(set(_build.launches) <= set(KERNELS), f"variant {name}: unknown kernel {dict(_build.launches)}")
-        launches = {k: _build.launches[k] for k in KERNELS}
-        out[name] = {"rounds": recs, "launches": launches, "acc": sim.evaluate(), "d": sim.d,
-                     "wire_row_bytes": sim.pipeline.compressor.wire_bytes(sim.d)}
-    return out
+        t1 = time.perf_counter()
+        recs.append({"loss": met["loss"].item(), "b": met["b"].item(),
+                     "theta": met["theta"].clone(), "seconds": t1 - t0})
+        t0 = t1
+    require(set(_build.launches) <= set(KERNELS), f"{task} {name}: unknown kernel {dict(_build.launches)}")
+    launches = {k: _build.launches[k] for k in KERNELS}
+    return {"rounds": recs, "launches": launches, "acc": sim.evaluate(), "d": sim.d,
+            "wire_row_bytes": sim.pipeline.compressor.wire_bytes(sim.d),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+def main_path(dev, engine=None, variants=VARIANTS):
+    """Phase 4: FLSimulation on the card; returns per-variant round records
+    and the kernel launches of each variant's own run."""
+    return {name: run_sim(dev, name, extra, engine) for name, extra in variants.items()}
+
+
+def vision_runs(dev) -> dict:
+    """Phase 4c: each VISION configuration and variant through the kernels,
+    its launch counts, its engine="ref" rerun round for round, finite
+    losses, b's moves and theta_hat's width (check_main_path), and its
+    printed wall times and peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fl import FLConfig
+
+    runs = {}
+    for config, (_, _, _, _, variants, d) in VISION.items():
+        for v in variants:
+            tag = f"{config}/{v}"
+            run = run_sim(dev, v, VARIANTS[v], task=config)
+            ref = run_sim(dev, v, VARIANTS[v], engine="ref", task=config)
+            want = expected_launches(v)
+            require(run["d"] == d, f"{tag}: d = {run['d']}, expected {d}")
+            require(run["launches"] == want, f"{tag}: launches {run['launches']} != expected {want}")
+            require(not any(ref["launches"].values()), f"{tag}: the engine='ref' run launched {ref['launches']}")
+            require(len(run["rounds"]) == len(ref["rounds"]) == MAIN["rounds"], f"{tag}: rounds differ")
+            for t, (k, r) in enumerate(zip(run["rounds"], ref["rounds"])):
+                require(np.isfinite(k["loss"]), f"{tag} round {t}: loss {k['loss']}")
+                require(torch.equal(k["theta"], r["theta"]) and k["loss"] == r["loss"] and k["b"] == r["b"],
+                        f"{tag} round {t}: differs from the engine='ref' run")
+            check_main_path({tag: run}, FLConfig().b_init)
+            print(json.dumps({"phase": "vision", "run": tag, "d": run["d"], "wire_row_bytes": run["wire_row_bytes"],
+                              "launches": run["launches"],
+                              "round_seconds": [r["seconds"] for r in run["rounds"]],
+                              "round_seconds_ref": [r["seconds"] for r in ref["rounds"]],
+                              "peak_gb": run["peak_bytes"] / 1e9, "peak_gb_ref": ref["peak_bytes"] / 1e9,
+                              "loss": [r["loss"] for r in run["rounds"]], "b": [r["b"] for r in run["rounds"]],
+                              "acc": run["acc"], "equal_rounds": MAIN["rounds"]}), flush=True)
+            runs[tag] = run
+    return runs
 
 
 def grid_expected_launches(extra: dict) -> dict:
@@ -394,6 +472,7 @@ def grid_run(dev, name: str, extra: dict, engine=None) -> dict:
     from repro_torch.kernels import _build
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
     sim = make_sim(dev, extra, engine)
     cfg = sim.cfg
@@ -430,7 +509,7 @@ def grid_run(dev, name: str, extra: dict, engine=None) -> dict:
         t0 = time.perf_counter()
     launches = {k: _build.launches[k] for k in KERNELS}
     require(set(_build.launches) <= set(KERNELS), f"grid {name}: unknown kernel {dict(_build.launches)}")
-    return {"rounds": recs, "launches": launches, "acc": sim.evaluate()}
+    return {"rounds": recs, "launches": launches, "acc": sim.evaluate(), "peak_bytes": torch.cuda.max_memory_allocated(dev)}
 
 
 def byzantine_grid(dev) -> dict:
@@ -457,7 +536,7 @@ def byzantine_grid(dev) -> dict:
                           "round_seconds": [r["seconds"] for r in run["rounds"]],
                           "round_seconds_ref": [r["seconds"] for r in ref["rounds"]],
                           "loss": [r["loss"] for r in run["rounds"]], "b": [r["b"] for r in run["rounds"]],
-                          "acc": run["acc"]}), flush=True)
+                          "acc": run["acc"], "peak_gb": run["peak_bytes"] / 1e9}), flush=True)
         runs[name] = run
 
     key = prng.fold_in(prng.key(13), 1)
@@ -472,14 +551,148 @@ def byzantine_grid(dev) -> dict:
     return runs
 
 
-def profile_round(dev) -> dict:
-    """``--profile``: one steady round of variant (a) under torch.profiler:
-    host and kernel time of each round step (the ``round.*`` ranges of
-    fl/rounds.py), device time by operator, and the device's busy share of
-    the round's wall time (the profiler's own overhead included)."""
+# CUPTI's own records, which the profiler lists beside the kernels: host
+# waits and buffer handling, not device work.
+CUPTI_OVERHEAD = ("Command Buffer Full", "Buffer Flush", "Activity Buffer Request")
+
+
+def step_stream_ms(it, pipeline_cls) -> dict:
+    """Stream ms of each step of the next round of ``it``, unprofiled: CUDA
+    events recorded where the host enters and leaves local training and the
+    estimate (``rounds.local_prox_train`` and ``pipeline_cls.estimate``
+    wrapped for the round). Each span is the device time of the step's
+    kernels plus any idle gap inside it, so in a round whose device is busy
+    throughout it is the step's device time."""
+    import unittest.mock as mock
+
+    import torch
+
+    from repro_torch.fl import rounds
+
+    marks = {}
+
+    def mark(name):
+        marks[name] = torch.cuda.Event(enable_timing=True)
+        marks[name].record()
+
+    def around(fn, before, after):
+        def wrapped(*args, **kwargs):
+            mark(before)
+            out = fn(*args, **kwargs)
+            mark(after)
+            return out
+        return wrapped
+
+    with mock.patch.object(rounds, "local_prox_train", around(rounds.local_prox_train, "train0", "train1")), \
+            mock.patch.object(pipeline_cls, "estimate", around(pipeline_cls.estimate, "est0", "est1")):
+        torch.cuda.synchronize()
+        mark("start")
+        next(it)
+        mark("end")
+        torch.cuda.synchronize()
+    order = ("start", "train0", "train1", "est0", "est1", "end")
+    steps = ("batches", "local_train", "compress", "estimate", "finish")
+    return {name: marks[a].elapsed_time(marks[b]) for name, a, b in zip(steps, order, order[1:])}
+
+
+def conv_backward_flops(grad_out_shape, x_shape, w_shape, _bias, _stride, _padding, _dilation, transposed,
+                        _output_padding, _groups, output_mask, out_shape=None, **kwargs) -> int:
+    """FLOPs of ``aten.convolution_backward``, grouped convolutions included:
+    each gradient asked for costs what the forward costs. (torch's own
+    formula counts a grouped weight gradient ``groups`` times over.)"""
+    from torch.utils.flop_counter import conv_flop_count
+
+    return conv_flop_count(x_shape, w_shape, grad_out_shape, transposed=transposed) * sum(map(bool, output_mask[:2]))
+
+
+def kernel_spans(events) -> dict:
+    """The device kernels' records of one profiled round, by CUDA stream:
+    ``union_ms`` is the time at least one kernel ran (the device's busy
+    time), ``sum_ms`` the records' total. Within one stream kernels run one
+    after another, so there each stream's union equals its sum up to the
+    timestamps' rounding (``max_in_stream_overlap_ms``); records overlap
+    only across streams, where kernels run at the same time."""
+    from torch.autograd import DeviceType
+
+    def union_sum(spans):
+        union, end = 0.0, float("-inf")
+        for lo, hi in sorted(spans):
+            if hi > end:
+                union += hi - max(lo, end)
+                end = hi
+        return union / 1e3, sum(hi - lo for lo, hi in spans) / 1e3
+
+    by_stream = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name not in CUPTI_OVERHEAD and not e.name.startswith("round."):
+            by_stream.setdefault(e.device_resource_id, []).append((e.time_range.start, e.time_range.end))
+    union_ms, sum_ms = union_sum([span for spans in by_stream.values() for span in spans])
+    streams = {}
+    for sid, spans in sorted(by_stream.items(), key=lambda kv: -len(kv[1])):
+        s_union, s_sum = union_sum(spans)
+        streams[str(sid)] = {"kernels": len(spans), "sum_ms": s_sum, "union_ms": s_union}
+    return {"union_ms": union_ms, "sum_ms": sum_ms, "streams": streams,
+            "max_in_stream_overlap_ms": max((v["sum_ms"] - v["union_ms"] for v in streams.values()), default=0.0)}
+
+
+def smi_busy_share(run) -> dict:
+    """The device's busy share while ``run()`` runs, read by the driver
+    rather than by the profiler: ``nvidia-smi``'s ``utilization.gpu`` (the
+    share of its last sample period in which one or more kernels ran),
+    polled every 100 ms. Samples from the first second are dropped, so every
+    sample's period lies inside the run; the poller is stopped after."""
+    import datetime
+    import threading
+
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=timestamp,utilization.gpu",
+                             "--format=csv,noheader,nounits", "-lms", "100"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    lines, first = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            first.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        require(first.wait(30), "nvidia-smi printed no utilization sample")
+        t0 = datetime.datetime.now()
+        run()
+        t1 = datetime.datetime.now()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        reader.join(timeout=30)
+    samples = []
+    for line in lines:
+        stamp, util = (f.strip() for f in line.split(","))
+        t = datetime.datetime.strptime(stamp, "%Y/%m/%d %H:%M:%S.%f")
+        if t0 + datetime.timedelta(seconds=1) <= t <= t1:
+            samples.append(float(util))
+    require(len(samples) >= 5, f"only {len(samples)} nvidia-smi samples inside a {t1 - t0} run")
+    return {"share": statistics.mean(samples) / 100, "samples": len(samples),
+            "min": min(samples) / 100, "seconds": (t1 - t0).total_seconds()}
+
+
+# Rounds whose busy share nvidia-smi reads, per task: a few seconds of each.
+SMI_ROUNDS = {"mlp128-m100": 40, "resnet18w64-m100": 1}
+
+
+def profile_round(dev, task: str = "mlp128-m100") -> dict:
+    """``--profile``: steady rounds of variant (a) of ``task``: one under
+    ``torch.utils.flop_counter`` (the round's floating-point operations,
+    convolutions and matmuls, by operator); one unprofiled, timed by step
+    with CUDA events (:func:`step_stream_ms`); ``SMI_ROUNDS[task]``
+    unprofiled, with the busy share nvidia-smi reads (:func:`smi_busy_share`);
+    one under torch.profiler: host time of each round step (the ``round.*``
+    ranges of fl/rounds.py), device time by operator and by kernel, and the
+    busy share from the kernels' records, by stream (:func:`kernel_spans`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
 
     def dev_ms(e, attr):
         us = getattr(e, attr, None)
@@ -487,8 +700,19 @@ def profile_round(dev) -> dict:
             us = getattr(e, attr.replace("device", "cuda"), 0.0)
         return us / 1e3
 
-    it = make_sim(dev, VARIANTS["a"]).iter_rounds()
+    sim = make_sim(dev, VARIANTS["a"], task=task)
+    it = sim.iter_rounds(4 + SMI_ROUNDS[task])
     next(it)  # warm-up round
+    with FlopCounterMode(display=False, custom_mapping={torch.ops.aten.convolution_backward: conv_backward_flops}) as flops:
+        next(it)
+    stream_ms = step_stream_ms(it, type(sim.pipeline))
+
+    def smi_rounds():
+        for _ in range(SMI_ROUNDS[task]):
+            next(it)
+        torch.cuda.synchronize()
+
+    smi = smi_busy_share(smi_rounds)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -496,22 +720,31 @@ def profile_round(dev) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
-    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA and not e.key.startswith("round.")]
-    busy_ms = sum(dev_ms(e, "self_device_time_total") for e in kernels)
-    require(busy_ms > 0, "the profiler saw no device time")
-    host_ops = [e for e in avgs if e.device_type == DeviceType.CPU and not e.key.startswith("round.")]
+    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA and e.key not in CUPTI_OVERHEAD
+               and not e.key.startswith("round.")]
+    spans = kernel_spans(prof.events())
+    require(spans["union_ms"] > 0, "the profiler saw no device time")
+    host_ops = [e for e in avgs if e.device_type == DeviceType.CPU and not e.key.startswith("round.")
+                and e.key not in CUPTI_OVERHEAD]
     top = sorted(host_ops, key=lambda e: dev_ms(e, "self_device_time_total"), reverse=True)[:15]
+    top_kernels = sorted(kernels, key=lambda e: dev_ms(e, "self_device_time_total"), reverse=True)[:10]
     steps = [e for e in prof.events() if e.name.startswith("round.") and e.device_type == DeviceType.CPU]
     return {
-        "phase": "profile", "round_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "busy_share": busy_ms / wall_ms,
-        # per round step: host time inside its range, and the device time of
-        # the kernels it launched
+        "phase": "profile", "task": task, "d": sim.d, "round_wall_ms": wall_ms,
+        "device_busy_ms": spans["union_ms"], "kernel_ms_sum": spans["sum_ms"],
+        "busy_share": spans["union_ms"] / wall_ms, "kernel_streams": spans["streams"],
+        "max_in_stream_overlap_ms": spans["max_in_stream_overlap_ms"],
+        "smi_busy_share": smi, "steps_stream_ms_unprofiled": stream_ms,
+        "round_flops": flops.get_total_flops(),
+        "round_flops_by_op": {str(k): v for k, v in flops.get_flop_counts()["Global"].items()},
+        "local_train_tflops_per_s": flops.get_total_flops() / (stream_ms["local_train"] * 1e-3) / 1e12,
+        # per round step: host time inside its range
         "steps_host_ms": {e.name: e.cpu_time_total / 1e3 for e in steps},
-        "steps_kernel_ms": {e.name: dev_ms(e, "device_time_total") for e in steps},
         "kernel_launches": sum(e.count for e in kernels),
         "top_ops": [{"name": e.key, "device_ms": dev_ms(e, "self_device_time_total"), "calls": e.count}
                     for e in top],
+        "top_kernels": [{"name": e.key[:120], "device_ms": dev_ms(e, "self_device_time_total"), "calls": e.count}
+                        for e in top_kernels],
     }
 
 
@@ -530,10 +763,12 @@ def check_main_path(runs, b_init: float) -> None:
             b_prev = np.float32(rec["b"])
 
 
-def kernel_times(dev, runs, chk: Checker, copy_gbs: float):
-    """Phase 5: each kernel at the shapes of variant (a). ``launches`` is
-    the sum over the main-path variants and the grid runs of each one's own
-    count; the counts by run stand beside it."""
+def kernel_times(dev, m: int, d: int, copy_gbs: float) -> dict:
+    """Phase 5: each kernel at (m, d) against its plain version: device ms
+    a launch, bytes, byte and operation bound, copy bound and GB/s. Every
+    input is made first, in one order of draws, and all stay live while the
+    kernels are timed (at ResNet-18's shape, M = 100 and d = 11,172,042,
+    27 GB), then freed."""
     import torch
     import torch.nn.functional as F
 
@@ -543,8 +778,6 @@ def kernel_times(dev, runs, chk: Checker, copy_gbs: float):
     from repro_torch.kernels.stoch_quant import stoch_quant_ef, stoch_quant_pack
 
     gen = torch.Generator(device=dev).manual_seed(99)
-    m = MAIN["n_clients"]
-    d = 118_282
     d_pad = ops.padded_len(d)
     p = d_pad // 8
     pad = d_pad - d
@@ -573,24 +806,35 @@ def kernel_times(dev, runs, chk: Checker, copy_gbs: float):
                      lambda: ref.prox_sgd_ref(w, w0, g, mom, 0.01, 0.2, 0.5),
                      20 * m * d + 4 * d, 6 * m * d),
     }
-    rows = []
+    rows = {}
     for name, (kern, plain, nbytes, ops_n) in cases.items():
         ms = timed_ms(kern)
         plain_ms = timed_ms(plain, reps=10)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops_n / PEAK_F32_OPS_PER_S * 1e3
-        source, replaces = KERNELS[name]
+        bound = max(t_bytes, t_ops)
+        rows[name] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "gbs": nbytes / (ms * 1e-3) / 1e9, "share_of_bound": bound / ms,
+            "copy_bound_ms": nbytes / (copy_gbs * 1e9) * 1e3, "shape": f"M={m} d={d} d_pad={d_pad}",
+        }
+    del cases, delta, res, u, packed, w, g, mom
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_rows(runs: dict, chk: Checker, at_main: dict, at_resnet: dict) -> list[dict]:
+    """The per-kernel JSON rows: times at the main path's shapes, with the
+    same at ResNet-18's beside them; ``launches`` is the sum over every
+    run of phases 4, 4b and 4c of each one's own count, by run beside it."""
+    rows = []
+    for name, (source, replaces) in KERNELS.items():
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(run["launches"][name] for run in runs.values()),
             "launches_by_variant": {v: run["launches"][name] for v, run in runs.items()},
-            "max_abs_err": chk.max_err[name],
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-            "bytes": nbytes, "gbs": nbytes / (ms * 1e-3) / 1e9,
-            "copy_bound_ms": nbytes / (copy_gbs * 1e9) * 1e3,
-            "shape": f"M={m} d={d} d_pad={d_pad}",
+            "max_abs_err": chk.max_err[name], "library_ms": None,
+            **at_main[name], f"at_{RESNET_D}": at_resnet[name],
         })
     return rows
 
@@ -811,7 +1055,8 @@ def copy_bandwidth_gbs(dev) -> float:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--profile", action="store_true", help="phase 6: one profiled round of (a)")
+    parser.add_argument("--profile", action="store_true",
+                        help="phase 6: one profiled round of (a) on the MLP and on ResNet-18")
     args = parser.parse_args()
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
@@ -849,7 +1094,7 @@ def main() -> int:
                       **{k: {"launches": v["launches"], "expected_launches": expected_launches(k),
                              "loss": [r["loss"] for r in v["rounds"]], "b": [r["b"] for r in v["rounds"]],
                              "round_seconds": [r["seconds"] for r in v["rounds"]], "acc": v["acc"],
-                             "d": v["d"], "wire_row_bytes": v["wire_row_bytes"]}
+                             "d": v["d"], "wire_row_bytes": v["wire_row_bytes"], "peak_gb": v["peak_bytes"] / 1e9}
                          for k, v in runs.items()}}), flush=True)
     for name, run in runs.items():
         require(run["launches"] == expected_launches(name),
@@ -871,18 +1116,23 @@ def main() -> int:
                       "round_seconds_ref": [r["seconds"] for r in ref_runs["a"]["rounds"]]}), flush=True)
 
     grid = byzantine_grid(dev)
+    vision = vision_runs(dev)
 
     # Phase 5 times kernels, not allocations: under deterministic algorithms
     # every torch.empty is filled with NaN by a kernel of its own.
     torch.utils.deterministic.fill_uninitialized_memory = False
     copy_gbs = copy_bandwidth_gbs(dev)
-    rows = kernel_times(dev, {**runs, **grid}, chk, copy_gbs)
+    at_main = kernel_times(dev, MAIN["n_clients"], 118_282, copy_gbs)
+    at_resnet = kernel_times(dev, MAIN["n_clients"], RESNET_D, copy_gbs)
+    rows = kernel_rows({**runs, **grid, **vision}, chk, at_main, at_resnet)
     print(json.dumps({"phase": "times", "card": card, "copy_gbs": copy_gbs,
-                      "round_seconds_a": [r["seconds"] for r in runs["a"]["rounds"]]}), flush=True)
+                      "round_seconds_a": [r["seconds"] for r in runs["a"]["rounds"]],
+                      f"kernels_at_{RESNET_D}": at_resnet}), flush=True)
     print(json.dumps(stage_times(dev)), flush=True)
     print(json.dumps(b3_sweep(dev, copy_gbs)), flush=True)
     if args.profile:
-        print(json.dumps(profile_round(dev)), flush=True)
+        for task in ("mlp128-m100", "resnet18w64-m100"):
+            print(json.dumps(profile_round(dev, task)), flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,6 +33,9 @@ __all__ = [
     "unpack_bits",
     "padded_dim",
     "client_uniforms",
+    "uniform_block_rows",
+    "cohort_uniforms",
+    "pad_rows",
     "packed_binarize_batch",
     "packed_sign_batch",
     "packed_counts",
@@ -118,15 +121,50 @@ def client_uniforms(client_key: torch.Tensor, n: int, chunk: int = PACK_CHUNK) -
     return u.reshape(client_key.shape[:-1] + (-1,))[..., :n]
 
 
-def _pad_batch(deltas: torch.Tensor, b: torch.Tensor, chunk: int):
-    """Pad (M, d) deltas / (d,) b to whole chunks: pad coordinates get
-    delta = -1, b = 1, so their bit is deterministically 0."""
-    m, d = deltas.shape
-    d_pad = padded_dim(d, chunk)
-    deltas = torch.nn.functional.pad(deltas.float(), (0, d_pad - d), value=-1.0)
-    b_full = torch.broadcast_to(torch.as_tensor(b, dtype=torch.float32, device=deltas.device), (d,))
-    b_full = torch.nn.functional.pad(b_full, (0, d_pad - d), value=1.0)
-    return deltas, b_full, d_pad
+UNIFORM_BLOCK_WORDS = 1 << 27  # Threefry words per draw block: 1 GiB per int64 temporary
+
+
+def uniform_block_rows(n: int) -> int:
+    """Client rows per uniform-draw block for ``n`` coordinates a row, so
+    that each int64 temporary of the Threefry stream stays near 1 GiB
+    (100 rows at the MLP's width, 12 at ResNet-18's)."""
+    return max(1, UNIFORM_BLOCK_WORDS // n)
+
+
+def cohort_uniforms(
+    key: torch.Tensor,
+    m: int,
+    n: int,
+    chunk: int = PACK_CHUNK,
+    *,
+    row_offset: int = 0,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The ``(m, n)`` uniforms of clients ``row_offset .. row_offset + m - 1``:
+    row ``i`` is :func:`client_uniforms` of ``fold_in(key, row_offset + i)``.
+
+    Drawn :func:`uniform_block_rows` rows at a time into ``out[:, :n]``,
+    which may be wider (its other columns are left as they are). Each draw is a pure function of (key, row, chunk), so any
+    block size gives the same bits.
+    """
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.float32, device=key.device)
+    block = uniform_block_rows(padded_dim(n, chunk))
+    for r0 in range(0, m, block):
+        r1 = min(r0 + block, m)
+        rows = torch.arange(row_offset + r0, row_offset + r1, dtype=torch.int64, device=key.device)
+        out[r0:r1, :n] = client_uniforms(prng.fold_in(key, rows), n, chunk)
+    return out
+
+
+def pad_rows(x: torch.Tensor, width: int, value: float) -> torch.Tensor:
+    """(M, d) -> f32 (M, width), the pad columns set to ``value``: one
+    buffer, written once (no F.pad of a float copy)."""
+    m, d = x.shape
+    out = torch.empty((m, width), dtype=torch.float32, device=x.device)
+    out[:, d:] = value
+    out[:, :d] = x
+    return out
 
 
 def packed_binarize_batch(
@@ -144,27 +182,34 @@ def packed_binarize_batch(
     ``fold_in(fold_in(key, row_offset + m), j)``, exactly the reference's
     schedule, so the bytes equal the JAX wire's. With ``want_residual``
     the error-feedback residual ``delta - c * b`` comes back as (M, d).
-    Unlike the reference this materializes the (M, padded_dim) uniforms at
-    once rather than scanning chunks.
+    Pad coordinates get delta = -1, b = 1, so their bit is 0. The cohort
+    is compressed :func:`uniform_block_rows` clients at a time, so the
+    uniforms and the binarize temporaries never span the whole
+    (M, padded_dim) cohort.
     """
     m, d = deltas.shape
-    deltas_p, b_full, d_pad = _pad_batch(deltas, b, chunk)
-    rows = row_offset + torch.arange(m, dtype=torch.int64, device=deltas.device)
-    u = client_uniforms(prng.fold_in(key, rows), d_pad, chunk)
-    bits = u < binarize_prob(deltas_p, b_full)
-    packed = _pack_bool_lastdim(bits)
-    if not want_residual:
-        return packed, None
-    res = deltas_p - torch.where(bits, b_full, -b_full)
-    return packed, res[:, :d]
+    d_pad = padded_dim(d, chunk)
+    b_full = torch.broadcast_to(torch.as_tensor(b, dtype=torch.float32, device=deltas.device), (d,))
+    b_full = torch.nn.functional.pad(b_full, (0, d_pad - d), value=1.0)
+    packed = torch.empty((m, d_pad // 8), dtype=torch.uint8, device=deltas.device)
+    res = torch.empty((m, d), dtype=torch.float32, device=deltas.device) if want_residual else None
+    block = uniform_block_rows(d_pad)
+    for r0 in range(0, m, block):
+        r1 = min(r0 + block, m)
+        deltas_p = pad_rows(deltas[r0:r1], d_pad, -1.0)
+        u = cohort_uniforms(key, r1 - r0, d_pad, chunk, row_offset=row_offset + r0)
+        bits = u < binarize_prob(deltas_p, b_full)
+        packed[r0:r1] = _pack_bool_lastdim(bits)
+        if want_residual:
+            res[r0:r1] = (deltas_p - torch.where(bits, b_full, -b_full))[:, :d]
+    return packed, res
 
 
 def packed_sign_batch(deltas: torch.Tensor, *, chunk: int = PACK_CHUNK) -> torch.Tensor:
     """Deterministic sign codes (the signSGD-MV / RSA wire): bit =
     ``delta >= 0``, (M, d) -> (M, padded_dim(d)/8) uint8; pad coordinates
     (delta -1) pack 0."""
-    deltas_p, _, _ = _pad_batch(deltas, torch.ones((), device=deltas.device), chunk)
-    return _pack_bool_lastdim(deltas_p >= 0)
+    return _pack_bool_lastdim(pad_rows(deltas, padded_dim(deltas.shape[1], chunk), -1.0) >= 0)
 
 
 def packed_counts(packed: torch.Tensor) -> torch.Tensor:

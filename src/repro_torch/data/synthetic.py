@@ -1,6 +1,6 @@
-"""Synthetic dataset standing in for FMNIST (a numpy copy of the
-reference's ``make_classification``; the image and token tasks come with
-their models).
+"""Synthetic datasets standing in for FMNIST and CIFAR-10 (numpy copies of
+the reference's ``make_classification`` and ``make_image_classification``;
+the token streams come with their models).
 
 The paper's experiments run on a *statistically equivalent* synthetic task:
 Gaussian class prototypes with controllable separation. The FL *protocol*
@@ -30,6 +30,32 @@ def make_classification(
     def draw(n):
         y = rng.integers(0, n_classes, n)
         x = protos[y] + noise * rng.standard_normal((n, dim)).astype(np.float32) / np.sqrt(dim) * 8.0
+        return x.astype(np.float32), y.astype(np.int32)
+
+    xtr, ytr = draw(n_train)
+    xte, yte = draw(n_test)
+    return (xtr, ytr), (xte, yte)
+
+
+def make_image_classification(
+    seed: int,
+    n_classes: int = 10,
+    img: int = 28,
+    channels: int = 1,
+    n_train: int = 10_000,
+    n_test: int = 2_000,
+    noise: float = 0.5,
+):
+    """Image-shaped task (CNN / ResNet): smooth class-prototype images,
+    NHWC ``(n, img, img, channels)`` f32 with int32 labels."""
+    rng = np.random.default_rng(seed)
+    freq = rng.standard_normal((n_classes, 4, 4, channels)).astype(np.float32)
+    # upsample 4x4 prototype spectra to full images (smooth structure)
+    protos = np.repeat(np.repeat(freq, img // 4, axis=1), img // 4, axis=2)[:, :img, :img]
+
+    def draw(n):
+        y = rng.integers(0, n_classes, n)
+        x = protos[y] + noise * rng.standard_normal((n, img, img, channels)).astype(np.float32)
         return x.astype(np.float32), y.astype(np.int32)
 
     xtr, ytr = draw(n_train)

@@ -121,7 +121,7 @@ def make_context(
 ) -> RoundContext:
     """Resolve a config and a task into a RoundContext on ``device``.
 
-    ``init_params`` is a flat dict of arrays in the reference's layout;
+    ``init_params`` is a (nested) dict of arrays in the reference's layout;
     ``engine`` forces the kernel engine of every ``ops`` call (``"ref"``
     runs the plain versions on the card).
     """

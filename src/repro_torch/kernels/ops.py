@@ -24,8 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .. import prng
-from ..core.quantizer import PACK_CHUNK, client_uniforms, packed_binarize_batch
+from ..core.quantizer import PACK_CHUNK, cohort_uniforms, packed_binarize_batch, pad_rows
 from . import ref
 
 __all__ = [
@@ -81,9 +80,13 @@ def stoch_quant_compress_batch(
 
     Client ``i`` draws from ``fold_in(key, row_offset + i)`` on the
     ``client_uniforms`` chunk schedule, so both engines emit the JAX
-    wire's bytes. ``residual`` is the error-feedback carry added to the
-    deltas first (fused into the kernel); with ``want_residual`` the next
-    carry ``eff - c * b`` comes back. ``b`` is the (d,) public range.
+    wire's bytes. The kernel engine draws the uniforms in blocks of client
+    rows (``cohort_uniforms``) into one padded (M, padded_len) buffer and
+    launches one kernel over the whole cohort; the ``ref`` engine
+    compresses block by block (``packed_binarize_batch``). ``residual``
+    is the error-feedback carry added to the deltas first (fused into the
+    kernel); with ``want_residual`` the next carry ``eff - c * b`` comes
+    back. ``b`` is the (d,) public range.
 
     Returns (packed (M, padded_len(d)/8) uint8, residuals (M, d) or None).
     """
@@ -98,14 +101,15 @@ def stoch_quant_compress_batch(
         return realign_wire(packed, target), res
     from .stoch_quant import stoch_quant_ef, stoch_quant_pack
 
-    pad = 8 * target - d
-    rows = row_offset + torch.arange(m, dtype=torch.int64, device=deltas.device)
-    u = F.pad(client_uniforms(prng.fold_in(key, rows), d, chunk), (0, pad), value=1.0)
-    d_p = F.pad(deltas.float(), (0, pad), value=-1.0)
-    b_p = F.pad(torch.broadcast_to(b.float(), (d,)), (0, pad), value=1.0)
+    width = 8 * target
+    u = torch.empty((m, width), dtype=torch.float32, device=deltas.device)
+    u[:, d:] = 1.0
+    cohort_uniforms(key, m, d, chunk, row_offset=row_offset, out=u)
+    d_p = pad_rows(deltas, width, -1.0)
+    b_p = F.pad(torch.broadcast_to(b.float(), (d,)), (0, width - d), value=1.0)
     if residual is None and not want_residual:
         return stoch_quant_pack(d_p, b_p, u), None
-    r_p = torch.zeros_like(d_p) if residual is None else F.pad(residual.float(), (0, pad))
+    r_p = torch.zeros_like(d_p) if residual is None else pad_rows(residual, width, 0.0)
     packed, res = stoch_quant_ef(d_p, r_p, b_p, u)
     return packed, (res[:, :d] if want_residual else None)
 

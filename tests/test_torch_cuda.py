@@ -213,3 +213,93 @@ def test_every_attack_b_mode_and_participation_on_card(dev, aggregator):
                 assert rl == {}
                 assert torch.equal(t1, t2) and l1 == l2 and b1 == b2, cfg
                 assert np.isfinite(l1) and bool(torch.isfinite(t1).all()), cfg
+
+
+def test_blocked_uniforms_on_card_equal_cpu(dev, monkeypatch):
+    """The row-blocked uniform draw on the card equals the CPU's whole-cohort
+    draw bit for bit, with a block that does not divide M, and the kernel
+    engine's compress through it equals the plain engine's."""
+    from repro_torch.core import quantizer as tq
+
+    key, m, n = prng.fold_in(prng.key(17), 3), 7, 1_000_003
+    want = tq.client_uniforms(prng.fold_in(key, 5 + torch.arange(m)), n)
+    monkeypatch.setattr(tq, "UNIFORM_BLOCK_WORDS", 3 * tq.padded_dim(n))  # blocks of 3 rows
+    got = tq.cohort_uniforms(key.to(dev), m, n, row_offset=5).cpu()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    deltas = 0.01 * torch.randn(m, n, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    b = torch.tensor(0.012, device=dev)
+    kp, _ = ops.stoch_quant_compress_batch(key.to(dev), deltas, b, row_offset=5, engine="cuda")
+    rp, _ = ops.stoch_quant_compress_batch(key.to(dev), deltas, b, row_offset=5, engine="ref")
+    assert torch.equal(kp, rp)
+
+
+@pytest.fixture
+def f32_convolutions():
+    """Full-f32 convolutions and matmuls (no TF32) with deterministic cuDNN
+    algorithms for the test; the previous settings are restored after."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    yield
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.deterministic) = saved
+
+
+@pytest.mark.parametrize("model", ["cnn", "resnet"])
+def test_grouped_convolution_equals_loop_over_clients_on_card(dev, f32_convolutions, model):
+    """One grouped convolution a layer for 5 clients gives each client the
+    loss and gradient its own model gives it alone (rtol 1e-5), and the
+    card's cohort losses equal the CPU's to the same tolerance."""
+    from repro_torch import interop
+    from repro_torch.models import vision as tv
+
+    if model == "cnn":
+        p, logits, shape = tv.init_cnn(prng.key(1), width=8, img=16), tv.cnn_logits, (16, 16, 1)
+    else:
+        blocks = (1, 1, 1, 1)
+        p = tv.init_resnet(prng.key(1), width=8, blocks=blocks)
+        logits, shape = functools.partial(tv.resnet_logits, blocks=blocks), (16, 16, 3)
+    flat, unravel = interop.ravel_params(p)
+    gen = torch.Generator().manual_seed(2)
+    ws = torch.stack([flat * (1 + 0.1 * i) for i in range(5)])
+    batch = {"x": torch.randn((5, 6) + shape, generator=gen), "y": torch.randint(0, 10, (5, 6), generator=gen)}
+    cpu_losses = tv.xent_loss(logits, unravel(ws), batch)
+    ws_d = ws.to(dev).requires_grad_(True)
+    batch_d = {k: v.to(dev) for k, v in batch.items()}
+    losses = tv.xent_loss(logits, unravel(ws_d), batch_d)
+    (grads,) = torch.autograd.grad(losses.sum(), ws_d)
+    np.testing.assert_allclose(losses.detach().cpu().numpy(), cpu_losses.numpy(), rtol=1e-5)
+    for i in range(5):
+        w = ws[i].to(dev).requires_grad_(True)
+        one = tv.xent_loss(logits, unravel(w), {k: v[i] for k, v in batch_d.items()})
+        (g,) = torch.autograd.grad(one, w)
+        np.testing.assert_allclose(losses[i].item(), one.item(), rtol=1e-5)
+        np.testing.assert_allclose(grads[i].cpu().numpy(), g.cpu().numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_cnn_round_on_kernels_equals_round_on_plain_versions(dev, f32_convolutions):
+    """A tiny CNN FLSimulation through the kernels equals the engine='ref'
+    run on the card round for round, and launches every kernel."""
+    from repro_torch.data import make_image_classification, partition_label_skew
+    from repro_torch.fl import FLConfig, FLSimulation
+    from repro_torch.models import accuracy, cnn_logits, init_cnn, xent_loss
+
+    (xtr, ytr), (xte, yte) = make_image_classification(0, img=8, n_train=600, n_test=100)
+    parts = partition_label_skew(ytr, 6, 2, 20, seed=1)
+    cx, cy = np.stack([xtr[i] for i in parts]), np.stack([ytr[i] for i in parts])
+    p0 = init_cnn(prng.key(0), width=4, img=8)
+    for ef in (False, True):
+        runs = []
+        for engine in (None, "ref"):
+            _build.reset_launches()
+            sim = FLSimulation(FLConfig(n_clients=6, rounds=2, local_epochs=2, use_kernels=True, error_feedback=ef),
+                               p0, functools.partial(xent_loss, cnn_logits), functools.partial(accuracy, cnn_logits),
+                               cx, cy, {"x": xte, "y": yte}, device=dev, engine=engine)
+            runs.append(([(m["theta"].clone(), m["loss"].item(), m["b"].item()) for _, m in sim.iter_rounds()],
+                         dict(_build.launches)))
+        (kern, kl), (plain, pl) = runs
+        assert pl == {}
+        assert kl == {"prox_sgd": 8, "bit_aggregate": 2, ("stoch_quant_ef" if ef else "stoch_quant_pack"): 2}
+        for (t1, l1, b1), (t2, l2, b2) in zip(kern, plain):
+            assert torch.equal(t1, t2) and l1 == l2 and b1 == b2 and np.isfinite(l1)

@@ -3,7 +3,8 @@
 Stage test: the JAX round's own deltas go through the port's compressor,
 estimate and epilogue, so wire, theta_hat and b can be held exact. End to
 end: both FLSimulations on the same config, data and weights, for PRoBit+
-and its baselines, every attack, oracle b and partial participation.
+and its baselines, every attack, oracle b and partial participation, on
+the MLP; and PRoBit+ on a tiny CNN and a tiny ResNet.
 """
 
 import functools
@@ -15,7 +16,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 import repro  # noqa: E402,F401
-from repro.data import make_classification, partition_label_skew  # noqa: E402
+from repro.data import make_classification, make_image_classification, partition_label_skew  # noqa: E402
 from repro.fl import FLConfig as JConfig, FLSimulation as JSim  # noqa: E402
 from repro.fl import rounds as jr  # noqa: E402
 from repro.models import vision as jv  # noqa: E402
@@ -26,26 +27,44 @@ from repro_torch.fl import rounds as tr  # noqa: E402
 from repro_torch.models import vision as tv  # noqa: E402
 
 N_CLIENTS, PER_CLIENT, HIDDEN = 6, 20, 16
+TINY_BLOCKS = (1, 1, 1, 1)
+# model: (reference logits, port logits); the tiny CNN on 8x8x1 images,
+# the tiny ResNet (width 8, one block a stage) on 16x16x3
+LOGITS = {
+    "mlp": (jv.mlp_logits, tv.mlp_logits),
+    "cnn": (jv.cnn_logits, tv.cnn_logits),
+    "resnet": (functools.partial(jv.resnet_logits, blocks=TINY_BLOCKS),
+               functools.partial(tv.resnet_logits, blocks=TINY_BLOCKS)),
+}
 
 
 @functools.lru_cache(maxsize=None)
-def _task(n_clients=N_CLIENTS):
-    (xtr, ytr), (xte, yte) = make_classification(0, n_train=600, n_test=100)
+def _task(n_clients=N_CLIENTS, model="mlp"):
+    key = jax.random.PRNGKey(0)
+    if model == "mlp":
+        (xtr, ytr), (xte, yte) = make_classification(0, n_train=600, n_test=100)
+        p0 = jv.init_mlp(key, hidden=HIDDEN)
+    elif model == "cnn":
+        (xtr, ytr), (xte, yte) = make_image_classification(0, img=8, n_train=600, n_test=100)
+        p0 = jv.init_cnn(key, width=4, img=8)
+    else:
+        (xtr, ytr), (xte, yte) = make_image_classification(0, img=16, channels=3, n_train=600, n_test=100)
+        p0 = jv.init_resnet(key, width=8, blocks=TINY_BLOCKS)
     parts = partition_label_skew(ytr, n_clients, 2, PER_CLIENT, seed=1)
     cx = np.stack([xtr[i] for i in parts])
     cy = np.stack([ytr[i] for i in parts])
-    p0 = {k: np.asarray(v) for k, v in jv.init_mlp(jax.random.PRNGKey(0), hidden=HIDDEN).items()}
-    return p0, cx, cy, {"x": xte, "y": yte}
+    return jax.tree_util.tree_map(np.asarray, p0), cx, cy, {"x": xte, "y": yte}
 
 
-def _sims(**kw):
-    p0, cx, cy, test = _task(kw.get("n_clients", N_CLIENTS))
+def _sims(model="mlp", **kw):
+    p0, cx, cy, test = _task(kw.get("n_clients", N_CLIENTS), model)
+    jlogits, tlogits = LOGITS[model]
     base = dict(n_clients=N_CLIENTS, rounds=3, local_epochs=2, use_kernels=True)
     base.update(kw)
-    js = JSim(JConfig(**base), p0, functools.partial(jv.xent_loss, jv.mlp_logits),
-              functools.partial(jv.accuracy, jv.mlp_logits), cx, cy, test)
-    ts = FLSimulation(FLConfig(**base), p0, functools.partial(tv.xent_loss, tv.mlp_logits),
-                      functools.partial(tv.accuracy, tv.mlp_logits), cx, cy, test, device="cpu")
+    js = JSim(JConfig(**base), p0, functools.partial(jv.xent_loss, jlogits),
+              functools.partial(jv.accuracy, jlogits), cx, cy, test)
+    ts = FLSimulation(FLConfig(**base), p0, functools.partial(tv.xent_loss, tlogits),
+                      functools.partial(tv.accuracy, tlogits), cx, cy, test, device="cpu")
     return js, ts
 
 
@@ -64,17 +83,24 @@ def test_batch_indices_follow_the_key_schedule():
         )
 
 
-@pytest.mark.parametrize("kw", [
-    {},
-    {"error_feedback": True},
-    {"byz_frac": 0.34, "attack": "bit_flip"},
-    {"dp_epsilon": 0.5},
-    {"use_kernels": False},
-], ids=["plain", "ef", "bit_flip", "dp", "chunked_wire"])
-def test_stage_jax_deltas_through_port_server(kw):
+STAGE_CASES = [
+    ("mlp", {}),
+    ("mlp", {"error_feedback": True}),
+    ("mlp", {"byz_frac": 0.34, "attack": "bit_flip"}),
+    ("mlp", {"dp_epsilon": 0.5}),
+    ("mlp", {"use_kernels": False}),
+    ("cnn", {}),
+    ("cnn", {"error_feedback": True}),
+]
+
+
+@pytest.mark.parametrize("model,kw", STAGE_CASES,
+                         ids=["plain", "ef", "bit_flip", "dp", "chunked_wire", "cnn-plain", "cnn-ef"])
+def test_stage_jax_deltas_through_port_server(model, kw):
     """JAX _client_uploads' deltas, fed to the port's compress -> estimate
-    -> _finish_round: wire bytes, theta_hat and b exact."""
-    js, ts = _sims(**kw)
+    -> _finish_round: wire bytes, theta_hat and b exact (the CNN's deltas
+    come from the reference's own NHWC convolutions)."""
+    js, ts = _sims(model, **kw)
     jctx, tctx = js.ctx, ts.ctx
     params = jr.cell_params(jctx.cfg)
     jkey, tkey = jax.random.fold_in(jax.random.PRNGKey(9), 1), prng.fold_in(prng.key(9), 1)
@@ -138,6 +164,45 @@ def test_flsimulation_end_to_end(kw):
     diff = np.abs(np.asarray(js.w_global) - ts.w_global.numpy())
     bad = diff > 1e-5
     assert bad.sum() <= 0.001 * diff.size
+    flips = np.array([2 * h["b"] / N_CLIENTS for h in [{"b": 0.01}] + th[:-1]])
+    for v in diff[bad]:
+        assert np.min(np.abs(v - flips)) <= 1e-6, v
+
+
+# (model, config, share of w_global coordinates allowed to differ by a
+# flipped wire bit, loss rtol of each round); the CNN's EF wire is held by
+# the stage test. Measured on a CPU (the same at 1 and 3 torch threads):
+# the CNN flips no bit and meets rtol 1e-6; the ResNet flips 0.041% of the
+# coordinates, all in round 3, and its round-3 loss is off by 7.6e-4.
+# Client 1 of this cohort sits at loss ln 2 (its two classes unseparated),
+# where the reference itself turns a 1-ulp perturbation of the client's
+# start into a 1e-5 weight change in one round and into ~1e-3 in the next;
+# so rounds 1 and 2 are held to 1e-4 and round 3 to 2e-3, and the flip
+# share to 0.1% (each about 2.5 times what was measured).
+VISION_CASES = {
+    "cnn": ("cnn", {}, 0.001, (1e-4, 1e-4, 1e-4)),
+    "resnet": ("resnet", {}, 0.001, (1e-4, 1e-4, 2e-3)),
+}
+
+
+@pytest.mark.parametrize("case", list(VISION_CASES))
+def test_flsimulation_end_to_end_vision(case):
+    """Three PRoBit+ rounds of both simulations on the paper's image models
+    at tiny widths (the bar of test_flsimulation_end_to_end): b exact in
+    every round, the loss of each round within its rtol, and every
+    coordinate of w_global either within 1e-5 or off by exactly one flipped
+    bit, 2b/M at some round's b."""
+    model, kw, flip_share, rtols = VISION_CASES[case]
+    js, ts = _sims(model, **kw)
+    jh = js.run(eval_every=1)
+    th = ts.run(eval_every=1)
+    assert [h["b"] for h in jh] == [h["b"] for h in th]
+    for t, (j, h, rtol) in enumerate(zip(jh, th, rtols)):
+        np.testing.assert_allclose(h["loss"], j["loss"], rtol=rtol, err_msg=f"round {t + 1}")
+    assert 0.0 <= th[-1]["acc"] <= 1.0
+    diff = np.abs(np.asarray(js.w_global) - ts.w_global.numpy())
+    bad = diff > 1e-5
+    assert bad.sum() <= flip_share * diff.size
     flips = np.array([2 * h["b"] / N_CLIENTS for h in [{"b": 0.01}] + th[:-1]])
     for v in diff[bad]:
         assert np.min(np.abs(v - flips)) <= 1e-6, v
