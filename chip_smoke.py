@@ -17,7 +17,10 @@ Phases (any failure raises and exits non-zero before the result line):
    padded-tail poison case and theta_hat against the Eq.-13 estimate of
    the vote counts; then ``bit_aggregate`` at d = 997 for M from 1 to
    150,001 (random, all-ones and all-zeros wires) and at M = 10,000 with
-   d = 118,282, writing nothing at or beyond n;
+   d = 118,282, writing nothing at or beyond n; ``prox_sgd`` at d = 0, 1,
+   2 and 3 (mod 4) and M in {1, 7, 100}, with w0 shared and full, out of
+   place and in place (``out=``), at the geometries of B4_GEOMETRIES, on
+   its scalar path and on arrays off their 16-byte boundaries;
 4. main path: ``FLSimulation`` with probit_plus, dynamic b and the kernels,
    on the paper's MLP at its default width (hidden 128, d = 118,282) with
    100 clients, 3 rounds in each of four variants: (a) plain, (b) error
@@ -56,6 +59,10 @@ Phases (any failure raises and exits non-zero before the result line):
    ``bit_aggregate`` at d = 118,282 and M from 100 to 10,000, through the
    wrapper and at every cluster size, beside the time of an empty kernel
    launched the same way, and the SASS instructions of its counting loop;
+   ``prox_sgd`` (in place, as the round runs it) from d = 118,282 to
+   11,172,042 and at M * d ~ 1.1e9 with 1,000 and 10,000 clients, beside
+   PyTorch's fused SGD on the same tensors, and at both main shapes every
+   candidate geometry of ``b4_candidates`` and the old out-of-place call;
    and the grid's plain-torch stages (FedAvg, Fed-GM's 16 Weiszfeld steps,
    the sign wire and its counts, the oracle range, the gaussian attack's
    draw) at the main path's shapes, each as device time (one call captured
@@ -256,10 +263,13 @@ def check_kernels(chk: Checker, dev) -> None:
 
             w, g, mom = randn(m, d), randn(m, d), 0.1 * randn(m, d)
             for w0 in (0.9 * w[0], 0.9 * w):
-                got = prox_sgd(w, w0.contiguous(), g, mom, 0.01, 0.2, 0.5)
                 want = ref.prox_sgd_ref(w, w0, g, mom, 0.01, 0.2, 0.5)
-                chk.same("prox_sgd", got[0], want[0], tag + " w")
-                chk.same("prox_sgd", got[1], want[1], tag + " momentum")
+                w_in, m_in = w.clone(), mom.clone()
+                for got, how in ((prox_sgd(w, w0.contiguous(), g, mom, 0.01, 0.2, 0.5), ""),
+                                 (prox_sgd(w_in, w0.contiguous(), g, m_in, 0.01, 0.2, 0.5, out=(w_in, m_in)),
+                                  " in place")):
+                    chk.same("prox_sgd", got[0], want[0], tag + how + " w")
+                    chk.same("prox_sgd", got[1], want[1], tag + how + " momentum")
 
     # Padded-tail poison: n % 8 != 0 and M % 8 != 0; all-ones pad bits must
     # never reach theta_hat[:n].
@@ -320,6 +330,72 @@ def check_bit_aggregate(chk: Checker, dev) -> None:
         for packed in (flat[:-1].view(m, 125), flat[1:].view(m, 125)):
             chk.same("bit_aggregate", bit_aggregate(packed, b), ref.bit_aggregate_ref(packed, b),
                      f"n=997 P=125 M={m} unaligned")
+
+
+# B4's shapes (phase 3): d = 0, 1, 2 and 3 (mod 4), so every row alignment
+# of the peel; 997 under one column tile, 4099 and 40522 not a multiple of
+# it. M = 7 does not divide the row groups of B4_GEOMETRIES.
+B4_CHECK_D = (4096, 997, 40_522, 4_099)
+B4_CHECK_M = (1, 7, 100)
+# (tile, rows per group, CTAs) launched through the C entry besides the
+# wrapper's own: one CTA walking every unit, groups that do not divide M,
+# fewer CTAs than units, more CTAs than units, the smallest and largest tile.
+B4_GEOMETRIES = ((2048, 1, 1), (2048, 3, 5), (1024, 100, 2), (8192, 2, 1000), (4, 5, 7), (256, 4, 64))
+
+
+def check_prox_sgd(chk: Checker, dev) -> None:
+    """Phase 3, B4 in depth: bit for bit against its plain version for every
+    d of B4_CHECK_D and M of B4_CHECK_M, with w0 shared and full: through
+    the wrapper out of place and in place (``out=`` aliasing w and the
+    momentum), through the C entry at every geometry of B4_GEOMETRIES, on
+    the scalar path alone (``vector`` = 0), on arrays that all start 4 bytes
+    past a 16-byte boundary (the vector path from another phase), and with
+    only ``w`` off its boundary (the wrapper takes the scalar path)."""
+    import torch
+
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.prox_sgd import launch_geometry, occupancy, prox_sgd
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    lib = _build.library("prox_sgd")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    coeffs = (0.01, 0.2, 0.5)
+    for d in B4_CHECK_D:
+        for m in B4_CHECK_M:
+            w, g, mom = (torch.randn(m, d, generator=gen, device=dev) for _ in range(3))
+            for w0 in (0.9 * w[0] + 0.1, 0.9 * w + 0.1):
+                tag = f"d={d} M={m} w0={'shared' if w0.dim() == 1 else 'full'}"
+                want_w, want_m = ref.prox_sgd_ref(w, w0, g, mom, *coeffs)
+
+                def same(got, what):
+                    chk.same("prox_sgd", got[0], want_w, f"{tag} {what} w")
+                    chk.same("prox_sgd", got[1], want_m, f"{tag} {what} momentum")
+
+                same(prox_sgd(w, w0, g, mom, *coeffs), "wrapper")
+                w_in, m_in = w.clone(), mom.clone()
+                got = prox_sgd(w_in, w0, g, m_in, *coeffs, out=(w_in, m_in))
+                require(got[0] is w_in and got[1] is m_in, f"prox_sgd {tag}: out= not returned")
+                same(got, "in place")
+                shared = w0.dim() == 1
+                chosen = launch_geometry(m, d, *occupancy(dev.index, shared))
+                for tile, rows, ctas in (chosen, *B4_GEOMETRIES):
+                    for vector in (1, 0):
+                        w_out, m_out = torch.full_like(w, float("nan")), torch.full_like(w, float("nan"))
+                        rc = lib.probit_prox_sgd(w.data_ptr(), w0.data_ptr(), g.data_ptr(), mom.data_ptr(),
+                                                 w_out.data_ptr(), m_out.data_ptr(), *coeffs, m, d,
+                                                 0 if shared else d, tile, rows, ctas, vector, stream)
+                        require(rc == 0, f"prox_sgd {tag} geometry {(tile, rows, ctas)}: cudaError_t {rc}")
+                        same((w_out, m_out), f"geometry {(tile, rows, ctas)} vector={vector}")
+                # every operand 4 bytes past a 16-byte boundary, then w alone
+                flats = [torch.empty(m * d + 1, device=dev) for _ in range(5 if shared else 6)]
+                views = [f[1:].view(m, d) for f in flats]
+                for v, src in zip(views, (w, g, mom, w, mom, w0)):
+                    v.copy_(src)
+                w_in, g_in, m_in, w_io, m_io = views[:5]
+                w0_in = w0 if shared else views[5]
+                same(prox_sgd(w_in, w0_in, g_in, m_in, *coeffs), "4 bytes off")
+                same(prox_sgd(w_io, w0_in, g_in, m_io, *coeffs, out=(w_io, m_io)), "4 bytes off, in place")
+                same(prox_sgd(w_in, w0, g, mom, *coeffs), "w alone 4 bytes off")
 
 
 def _split_clients(x, y):
@@ -802,9 +878,10 @@ def kernel_times(dev, m: int, d: int, copy_gbs: float) -> dict:
         "bit_aggregate": (lambda: bit_aggregate(packed, b[:d]),
                           lambda: ref.bit_aggregate_ref(packed, b[:d]),
                           *b3_work(m, d)),
-        "prox_sgd": (lambda: prox_sgd(w, w0, g, mom, 0.01, 0.2, 0.5),
-                     lambda: ref.prox_sgd_ref(w, w0, g, mom, 0.01, 0.2, 0.5),
-                     20 * m * d + 4 * d, 6 * m * d),
+        # in place, as the round runs it (local_prox_train)
+        "prox_sgd": (lambda: prox_sgd(w, w0, g, mom, 0.01, 0.2, 0.5, out=(w, mom)),
+                     lambda: ref.prox_sgd_ref(w, w0, g, mom, 0.01, 0.2, 0.5, out=(w, mom)),
+                     *b4_work(m, d)),
     }
     rows = {}
     for name, (kern, plain, nbytes, ops_n) in cases.items():
@@ -818,9 +895,30 @@ def kernel_times(dev, m: int, d: int, copy_gbs: float) -> dict:
             "bytes": nbytes, "gbs": nbytes / (ms * 1e-3) / 1e9, "share_of_bound": bound / ms,
             "copy_bound_ms": nbytes / (copy_gbs * 1e9) * 1e3, "shape": f"M={m} d={d} d_pad={d_pad}",
         }
+    rows["prox_sgd"]["fused_sgd_ms"] = stream_ms(fused_sgd(w, g, mom), reps=20)
     del cases, delta, res, u, packed, w, g, mom
     torch.cuda.empty_cache()
     return rows
+
+
+def b4_work(m: int, d: int) -> tuple[int, int]:
+    """(bytes, operations) of B4 on an ``(m, d)`` cohort with one shared w0
+    row: w, grad and momentum read and w' and m' written once, w0 read once;
+    6 operations an element."""
+    return 20 * m * d + 4 * d, 6 * m * d
+
+
+def fused_sgd(w, g, mom):
+    """A yardstick of B4's traffic, not of its function: PyTorch's fused SGD
+    with momentum on the same (M, d) tensors reads the parameters, the
+    gradient and the momentum buffer and writes the parameters and the
+    buffer (no w0); in place, like the round's B4. The call waits for the
+    device before it returns, so it is timed on the stream (:func:`stream_ms`),
+    not queued behind a device sleep."""
+    import torch
+
+    return functools.partial(torch._fused_sgd_, [w], [g], [mom], weight_decay=0.0, momentum=0.5, lr=0.01,
+                             dampening=0.0, nesterov=False, maximize=False, is_first_step=False)
 
 
 def kernel_rows(runs: dict, chk: Checker, at_main: dict, at_resnet: dict) -> list[dict]:
@@ -986,6 +1084,101 @@ def b3_sweep(dev, copy_gbs: float) -> dict:
             "sass": b3_sass()}
 
 
+# B4 over the cohort (phase 5): (M, d) at M = 100 from the MLP's width to
+# ResNet-18's, then at M * d ~ 1.1e9 with more clients.
+B4_SWEEP = ((100, 118_282), (100, 1_117_204), (100, RESNET_D), (1_000, 1_117_204), (10_000, 111_720))
+
+
+def b4_candidates(m: int, d: int, device_index: int) -> dict:
+    """Named (tile, rows per group, CTAs, vector) launches of B4 at (m, d):
+    launch_geometry's choice and the variants that each undo one of its
+    decisions (PERF.md, B4's suspects)."""
+    from repro_torch.kernels.prox_sgd import launch_geometry, occupancy
+
+    sms, per_sm = occupancy(device_index, True)
+    tile, rows, ctas = launch_geometry(m, d, sms, per_sm)
+
+    def units(tile, rows):
+        return -(-d // tile) * -(-m // rows)
+
+    waves = -(-ctas // (sms * per_sm))
+    return {
+        "chosen": (tile, rows, ctas, 1),
+        "scalar": (tile, rows, ctas, 0),  # 4-byte accesses only
+        "rows_1": (tile, 1, units(tile, 1), 1),  # w0 staged for every row
+        "rows_4": (tile, 4, units(tile, 4), 1),
+        "rows_all": (tile, m, units(tile, m), 1),  # w0 staged once: one unit a tile walks all M rows
+        "persistent_waves": (tile, rows, -(-ctas // waves), 1),  # one wave of CTAs walking the units
+        "tile_1024": (1024, 2 * rows, units(1024, 2 * rows), 1),
+        "tile_4096": (4096, rows, units(4096, rows), 1),
+    }
+
+
+def b4_sweep(dev, copy_gbs: float) -> dict:
+    """Phase 5, B4 over the cohort: for each (M, d) of B4_SWEEP, in place
+    through the wrapper (launch_geometry's choice) with its bytes, bound and
+    share of bound, and PyTorch's fused SGD on the same tensors
+    (``fused_sgd_ms``); at the MLP's and ResNet-18's shapes, every launch of
+    :func:`b4_candidates` through the C entry, each checked against the
+    plain version first, and the wrapper out of place with torch's NaN fill
+    of its two fresh outputs on (as the round ran B4 before in-place
+    updates)."""
+    import torch
+
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.prox_sgd import launch_geometry, occupancy, prox_sgd
+
+    gen = torch.Generator(device=dev).manual_seed(88)
+    lib = _build.library("prox_sgd")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms, per_sm = occupancy(dev.index, True)
+    coeffs = (0.01, 0.2, 0.5)
+    rows = []
+    for m, d in B4_SWEEP:
+        w, g, mom = (torch.randn(m, d, generator=gen, device=dev) for _ in range(3))
+        w0 = torch.randn(d, generator=gen, device=dev)
+        nbytes, ops_n = b4_work(m, d)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound = max(t_bytes, ops_n / PEAK_F32_OPS_PER_S * 1e3)
+        row = {"M": m, "d": d, "bytes": nbytes, "bound_ms": bound,
+               "bound_by": "bytes" if bound == t_bytes else "operations",
+               "copy_bound_ms": nbytes / (copy_gbs * 1e9) * 1e3,
+               "geometry": launch_geometry(m, d, sms, per_sm)}
+        if (m, d) in ((100, 118_282), (100, RESNET_D)):
+            w_out, m_out = torch.empty_like(w), torch.empty_like(w)
+            by_candidate = {}
+            for name, (tile, group_rows, ctas, vector) in b4_candidates(m, d, dev.index).items():
+                def launch(w_o=w_out, m_o=m_out):
+                    rc = lib.probit_prox_sgd(w.data_ptr(), w0.data_ptr(), g.data_ptr(), mom.data_ptr(),
+                                             w_o.data_ptr(), m_o.data_ptr(), *coeffs, m, d, 0, tile, group_rows,
+                                             ctas, vector, stream)
+                    require(rc == 0, f"prox_sgd {name} at M={m} d={d}: cudaError_t {rc}")
+
+                w_out.fill_(float("nan"))
+                m_out.fill_(float("nan"))
+                launch()
+                want = ref.prox_sgd_ref(w, w0, g, mom, *coeffs)  # of this candidate's inputs
+                require(torch.equal(w_out, want[0]) and torch.equal(m_out, want[1]),
+                        f"prox_sgd {name} at M={m} d={d}: differs from the plain version")
+                del want
+                ms = timed_ms(functools.partial(launch, w, mom))  # in place
+                by_candidate[name] = {"geometry": [tile, group_rows, ctas], "vector": vector, "ms": ms,
+                                      "share_of_bound": bound / ms}
+            del w_out, m_out
+            torch.utils.deterministic.fill_uninitialized_memory = True
+            row["out_of_place_nan_fill_ms"] = timed_ms(lambda: prox_sgd(w, w0, g, mom, *coeffs))
+            torch.utils.deterministic.fill_uninitialized_memory = False
+            row["candidates"] = by_candidate
+        batches = timed_batches(lambda: prox_sgd(w, w0, g, mom, *coeffs, out=(w, mom)))
+        ms = statistics.median(batches)
+        row.update({"ms": ms, "min_ms": min(batches), "max_ms": max(batches), "gbs": nbytes / (ms * 1e-3) / 1e9,
+                    "share_of_bound": bound / ms, "fused_sgd_ms": stream_ms(fused_sgd(w, g, mom), reps=20)})
+        rows.append(row)
+        del w, g, mom, w0
+        torch.cuda.empty_cache()
+    return {"phase": "b4_sweep", "sms": sms, "blocks_per_sm": per_sm, "rows": rows}
+
+
 def kernel_resources() -> dict:
     """ptxas's report of every kernel (the build's ``-Xptxas -v`` log):
     registers, barriers, shared memory, stack and spills, by kernel."""
@@ -1082,6 +1275,7 @@ def main() -> int:
     t0 = time.perf_counter()
     check_kernels(chk, dev)
     check_bit_aggregate(chk, dev)
+    check_prox_sgd(chk, dev)
     torch.cuda.synchronize()
     print(json.dumps({"phase": "kernels_vs_plain", "checked": sorted(chk.count), "comparisons": chk.count,
                       "max_abs_err": chk.max_err, "seconds": time.perf_counter() - t0}), flush=True)
@@ -1130,6 +1324,7 @@ def main() -> int:
                       f"kernels_at_{RESNET_D}": at_resnet}), flush=True)
     print(json.dumps(stage_times(dev)), flush=True)
     print(json.dumps(b3_sweep(dev, copy_gbs)), flush=True)
+    print(json.dumps(b4_sweep(dev, copy_gbs)), flush=True)
     if args.profile:
         for task in ("mlp128-m100", "resnet18w64-m100"):
             print(json.dumps(profile_round(dev, task)), flush=True)

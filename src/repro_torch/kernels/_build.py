@@ -58,7 +58,10 @@ _SIGNATURES = {
         "probit_bit_aggregate": (_P, _P, _P, _I64, _I64, _I64, _F, _I64, _I64, _P),
         "probit_bit_aggregate_empty": (_I64, _I64, _P),
     },
-    "prox_sgd": {"probit_prox_sgd": (_P, _P, _P, _P, _P, _P, _F, _F, _F, _I64, _I64, _I64, _P)},
+    "prox_sgd": {
+        "probit_prox_sgd": (_P, _P, _P, _P, _P, _P, _F, _F, _F, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P),
+        "probit_prox_sgd_occupancy": (_I64, _I64, _P),
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

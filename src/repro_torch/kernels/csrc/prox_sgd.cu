@@ -3,18 +3,42 @@
 // Replaces the Pallas kernel prox_sgd_2d (_kernel) of
 // src/repro/kernels/prox_sgd.py. The TPU kernel ran one client's
 // (rows, 1024) view inside a vmap; here one launch updates the whole
-// (M, d) cohort. The global model w0 is one (d,) row shared by every
-// client (or a full (M, d) operand), so it stays in L2 instead of being
-// streamed M times:
+// (M, d) cohort, each element as
 //
 //   g  = grad + lam * (w - w0)
 //   m' = mu * m + g
 //   w' = w - eta * m'
 //
 // Bound: bytes (reads w, grad, m and w0, writes w' and m'; 6 flops per
-// element). A plain grid-stride stream of coalesced 4-byte accesses, rows
-// on grid.y: d is not a multiple of 4 at the model's width, so rows are
-// not 16-byte aligned for vector loads.
+// element). The global model w0 is one (d,) row shared by every client
+// (w0_row_stride = 0) or a full (M, d) operand (w0_row_stride = d).
+//
+// Design, for a cohort whose arrays are each larger than the 50 MB L2:
+// - Work units are a column tile of `tile` floats times a group of
+//   `group_rows` client rows. A CTA stages its unit's slice of a shared w0
+//   in shared memory once and streams every row of the group against it.
+// - Units are numbered tile first: the CTAs resident at one time work on
+//   neighbouring tiles of the same rows, so each array is read and written
+//   as one contiguous band, row after row.
+// - The wrapper (kernels/prox_sgd.py: launch_geometry) launches one CTA a
+//   unit of 2,048 to 4,096 elements and lets the hardware deal units to SMs
+//   as CTAs finish; on the H100 that streamed faster than long units (w0
+//   staged once for many rows) and than a persistent grid of whole waves
+//   (PERF.md, b4_sweep). The CTAs walk the units grid-stride, so a launch
+//   may also take fewer CTAs than units.
+// - Elements move 16 bytes at a time. Row r starts at element r * d, which
+//   is 16-byte aligned only for some r when d % 4 != 0, so each row segment
+//   is a scalar head (0-3 elements) up to the first 16-byte boundary, a
+//   float4 body and a scalar tail. w0 comes from shared memory at each
+//   element's own column, so its alignment does not matter. A thread keeps
+//   kBatch float4 slots of loads in flight before it computes and stores.
+//   With `vector` = 0 (arrays whose addresses differ mod 16 bytes) every
+//   element takes the scalar path.
+// - Streams are loaded and stored with the evict-first hint (.cs), so that
+//   they pass through L2 without pushing w0 out.
+// - Updates may be in place (w_out == w, m_out == mom): every element is
+//   read before it is written, by the same thread, and by no other thread.
+//   No pointer is __restrict__.
 //
 // Every operation uses a _rn intrinsic, so nvcc cannot contract a*b+c into
 // a fused multiply-add; the result equals repro_torch.kernels.ref.prox_sgd_ref,
@@ -26,39 +50,169 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBatch = 4;          // float4 slots a thread loads before it stores
+constexpr int kMaxTileLog2 = 13;   // 8,192 floats of w0 (32 KB) in shared memory
 
-__global__ void prox_sgd_kernel(const float* __restrict__ w, const float* __restrict__ w0,
-                                const float* __restrict__ grad,
-                                const float* __restrict__ mom, float* __restrict__ w_out,
-                                float* __restrict__ m_out, float eta, float lam, float mu,
-                                int64_t rows, int64_t d, int64_t w0_row_stride) {
-  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
-    for (int64_t c = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; c < d;
-         c += (int64_t)gridDim.x * blockDim.x) {
-      const int64_t i = r * d + c;
-      const float wv = w[i];
-      const float w0v = w0[r * w0_row_stride + c];
-      const float g = __fadd_rn(grad[i], __fmul_rn(lam, __fsub_rn(wv, w0v)));
-      const float nm = __fadd_rn(__fmul_rn(mu, mom[i]), g);
-      m_out[i] = nm;
-      w_out[i] = __fsub_rn(wv, __fmul_rn(eta, nm));
+struct Coeffs {
+  float eta, lam, mu;
+};
+
+// (w', m') of one element; writes m' into *m and returns w'.
+__device__ __forceinline__ float step(float w, float w0, float g, float& m, Coeffs c) {
+  const float gt = __fadd_rn(g, __fmul_rn(c.lam, __fsub_rn(w, w0)));
+  m = __fadd_rn(__fmul_rn(c.mu, m), gt);
+  return __fsub_rn(w, __fmul_rn(c.eta, m));
+}
+
+template <bool kSharedW0>
+__global__ void __launch_bounds__(kThreads)
+prox_sgd_kernel(const float* w, const float* w0, const float* grad, const float* mom, float* w_out,
+                float* m_out, Coeffs coeffs, int64_t rows, int64_t d, int tile_log2,
+                int64_t group_rows, int vector, int phase) {
+  extern __shared__ float s_w0[];
+  const int64_t tile = int64_t{1} << tile_log2;
+  const int64_t tiles = (d + tile - 1) >> tile_log2;
+  const int64_t units = tiles * ((rows + group_rows - 1) / group_rows);
+  const int vpr_log2 = tile_log2 - 2;  // float4 slots of a row segment, log2
+  const int scalar_log2 = vector ? 3 : tile_log2;  // scalar positions of a row segment, log2
+
+  for (int64_t u = blockIdx.x; u < units; u += gridDim.x) {
+    const int64_t c0 = (u % tiles) << tile_log2;
+    const int64_t r0 = (u / tiles) * group_rows;
+    const int len = (int)min(tile, d - c0);
+    const int64_t nr = min(group_rows, rows - r0);
+    if (kSharedW0) {
+      __syncthreads();  // the previous unit has read its slice
+      for (int k = threadIdx.x; k < len; k += kThreads) s_w0[k] = __ldg(w0 + c0 + k);
+      __syncthreads();
+    }
+    // Row r of the unit starts at flat element e = (r0 + r) * d + c0; its
+    // head runs to the first element whose address is a multiple of 16 bytes.
+    auto head = [&](int64_t r) -> int {
+      if (!vector) return len;
+      const int64_t e = (r0 + r) * d + c0 + phase;
+      return min((int)((4 - (e & 3)) & 3), len);
+    };
+
+    if (vector) {
+      const int64_t total = nr << vpr_log2;
+      const int64_t vmask = (int64_t{1} << vpr_log2) - 1;
+      for (int64_t i0 = threadIdx.x; i0 < total; i0 += kThreads * kBatch) {
+        float4 wv[kBatch], gv[kBatch], mv[kBatch], zv[kBatch];
+        int64_t off[kBatch];
+        int col[kBatch];
+        bool ok[kBatch];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int64_t i = i0 + (int64_t)j * kThreads;
+          const int64_t r = i >> vpr_log2;
+          const int h = head(r);
+          col[j] = h + 4 * (int)(i & vmask);
+          ok[j] = i < total && col[j] + 4 <= len;
+          off[j] = (r0 + r) * d + c0 + col[j];
+          if (ok[j]) {
+            wv[j] = __ldcs(reinterpret_cast<const float4*>(w + off[j]));
+            gv[j] = __ldcs(reinterpret_cast<const float4*>(grad + off[j]));
+            mv[j] = __ldcs(reinterpret_cast<const float4*>(mom + off[j]));
+            if (!kSharedW0) zv[j] = __ldcs(reinterpret_cast<const float4*>(w0 + off[j]));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          if (!ok[j]) continue;
+          if (kSharedW0) {
+            const float* z = s_w0 + col[j];
+            zv[j] = make_float4(z[0], z[1], z[2], z[3]);
+          }
+          float4 nw;
+          nw.x = step(wv[j].x, zv[j].x, gv[j].x, mv[j].x, coeffs);
+          nw.y = step(wv[j].y, zv[j].y, gv[j].y, mv[j].y, coeffs);
+          nw.z = step(wv[j].z, zv[j].z, gv[j].z, mv[j].z, coeffs);
+          nw.w = step(wv[j].w, zv[j].w, gv[j].w, mv[j].w, coeffs);
+          __stcs(reinterpret_cast<float4*>(m_out + off[j]), mv[j]);
+          __stcs(reinterpret_cast<float4*>(w_out + off[j]), nw);
+        }
+      }
+    }
+
+    // Scalar positions: the head [0, h) and the tail after the last whole
+    // float4 of each row segment (every column when vector == 0).
+    const int64_t total_s = nr << scalar_log2;
+    const int64_t smask = (int64_t{1} << scalar_log2) - 1;
+    for (int64_t i = threadIdx.x; i < total_s; i += kThreads) {
+      const int64_t r = i >> scalar_log2;
+      const int k = (int)(i & smask);
+      const int h = head(r);
+      const int col = k < h ? k : h + ((len - h) & ~3) + (k - h);
+      if (col >= len) continue;
+      const int64_t off = (r0 + r) * d + c0 + col;
+      float m = mom[off];
+      const float z = kSharedW0 ? s_w0[col] : w0[off];
+      const float nw = step(w[off], z, grad[off], m, coeffs);
+      m_out[off] = m;
+      w_out[off] = nw;
     }
   }
 }
 
+int tile_log2_of(int64_t tile) {
+  int lg = 0;
+  while ((int64_t{1} << lg) < tile) ++lg;
+  return (int64_t{1} << lg) == tile && lg >= 2 && lg <= kMaxTileLog2 ? lg : -1;
+}
+
 }  // namespace
 
-// w, grad, mom, w_out, m_out: (rows, d) f32; w0: (d,) with w0_row_stride = 0 (one row
-// shared by the cohort) or (rows, d) with w0_row_stride = d.
-extern "C" int probit_prox_sgd(const float* w, const float* w0, const float* grad,
-                               const float* mom, float* w_out, float* m_out, float eta,
-                               float lam, float mu, int64_t rows, int64_t d,
-                               int64_t w0_row_stride, cudaStream_t stream) {
+// SMs of the current device and resident CTAs per SM of the kernel with a
+// `tile`-float shared w0 slice (shared_w0 != 0) or with a full w0 operand:
+// out[0] = SMs, out[1] = CTAs per SM.
+extern "C" int probit_prox_sgd_occupancy(int64_t tile, int64_t shared_w0, int64_t* out) {
+  const int lg = tile_log2_of(tile);
+  if (lg < 0) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, blocks = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = shared_w0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, prox_sgd_kernel<true>, kThreads,
+                                                                     (size_t)tile * sizeof(float))
+                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, prox_sgd_kernel<false>, kThreads, 0);
+  }
+  out[0] = sms;
+  out[1] = blocks;
+  return (int)err;
+}
+
+// w, grad, mom, w_out, m_out: (rows, d) f32; w0: (d,) with w0_row_stride = 0
+// (one row shared by the cohort) or (rows, d) with w0_row_stride = d. w_out
+// may be w and m_out may be mom. Geometry: `tile` columns (a power of two,
+// 4 to 8,192) by `group_rows` rows a unit, `ctas` CTAs. `vector` != 0 needs
+// every (rows, d) operand at the same address mod 16 bytes.
+extern "C" int probit_prox_sgd(const float* w, const float* w0, const float* grad, const float* mom,
+                               float* w_out, float* m_out, float eta, float lam, float mu, int64_t rows,
+                               int64_t d, int64_t w0_row_stride, int64_t tile, int64_t group_rows,
+                               int64_t ctas, int64_t vector, cudaStream_t stream) {
   if (rows == 0 || d == 0) return 0;
-  int64_t bx = (d + kThreads - 1) / kThreads;
-  if (bx > 64) bx = 64;
-  const int64_t by = rows < 65535 ? rows : 65535;
-  prox_sgd_kernel<<<dim3((unsigned)bx, (unsigned)by), kThreads, 0, stream>>>(
-      w, w0, grad, mom, w_out, m_out, eta, lam, mu, rows, d, w0_row_stride);
+  const int lg = tile_log2_of(tile);
+  const bool shared = w0_row_stride == 0;
+  if (lg < 0 || group_rows < 1 || ctas < 1 || ctas > 0x7fffffff || (!shared && w0_row_stride != d))
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(w);
+  if (vector) {
+    const uintptr_t ptrs[] = {reinterpret_cast<uintptr_t>(grad), reinterpret_cast<uintptr_t>(mom),
+                              reinterpret_cast<uintptr_t>(w_out), reinterpret_cast<uintptr_t>(m_out),
+                              shared ? a : reinterpret_cast<uintptr_t>(w0)};
+    for (uintptr_t p : ptrs)
+      if ((p & 15) != (a & 15)) return (int)cudaErrorInvalidValue;
+    if (a & 3) return (int)cudaErrorInvalidValue;
+  }
+  const Coeffs coeffs{eta, lam, mu};
+  const int phase = (int)((a >> 2) & 3);
+  if (shared) {
+    prox_sgd_kernel<true><<<(unsigned)ctas, kThreads, (size_t)tile * sizeof(float), stream>>>(
+        w, w0, grad, mom, w_out, m_out, coeffs, rows, d, lg, group_rows, (int)(vector != 0), phase);
+  } else {
+    prox_sgd_kernel<false><<<(unsigned)ctas, kThreads, 0, stream>>>(
+        w, w0, grad, mom, w_out, m_out, coeffs, rows, d, lg, group_rows, (int)(vector != 0), phase);
+  }
   return (int)cudaGetLastError();
 }

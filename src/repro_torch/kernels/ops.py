@@ -129,12 +129,21 @@ def bit_aggregate(packed: torch.Tensor, b: torch.Tensor, n: int, *, engine: str 
     return kernel(packed.contiguous(), b_full.contiguous())
 
 
-def prox_sgd(w, w0, grad, momentum, eta: float, lam: float, mu: float, *, engine: str | None = None):
+def prox_sgd(w, w0, grad, momentum, eta: float, lam: float, mu: float, *, out=None,
+             engine: str | None = None):
     """Fused prox-SGD step on an (M, d) cohort (or one (d,) row); ``w0``
-    may be one shared (d,) row. Returns (w_new, momentum_new)."""
+    may be one shared (d,) row. Returns (w_new, momentum_new), written into
+    ``out=(w_out, m_out)`` when it is given: contiguous buffers of ``w``'s
+    shape, where ``w_out`` may be ``w`` and ``m_out`` ``momentum`` (an update
+    in place). Both engines take the same ``out``."""
     engine = resolve_engine(engine, w.device)
     if engine == "ref":
-        return ref.prox_sgd_ref(w, w0, grad, momentum, eta, lam, mu)
+        if out is not None:
+            from .prox_sgd import check_out
+
+            out = check_out(out, w, w0, grad, momentum)
+        return ref.prox_sgd_ref(w, w0, grad, momentum, eta, lam, mu, out=out)
     from .prox_sgd import prox_sgd as kernel
 
-    return kernel(w.contiguous(), w0.contiguous(), grad.contiguous(), momentum.contiguous(), eta, lam, mu)
+    return kernel(w.contiguous(), w0.contiguous(), grad.contiguous(), momentum.contiguous(), eta, lam, mu,
+                  out=out)

@@ -50,12 +50,18 @@ def bit_aggregate_ref(packed: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ml_estimate_from_counts(counts, packed.shape[0], b)
 
 
-def prox_sgd_ref(w, w0, grad, momentum, eta: float, lam: float, mu: float):
+def prox_sgd_ref(w, w0, grad, momentum, eta: float, lam: float, mu: float, *, out=None):
     """Fused prox-regularized SGD+momentum step (Eq. 4 local solver, B4).
 
     g = grad + lam (w - w0); m' = mu m + g; w' = w - eta m' — one rounding
-    per operation, no fused multiply-add.
+    per operation, no fused multiply-add. ``out=(w_out, m_out)`` receives
+    the result; ``w_out`` may be ``w`` and ``m_out`` ``momentum`` (m' is
+    written after g is formed and before w' reads it, w' last).
     """
     g = grad + lam * (w - w0)
-    new_m = mu * momentum + g
-    return w - eta * new_m, new_m
+    if out is None:
+        new_m = mu * momentum + g
+        return w - eta * new_m, new_m
+    w_out, m_out = out
+    torch.add(mu * momentum, g, out=m_out)
+    return torch.sub(w, eta * m_out, out=w_out), m_out

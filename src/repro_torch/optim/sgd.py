@@ -7,7 +7,9 @@ step takes one autograd gradient for all M clients (their losses are
 independent, so the gradient of their sum is every client's own) and one
 fused prox step on the ``(M, d)`` cohort through ``ops.prox_sgd``: with
 ``use_kernel`` one launch of the ``prox_sgd`` kernel on a CUDA tensor,
-without it the plain version (``engine="ref"``) on any device.
+without it the plain version (``engine="ref"``) on any device. The step
+updates the cohort's weights and momentum in place (JAX returns new
+arrays; the values are the same), and never writes into ``w_init``.
 """
 
 from __future__ import annotations
@@ -58,7 +60,11 @@ def local_prox_train(
     for s in range(n_steps):
         wg = w.detach().requires_grad_(True)
         (g,) = torch.autograd.grad(data_loss(wg, step_batch(s)).sum(), wg)
-        w, m = kops.prox_sgd(w, w0_flat, g, m, lr, lam, mu, engine=engine if use_kernel else "ref")
+        # in place from step 1 on; step 0 writes a fresh buffer, since the
+        # caller still holds w_init
+        w_out = w if s else torch.empty_like(w_init)
+        w, m = kops.prox_sgd(w, w0_flat, g, m, lr, lam, mu, out=(w_out, m),
+                             engine=engine if use_kernel else "ref")
     with torch.no_grad():
         loss_after = data_loss(w, step_batch(n_steps - 1))
     return w, loss_before, loss_after

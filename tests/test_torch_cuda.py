@@ -59,6 +59,76 @@ def test_kernels_equal_plain_versions(dev, d, m):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _prox_cases(w, g, mom):
+    """(w0, tag) of both w0 forms: one shared row and a full operand."""
+    return ((0.9 * w[0] + 0.1, "shared"), (0.9 * w + 0.1, "full"))
+
+
+@pytest.mark.parametrize("m", [1, 7, 100])
+@pytest.mark.parametrize("d", [4096, 997, 40522, 4099])
+def test_prox_sgd_equals_plain_version_at_every_alignment(dev, d, m):
+    """B4 bit for bit at d = 0, 1, 2 and 3 (mod 4), so rows starting at
+    every 16-byte phase (the scalar head and tail of the peel); d below one
+    column tile (997) and not a multiple of it (4099, 40522); M = 1 and
+    M = 7, which the row groups below do not divide. Through the wrapper
+    out of place and in place (out= aliasing w and the momentum), through
+    the C entry at other geometries (one CTA for every unit, fewer CTAs than
+    units, more CTAs than units, the smallest tile), on the scalar path
+    alone, on operands all 4 bytes past a 16-byte boundary, and with w alone
+    off its boundary (the wrapper then takes the scalar path)."""
+    from repro_torch.kernels.prox_sgd import launch_geometry, occupancy, prox_sgd
+
+    coeffs = (0.01, 0.2, 0.5)
+    gen = torch.Generator(device=dev).manual_seed(d * 1000 + m)
+    w, g, mom = (torch.randn(m, d, generator=gen, device=dev) for _ in range(3))
+    lib = _build.library("prox_sgd")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for w0, form in _prox_cases(w, g, mom):
+        want = ref.prox_sgd_ref(w, w0, g, mom, *coeffs)
+
+        def same(got):
+            return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+        assert same(prox_sgd(w, w0, g, mom, *coeffs)), form
+        w_io, m_io = w.clone(), mom.clone()
+        assert same(prox_sgd(w_io, w0, g, m_io, *coeffs, out=(w_io, m_io))), form
+        shared = form == "shared"
+        chosen = launch_geometry(m, d, *occupancy(dev.index, shared))
+        for geometry in (chosen, (2048, 1, 1), (2048, 3, 5), (1024, 100, 2), (8192, 2, 1000), (4, 5, 7)):
+            for vector in (1, 0):
+                outs = (torch.full_like(w, float("nan")), torch.full_like(w, float("nan")))
+                rc = lib.probit_prox_sgd(w.data_ptr(), w0.data_ptr(), g.data_ptr(), mom.data_ptr(),
+                                         outs[0].data_ptr(), outs[1].data_ptr(), *coeffs, m, d,
+                                         0 if shared else d, *geometry, vector, stream)
+                assert rc == 0 and same(outs), (form, geometry, vector)
+        flats = [torch.empty(m * d + 1, device=dev) for _ in range(6)]
+        views = [f[1:].view(m, d) for f in flats]
+        for v, src in zip(views, (w, g, mom, w, mom, w0.expand(m, d))):
+            v.copy_(src)
+        w0_off = w0 if shared else views[5]
+        assert same(prox_sgd(views[0], w0_off, views[1], views[2], *coeffs)), form
+        assert same(prox_sgd(views[3], w0_off, views[1], views[4], *coeffs, out=(views[3], views[4]))), form
+        assert same(prox_sgd(views[0], w0, g, mom, *coeffs)), form
+
+
+@pytest.mark.parametrize("m", [1, 8])
+def test_prox_sgd_at_resnet_width(dev, m):
+    """B4 at ResNet-18's d = 11,172,042 (rows of two, w0 beyond L2), both w0
+    forms, out of place and in place."""
+    from repro_torch.kernels.prox_sgd import prox_sgd
+
+    d, coeffs = 11_172_042, (0.01, 0.2, 0.5)
+    gen = torch.Generator(device=dev).manual_seed(m)
+    w, g, mom = (torch.randn(m, d, generator=gen, device=dev) for _ in range(3))
+    for w0, form in _prox_cases(w, g, mom):
+        want = ref.prox_sgd_ref(w, w0, g, mom, *coeffs)
+        got = prox_sgd(w, w0, g, mom, *coeffs)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), form
+        w_io, m_io = w.clone(), mom.clone()
+        prox_sgd(w_io, w0, g, m_io, *coeffs, out=(w_io, m_io))
+        assert torch.equal(w_io, want[0]) and torch.equal(m_io, want[1]), form
+
+
 def test_ops_engines_agree_on_card(dev):
     d, m = 40522, 9
     gen = torch.Generator(device=dev).manual_seed(3)

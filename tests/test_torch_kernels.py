@@ -239,6 +239,112 @@ def test_prox_sgd(n, shared_w0):
     assert np.all(np.abs(np.asarray(jw) - tw.numpy()) <= tol_w)
 
 
+def _b4_units(m, d, geometry):
+    """The (rows, columns) slices of B4's units, in the order the kernel
+    numbers them (csrc/prox_sgd.cu: tile first), and the CTA that takes
+    each (unit u goes to CTA u % ctas, grid-stride)."""
+    tile, rows, ctas = geometry
+    tiles = -(-d // tile)
+    for u in range(tiles * -(-m // rows)):
+        t, g = u % tiles, u // tiles
+        yield u % ctas, slice(g * rows, min(m, (g + 1) * rows)), slice(t * tile, min(d, (t + 1) * tile))
+
+
+@pytest.mark.parametrize("bps", [1, 3, 8])
+@pytest.mark.parametrize("m,d", [(1, 1), (1, 997), (7, 4099), (100, 40_522), (3, 2048), (5, 6145), (100, 118_282)])
+def test_prox_sgd_geometry_covers_every_element_once(m, d, bps):
+    """launch_geometry's units tile the (M, d) cohort: every element lies in
+    exactly one unit, and every unit has one CTA within CUDA's grid limit."""
+    from repro_torch.kernels.prox_sgd import launch_geometry
+
+    geometry = launch_geometry(m, d, 132, bps)
+    tile, rows, ctas = geometry
+    assert tile & (tile - 1) == 0 and 4 <= tile <= 8192 and 1 <= rows <= m and 1 <= ctas < 2**31
+    count = np.zeros((m, d), np.int8)
+    for cta, r, c in _b4_units(m, d, geometry):
+        assert 0 <= cta < ctas
+        count[r, c] += 1
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("bps", [2, 3, 4, 8])
+@pytest.mark.parametrize("m,d", [(100, 118_282), (100, 11_172_042), (1_000, 1_117_204), (10_000, 111_720)])
+def test_prox_sgd_geometry_fills_the_card_and_reads_w0_once_a_group(m, d, bps):
+    """At the main path's shapes and the sweep's: at least one whole wave of
+    CTAs over the H100's 132 SMs, units of 2,048-4,096 elements (the size
+    that streamed fastest on the card), the columns and rows of the units
+    adding up to the cohort, and w0's slice read once per (tile, row group):
+    ceil(M / rows) reads of w0 in all, one while w0 stays in L2 (rows of
+    one, the re-reads hit L2) and at most M / ROWS beyond it."""
+    from repro_torch.kernels.prox_sgd import ROWS, W0_L2_BYTES, launch_geometry
+
+    tile, rows, ctas = launch_geometry(m, d, 132, bps)
+    tiles, groups = -(-d // tile), -(-m // rows)
+    assert ctas == tiles * groups >= 132 * bps
+    assert 2048 <= tile * rows <= 4096
+    assert sum(min(tile, d - t * tile) for t in range(tiles)) == d
+    assert sum(min(rows, m - g * rows) for g in range(groups)) == m
+    w0_stages = tiles * groups  # one per unit, each of one tile's slice
+    assert w0_stages / tiles == groups == (m if 4 * d <= W0_L2_BYTES else -(-m // ROWS))
+
+
+@pytest.mark.parametrize("shared_w0", [False, True])
+def test_prox_sgd_in_place_equals_out_of_place(shared_w0):
+    """ops.prox_sgd with out= aliasing w and the momentum (the local loop's
+    in-place update) equals the out-of-place result bit for bit, returns
+    the out buffers, and still matches JAX's prox_sgd within test_prox_sgd's
+    tolerance; the kernel wrapper's plain version takes out= too."""
+    m, n = 4, 3333
+    w, g = _rand((m, n), 1), _rand((m, n), 2)
+    mom = _rand((m, n), 3, 0.1)
+    w0 = 0.9 * w[0] if shared_w0 else 0.9 * w
+    eta, lam, mu = 0.01, 0.2, 0.5
+    tw, tg, tm, tw0 = (torch.from_numpy(x.copy()) for x in (w, g, mom, w0))
+    want_w, want_m = ops.prox_sgd(tw, tw0, tg, tm, eta, lam, mu)
+    for prox in (ops.prox_sgd, prox_sgd_wrapper):
+        w_io, m_io = tw.clone(), tm.clone()
+        got = prox(w_io, tw0, tg, m_io, eta, lam, mu, out=(w_io, m_io))
+        assert got[0] is w_io and got[1] is m_io
+        assert torch.equal(w_io, want_w) and torch.equal(m_io, want_m)
+    fresh = (torch.empty_like(tw), torch.empty_like(tw))
+    assert ops.prox_sgd(tw, tw0, tg, tm, eta, lam, mu, out=fresh, engine="ref")[0] is fresh[0]
+    assert torch.equal(fresh[0], want_w) and torch.equal(fresh[1], want_m)
+    assert torch.equal(tw, torch.from_numpy(w)) and torch.equal(tm, torch.from_numpy(mom))
+    jw, jm = jax.vmap(lambda *a: jops.prox_sgd(*a, eta, lam, mu, engine="ref"))(
+        w, np.broadcast_to(w0, w.shape), g, mom
+    )
+    f32, eps = np.float32, np.finfo(np.float32).eps
+    nm = want_m.numpy()
+    tol_m = 2 * eps * (np.abs(g) + np.abs(f32(lam) * (w - w0)) + np.abs(f32(mu) * mom))
+    tol_w = 2 * eps * (np.abs(w) + f32(eta) * (np.abs(nm) + tol_m))
+    assert np.all(np.abs(np.asarray(jm) - nm) <= tol_m)
+    assert np.all(np.abs(np.asarray(jw) - want_w.numpy()) <= tol_w)
+
+
+def test_prox_sgd_out_rejects_other_aliases():
+    """out= may alias only w (w_out) and the momentum (m_out); any other
+    overlap, a swapped pair, one buffer for both, or a wrong shape raises."""
+    m, n = 3, 64
+    w, g, mom = (torch.from_numpy(_rand((m, n), s)) for s in (1, 2, 3))
+    w0_full = torch.from_numpy(_rand((m, n), 4))
+    buf = torch.zeros(2 * m * n)
+    bad = [
+        (w, (mom, w)),  # swapped
+        (w, (w, w)),  # one buffer for both
+        (w, (g, mom)),  # w_out over grad
+        (w, (w, g)),  # m_out over grad
+        (w[0], (w, mom)),  # w_out over a shared w0 row
+        (w0_full, (w0_full, mom)),  # w_out over a full w0
+        (w, (buf[1:m * n + 1].view(m, n), buf[m * n:].view(m, n))),  # the two overlap by one element
+        (w, (torch.zeros(m, n + 1), mom)),  # shape
+        (w, (w, torch.zeros(m, n, dtype=torch.float64))),  # dtype
+    ]
+    for w0, out in bad:
+        for prox in (ops.prox_sgd, prox_sgd_wrapper):
+            with pytest.raises(ValueError):
+                prox(w, w0.contiguous(), g, mom, 0.01, 0.2, 0.5, out=out)
+
+
 def test_wrappers_take_plain_version_on_cpu_tensors():
     """A kernel wrapper given CPU tensors computes the plain version and
     launches nothing."""

@@ -124,6 +124,28 @@ def test_local_prox_train_after_20_steps(use_kernel):
     np.testing.assert_allclose(tla.numpy(), np.asarray(jla), rtol=1e-4)
 
 
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_local_prox_train_leaves_w_init_unchanged(use_kernel):
+    """The local loop updates its weights and momentum in place from the
+    second step on, but never writes into w_init, which the round still
+    holds; the result equals the same run from a copy of w_init."""
+    p = _params()
+    flat, unravel = interop.ravel_params(p)
+    m, steps, bs = 3, 4, 5
+    rng = np.random.default_rng(9)
+    batches = {"x": torch.from_numpy(rng.standard_normal((m, steps, bs, 784)).astype(np.float32)),
+               "y": torch.from_numpy(rng.integers(0, 10, (m, steps, bs)).astype(np.int32))}
+    w_init = torch.stack([flat * s for s in (1.0, 0.9, 1.1)])
+    keep = w_init.clone()
+    loss = functools.partial(tv.xent_loss, tv.mlp_logits)
+    kw = dict(lr=0.01, mu=0.5, lam=0.2, use_kernel=use_kernel)
+    w, lb, la = t_local_prox_train(loss, flat, w_init, unravel, batches, **kw)
+    assert torch.equal(w_init, keep)
+    assert w.data_ptr() != w_init.data_ptr() and not torch.equal(w, w_init)
+    w2, lb2, la2 = t_local_prox_train(loss, flat, keep.clone(), unravel, batches, **kw)
+    assert torch.equal(w, w2) and torch.equal(lb, lb2) and torch.equal(la, la2)
+
+
 def test_data_copies_match_reference():
     """The port's numpy copies of the task data and partitioner."""
     from repro.data import make_classification as j_make, partition_label_skew as j_part
