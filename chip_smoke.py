@@ -53,6 +53,17 @@ Phases (any failure raises and exits non-zero before the result line):
    its ``engine="ref"`` rerun in theta_hat, loss and b in every round, has
    finite losses, and prints its round wall times, peak device memory, d,
    wire row bytes and accuracy;
+4d. asynchronous and streamed rounds (ASYNC_STREAM) on the main path's MLP
+   and cohort: (e) a buffer of 100, zero latency and decay, which must equal
+   (a) bit for bit in every round; (f) a buffer of 50, latency 1, decay 0.5
+   and 10% straggler+sign_flip Byzantines, printing buf_fill and mean_age;
+   (g) streamed in chunks of 25 (theta and b equal to (a)'s, the count of
+   differing coordinates printed) and (g1) in one chunk (equal to (a)). Then
+   ``resnet18w64-m300-stream``: ResNet-18 at full width, 300 stateless
+   clients streamed 50 at a time, 2 rounds, printing its peak memory beside
+   the dense round's, reckoned from 4c's peak at 100 clients. Each run has
+   its own launch counts (B1 once a chunk, B4 once a local step of each
+   chunk, B3 never) and equals its ``engine="ref"`` rerun in every round;
 5. times: each kernel at the shapes of (a) and at ResNet-18's (M = 100,
    d = 11,172,042) against its plain version, its
    byte bound and the card's measured copy bandwidth; then
@@ -121,6 +132,21 @@ VISION = {
     "resnet18w64-m100": ("resnet", {"width": 64, "blocks": (2, 2, 2, 2), "in_ch": 3}, 32, 3, ("a",), 11_172_042),
 }
 RESNET_D = VISION["resnet18w64-m100"][-1]
+# Phase 4d: the buffered-asynchronous and streamed rounds on the main path's
+# model and cohort: (e) async at a full buffer, zero latency and decay,
+# which is the synchronous round; (f) async under the straggler attack;
+# (g) streamed in chunks of 25; (g1) streamed in one chunk of 100.
+ASYNC_STREAM = {
+    "e": {"async_buffer": 100},
+    "f": {"async_buffer": 50, "async_latency": 1.0, "staleness_decay": 0.5, "byz_frac": 0.1,
+          "attack": "straggler+sign_flip"},
+    "g": {"client_chunk": 25},
+    "g1": {"client_chunk": 100},
+}
+# ... then ResNet-18 at full width with 300 stateless clients, streamed 50 at
+# a time: a cohort whose dense round would not fit in the card's memory.
+RESNET_STREAM = ("resnet18w64-m300-stream", "resnet18w64-m100",
+                 {"n_clients": 300, "client_chunk": 50, "stateless_clients": True, "rounds": 2})
 KERNELS = {
     # name: (CUDA source, Pallas call it replaces)
     "stoch_quant_pack": ("src/repro_torch/kernels/csrc/stoch_quant.cu", "src/repro/kernels/stoch_quant.py:77"),
@@ -398,21 +424,21 @@ def check_prox_sgd(chk: Checker, dev) -> None:
                 same(prox_sgd(w_in, w0, g, mom, *coeffs), "w alone 4 bytes off")
 
 
-def _split_clients(x, y):
-    """Label-skew partition of the main path's cohort (2 classes a client)."""
+def _split_clients(x, y, n_clients: int):
+    """Label-skew partition of a cohort (2 classes a client)."""
     import numpy as np
 
     from repro_torch.data import partition_label_skew
 
-    parts = partition_label_skew(y, MAIN["n_clients"], 2, MAIN["per_client"], seed=0)
+    parts = partition_label_skew(y, n_clients, 2, MAIN["per_client"], seed=0)
     return np.stack([x[i] for i in parts]), np.stack([y[i] for i in parts])
 
 
 @functools.lru_cache(maxsize=None)
-def _task(name: str = "mlp128-m100", dev=None):
-    """A configuration's data, initial weights (on the card when ``dev``
-    is given), loss and accuracy, made once from seeds: the main path's MLP
-    or one of VISION."""
+def _task(name: str = "mlp128-m100", dev=None, n_clients: int = MAIN["n_clients"]):
+    """A configuration's data for ``n_clients`` clients, initial weights (on
+    the card when ``dev`` is given), loss and accuracy, made once from
+    seeds: the main path's MLP or one of VISION."""
     from repro_torch import prng
     from repro_torch.data import make_classification, make_image_classification
     from repro_torch.models import MODELS, accuracy, init_mlp, mlp_logits, xent_loss
@@ -426,7 +452,7 @@ def _task(name: str = "mlp128-m100", dev=None):
                                                            n_train=10_000, n_test=2_000)
         init, logits = MODELS[model]
         p0 = init(prng.key(0, dev), **init_kw)
-    cx, cy = _split_clients(xtr, ytr)
+    cx, cy = _split_clients(xtr, ytr, n_clients)
     return (p0, cx, cy, {"x": xte, "y": yte}, functools.partial(xent_loss, logits),
             functools.partial(accuracy, logits))
 
@@ -434,12 +460,12 @@ def _task(name: str = "mlp128-m100", dev=None):
 def make_sim(dev, extra: dict, engine=None, task: str = "mlp128-m100"):
     from repro_torch.fl import FLConfig, FLSimulation
 
-    p0, cx, cy, test, loss_fn, acc_fn = _task(task, None if task == "mlp128-m100" else dev)
-    cfg = FLConfig(
-        n_clients=MAIN["n_clients"], rounds=MAIN["rounds"], local_epochs=MAIN["local_epochs"],
-        batch_size=MAIN["batch_size"], use_kernels=True,
-        **{"aggregator": "probit_plus", "b_mode": "dynamic", **extra},
-    )
+    cfg = FLConfig(**{
+        "n_clients": MAIN["n_clients"], "rounds": MAIN["rounds"], "local_epochs": MAIN["local_epochs"],
+        "batch_size": MAIN["batch_size"], "use_kernels": True, "aggregator": "probit_plus", "b_mode": "dynamic",
+        **extra,
+    })
+    p0, cx, cy, test, loss_fn, acc_fn = _task(task, None if task == "mlp128-m100" else dev, cfg.n_clients)
     return FLSimulation(cfg, p0, loss_fn, acc_fn, cx, cy, test, device=dev, engine=engine)
 
 
@@ -475,7 +501,8 @@ def run_sim(dev, name: str, extra: dict, engine=None, task: str = "mlp128-m100")
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         recs.append({"loss": met["loss"].item(), "b": met["b"].item(),
-                     "theta": met["theta"].clone(), "seconds": t1 - t0})
+                     "theta": met["theta"].clone(), "seconds": t1 - t0,
+                     **{k: met[k].item() for k in ("buf_fill", "mean_age") if k in met}})
         t0 = t1
     require(set(_build.launches) <= set(KERNELS), f"{task} {name}: unknown kernel {dict(_build.launches)}")
     launches = {k: _build.launches[k] for k in KERNELS}
@@ -524,6 +551,93 @@ def vision_runs(dev) -> dict:
                               "loss": [r["loss"] for r in run["rounds"]], "b": [r["b"] for r in run["rounds"]],
                               "acc": run["acc"], "equal_rounds": MAIN["rounds"]}), flush=True)
             runs[tag] = run
+    return runs
+
+
+def async_stream_expected_launches(extra: dict) -> dict:
+    """One phase-4d run's launches: one compression (B1) a chunk of clients
+    (the whole cohort in an asynchronous round) and one prox step (B4) a
+    local step of each chunk; no vote count (B3): the weighted and streamed
+    estimates count with plain torch, as the reference does."""
+    rounds, n = extra.get("rounds", MAIN["rounds"]), extra.get("n_clients", MAIN["n_clients"])
+    chunks = -(-n // (extra.get("client_chunk") or n))
+    steps = MAIN["local_epochs"] * MAIN["per_client"] // MAIN["batch_size"]
+    return {"stoch_quant_pack": rounds * chunks, "stoch_quant_ef": 0, "bit_aggregate": 0,
+            "prox_sgd": rounds * chunks * steps}
+
+
+def check_against_ref(tag: str, run: dict, ref: dict, rounds: int) -> None:
+    """A kernel run equals its engine="ref" rerun in every round (theta,
+    loss and b) and the rerun launched nothing."""
+    import torch
+
+    require(not any(ref["launches"].values()), f"{tag}: the engine='ref' run launched {ref['launches']}")
+    require(len(run["rounds"]) == len(ref["rounds"]) == rounds, f"{tag}: rounds differ")
+    for t, (k, r) in enumerate(zip(run["rounds"], ref["rounds"])):
+        require(torch.equal(k["theta"], r["theta"]) and k["loss"] == r["loss"] and k["b"] == r["b"],
+                f"{tag} round {t}: differs from the engine='ref' run")
+
+
+def async_stream_runs(dev, main: dict, resnet_dense_peak_bytes: int) -> dict:
+    """Phase 4d: each ASYNC_STREAM variant through the kernels and its
+    engine="ref" rerun, with its launch counts and checks; (e) and (g1)
+    equal variant (a) of phase 4 in every round (theta, loss, b), and so
+    do (g)'s theta and b (cuBLAS gives a batch of 25 clients the bits of a
+    batch of 100 on the H100; the loss sums chunk by chunk). Then
+    RESNET_STREAM and its rerun, its peak memory below the card's and below
+    the dense round's, reckoned from this run's dense ResNet-18 peak at
+    M = 100 (every plane of the dense round scales with M)."""
+    import torch
+
+    from repro_torch.fl import FLConfig
+
+    runs = {}
+    a_rounds = main["a"]["rounds"]
+    for v, extra in ASYNC_STREAM.items():
+        tag = f"mlp128-m100/{v}"
+        run = run_sim(dev, v, extra)
+        ref = run_sim(dev, v, extra, engine="ref")
+        want = async_stream_expected_launches(extra)
+        require(run["launches"] == want, f"{tag}: launches {run['launches']} != expected {want}")
+        check_against_ref(tag, run, ref, MAIN["rounds"])
+        check_main_path({tag: run}, FLConfig().b_init)
+        differ = [int((k["theta"] != r["theta"]).sum()) for k, r in zip(run["rounds"], a_rounds)]
+        same_as_a = all(k["loss"] == r["loss"] and k["b"] == r["b"] for k, r in zip(run["rounds"], a_rounds))
+        if v in ("e", "g1"):
+            require(not any(differ) and same_as_a, f"{tag}: differs from (a): {differ} coordinates of theta")
+        elif v == "g":
+            require(not any(differ) and all(k["b"] == r["b"] for k, r in zip(run["rounds"], a_rounds)),
+                    f"{tag}: {differ} coordinates of theta differ from (a), or b does")
+        print(json.dumps({"phase": "async_stream", "run": tag, "config": extra, "launches": run["launches"],
+                          "round_seconds": [r["seconds"] for r in run["rounds"]],
+                          "round_seconds_ref": [r["seconds"] for r in ref["rounds"]],
+                          "theta_coords_differing_from_a": differ, "equal_to_a": not any(differ) and same_as_a,
+                          "loss": [r["loss"] for r in run["rounds"]], "b": [r["b"] for r in run["rounds"]],
+                          **{k: [r[k] for r in run["rounds"]] for k in ("buf_fill", "mean_age")
+                             if k in run["rounds"][0]},
+                          "acc": run["acc"], "peak_gb": run["peak_bytes"] / 1e9, "equal_rounds": MAIN["rounds"]}),
+              flush=True)
+        runs[tag] = run
+
+    name, task, extra = RESNET_STREAM
+    run = run_sim(dev, name, extra, task=task)
+    ref = run_sim(dev, name, extra, engine="ref", task=task)
+    want = async_stream_expected_launches(extra)
+    require(run["d"] == RESNET_D, f"{name}: d = {run['d']}")
+    require(run["launches"] == want, f"{name}: launches {run['launches']} != expected {want}")
+    check_against_ref(name, run, ref, extra["rounds"])
+    check_main_path({name: run}, FLConfig().b_init)
+    dense_gb = resnet_dense_peak_bytes * extra["n_clients"] / MAIN["n_clients"] / 1e9
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    require(run["peak_bytes"] / 1e9 < min(dense_gb, card_gb), f"{name}: peak {run['peak_bytes'] / 1e9} GB")
+    print(json.dumps({"phase": "async_stream", "run": name, "config": extra, "d": run["d"],
+                      "launches": run["launches"], "round_seconds": [r["seconds"] for r in run["rounds"]],
+                      "round_seconds_ref": [r["seconds"] for r in ref["rounds"]],
+                      "peak_gb": run["peak_bytes"] / 1e9, "peak_gb_ref": ref["peak_bytes"] / 1e9,
+                      "dense_peak_gb_reckoned": dense_gb, "card_gb": card_gb,
+                      "loss": [r["loss"] for r in run["rounds"]], "b": [r["b"] for r in run["rounds"]],
+                      "acc": run["acc"], "equal_rounds": extra["rounds"]}), flush=True)
+    runs[name] = run
     return runs
 
 
@@ -924,7 +1038,7 @@ def fused_sgd(w, g, mom):
 def kernel_rows(runs: dict, chk: Checker, at_main: dict, at_resnet: dict) -> list[dict]:
     """The per-kernel JSON rows: times at the main path's shapes, with the
     same at ResNet-18's beside them; ``launches`` is the sum over every
-    run of phases 4, 4b and 4c of each one's own count, by run beside it."""
+    run of phases 4, 4b, 4c and 4d of each one's own count, by run beside it."""
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rows.append({
@@ -1311,6 +1425,7 @@ def main() -> int:
 
     grid = byzantine_grid(dev)
     vision = vision_runs(dev)
+    async_stream = async_stream_runs(dev, runs, vision["resnet18w64-m100/a"]["peak_bytes"])
 
     # Phase 5 times kernels, not allocations: under deterministic algorithms
     # every torch.empty is filled with NaN by a kernel of its own.
@@ -1318,7 +1433,7 @@ def main() -> int:
     copy_gbs = copy_bandwidth_gbs(dev)
     at_main = kernel_times(dev, MAIN["n_clients"], 118_282, copy_gbs)
     at_resnet = kernel_times(dev, MAIN["n_clients"], RESNET_D, copy_gbs)
-    rows = kernel_rows({**runs, **grid, **vision}, chk, at_main, at_resnet)
+    rows = kernel_rows({**runs, **grid, **vision, **async_stream}, chk, at_main, at_resnet)
     print(json.dumps({"phase": "times", "card": card, "copy_gbs": copy_gbs,
                       "round_seconds_a": [r["seconds"] for r in runs["a"]["rounds"]],
                       f"kernels_at_{RESNET_D}": at_resnet}), flush=True)

@@ -1,7 +1,7 @@
 """Aggregation pipelines: client compressor, server, registry.
 
-Counterpart of ``repro/core/aggregation.py`` for the synchronous,
-unweighted round. Two halves joined by a wire:
+Counterpart of ``repro/core/aggregation.py`` for the one-bit and dense
+wires. Two halves joined by a wire:
 
 * :class:`ClientCompressor` — ``mode="pack_stochastic"`` (PRoBit+):
   error feedback -> Eq.-5 binarize -> bit pack, emitting a
@@ -22,13 +22,25 @@ unweighted round. Two halves joined by a wire:
   :class:`SignSGDMVServer` and :class:`RSAServer` count with
   :func:`~repro_torch.core.quantizer.packed_counts`, as the reference does.
 
+Weights, one per wire row (the buffered-asynchronous server's staleness
+weights, or the 0/1 weights of a streaming round's pad rows), select the
+weighted path: the counts become ``N_i^w = sum_m w_m 1[c_i^m = +1]``
+(:func:`~repro_torch.core.quantizer.packed_weighted_counts`, plain torch:
+the count kernel has no weighted form, as in the reference) and M becomes
+``M^w = sum_m w_m``. The streaming round folds chunks of clients into the
+same carries (``stream_kind``: vote counts, FedAvg's weighted running sum,
+or Fed-GM's buffer of every row).
+
 Every mean is a sum times the f32 reciprocal of the count
 (:func:`mean_rows`): the reference computes its means so under ``jit``
 (XLA folds a division by a constant), and on the card torch divides by a
-Python number the same way, so the CPU and the card agree.
+Python number the same way, so the CPU and the card agree. The weighted
+estimate multiplies by the f32 reciprocal of ``M^w`` too, so unit weights
+give the unweighted estimate bit for bit; the jitted reference divides by
+its traced ``M^w`` (XLA keeps a division by a traced value), which can
+differ in the last bit.
 
-Not ported yet: the top-k, k-bit and heterogeneous wires and the weighted
-counts of the asynchronous server.
+Not ported yet: the top-k, k-bit and heterogeneous wires.
 """
 
 from __future__ import annotations
@@ -39,12 +51,21 @@ import numpy as np
 import torch
 
 from .privacy import DPConfig
-from .quantizer import PACK_CHUNK, packed_binarize_batch, packed_counts, packed_sign_batch, padded_dim, wire_bytes
+from .quantizer import (
+    PACK_CHUNK,
+    packed_binarize_batch,
+    packed_counts,
+    packed_sign_batch,
+    packed_weighted_counts,
+    padded_dim,
+    wire_bytes,
+)
 
 __all__ = [
     "recip32",
     "mean_rows",
     "ml_estimate_from_counts",
+    "staleness_weights",
     "fedavg_aggregate",
     "geometric_median",
     "PackedWire",
@@ -72,27 +93,56 @@ def mean_rows(x: torch.Tensor) -> torch.Tensor:
     return x.sum(0) * recip32(x.shape[0])
 
 
-def ml_estimate_from_counts(counts: torch.Tensor, m: int, b: torch.Tensor) -> torch.Tensor:
+def ml_estimate_from_counts(counts: torch.Tensor, m, b: torch.Tensor) -> torch.Tensor:
     """Eq. 13: ``theta_hat_i = (2 N_i - M)/M * b_i`` in f32.
 
     The division is a multiply by the f32 reciprocal of M: that is what the
     reference computes under ``jit``, and the kernel does the same, so all
-    three agree bit for bit.
+    three agree bit for bit. ``m`` may be a 0-dim f32 tensor (the weighted
+    ``M^w``); its reciprocal is then the device's correctly rounded f32
+    ``1 / m``, which for ``m = f32(M)`` is ``recip32(M)``.
     """
-    return (2.0 * counts.float() - m) * recip32(m) * b
+    recip = recip32(m) if isinstance(m, int) else torch.reciprocal(m)
+    return (2.0 * counts.float() - m) * recip * b
 
 
-def fedavg_aggregate(updates: torch.Tensor) -> torch.Tensor:
-    """FedAvg: the mean of the (M, d) client updates."""
-    return mean_rows(updates)
+def staleness_weights(ages: torch.Tensor, decay: float, valid: torch.Tensor | None = None) -> torch.Tensor:
+    """The asynchronous server's staleness discount ``(1 + age) ** -decay``
+    in f32, zero where ``valid`` is False. All ones at ``decay = 0``, which
+    makes the zero-latency asynchronous round the synchronous one. torch's
+    f32 ``pow`` may differ from XLA's in the last bit at a fractional
+    ``decay``."""
+    w = (1.0 + ages.float()) ** (-decay)
+    if valid is not None:
+        w = torch.where(valid, w, torch.zeros_like(w))
+    return w
 
 
-def geometric_median(updates: torch.Tensor, iters: int = 16, eps: float = 1e-8) -> torch.Tensor:
+def fedavg_aggregate(updates: torch.Tensor, weights: torch.Tensor | None = None) -> torch.Tensor:
+    """FedAvg: the mean of the (M, d) client updates, or their weighted mean.
+
+    The weighted mean is ``mean(u * (w * (M / sum(w))))``, the reference's
+    form: with unit weights the rescale is exactly 1 and the result is the
+    unweighted mean bit for bit. No weight at all gives zero.
+    """
+    if weights is None:
+        return mean_rows(updates)
+    wsum = weights.float().sum()
+    scale = torch.full_like(wsum, updates.shape[0]) / wsum.clamp(min=1e-12)
+    mean = mean_rows(updates * (weights * scale)[:, None])
+    return torch.where(wsum > 0, mean, torch.zeros_like(mean))
+
+
+def geometric_median(
+    updates: torch.Tensor, iters: int = 16, eps: float = 1e-8, weights: torch.Tensor | None = None
+) -> torch.Tensor:
     """Fed-GM (Yin et al. 2018): ``iters`` smoothed Weiszfeld steps from the
-    mean, each weighting row ``m`` by ``1 / sqrt(||u_m - y||^2 + eps)``."""
-    y = fedavg_aggregate(updates)
+    (weighted) mean, each weighting row ``m`` by ``w_m / sqrt(||u_m - y||^2
+    + eps)`` (``w_m = 1`` without weights), so rows of weight zero drop out."""
+    y = fedavg_aggregate(updates, weights)
     for _ in range(iters):
-        w = 1.0 / torch.sqrt(((updates - y) ** 2).sum(-1) + eps)
+        dist = torch.sqrt(((updates - y) ** 2).sum(-1) + eps)
+        w = 1.0 / dist if weights is None else weights / dist
         y = (updates * w[:, None]).sum(0) / torch.clamp(w.sum(), min=1e-12)
     return y
 
@@ -149,16 +199,17 @@ class ClientCompressor:
             return wire_bytes(d, d_pad=padded_len(d))
         return wire_bytes(d, d_pad=padded_dim(d, self.chunk))
 
-    def _b_vector(self, eff: torch.Tensor, b_scalar: torch.Tensor) -> torch.Tensor:
-        """The public (d,) range: the oracle's per-coordinate max of
-        ``|eff|``, or the controller's b; each plus the Theorem-3 margin when
-        DP is on."""
+    def b_vector(self, d: int, b_scalar: torch.Tensor) -> torch.Tensor:
+        """The public (d,) range of the packed wires outside oracle mode:
+        ones for sign codes, else the controller's b plus the Theorem-3
+        margin when DP is on. The streaming round finalizes its counts with
+        it; oracle b maxes over the whole cohort and cannot stream."""
         if self.b_mode == "oracle":
-            from .bcontrol import oracle_b
-
-            return oracle_b(eff, self.dp)
+            raise ValueError("oracle b depends on all updates and cannot stream")
+        if self.mode == "pack_sign":
+            return torch.ones(d, device=b_scalar.device)
         b_eff = b_scalar + self.dp.b_margin if self.dp.enabled else b_scalar
-        return torch.broadcast_to(b_eff.float(), (eff.shape[1],)).contiguous()
+        return torch.broadcast_to(b_eff.float(), (d,)).contiguous()
 
     def compress(
         self,
@@ -178,9 +229,13 @@ class ClientCompressor:
             packed = packed_sign_batch(deltas, chunk=self.chunk)
             return PackedWire(packed=packed, b=torch.ones(d, device=deltas.device), d=d), residuals
         use_ef = self.error_feedback and not self.dp.enabled
-        # the oracle ranges the error-feedback sum that is quantized
-        oracle_eff = use_ef and self.b_mode == "oracle"
-        b_vec = self._b_vector(deltas + residuals if oracle_eff else deltas, b_scalar)
+        if self.b_mode == "oracle":
+            from .bcontrol import oracle_b
+
+            # the oracle ranges the error-feedback sum that is quantized
+            b_vec = oracle_b(deltas + residuals if use_ef else deltas, self.dp)
+        else:
+            b_vec = self.b_vector(d, b_scalar)
         if self.use_kernels:
             from ..kernels import ops as kops
 
@@ -201,34 +256,69 @@ class ClientCompressor:
 class ServerAggregator:
     """Server half: vote-count accumulation -> estimate.
 
-    :meth:`init_counts` makes a zero int32 carry for a ``P``-byte row,
-    :meth:`accumulate_counts` folds any client chunk into it (counts are
-    additive over clients), :meth:`finalize` applies the scheme's estimate.
+    :meth:`init_counts` makes a zero count carry for a ``P``-byte row (int32,
+    or f32 when weighted), :meth:`accumulate_counts` folds any client chunk
+    into it (counts are additive over clients), :meth:`finalize` applies the
+    scheme's estimate, :meth:`finalize_weighted` to weighted counts.
     :meth:`aggregate` estimates from a whole wire in one shot: a dense wire
-    through :meth:`from_dense`, a packed one through its vote counts.
+    through :meth:`from_dense`, a packed one through its vote counts,
+    weighted when ``weights`` is given. ``stream_kind`` names
+    the carry a streaming round folds chunks into: ``"counts"``, FedAvg's
+    ``"sum"`` (:meth:`init_stream_sum`, :meth:`accumulate_sum`,
+    :meth:`finalize_sum`) or Fed-GM's ``"buffer"`` of every row.
     """
 
-    def from_counts(self, counts: torch.Tensor, m: int, b: torch.Tensor) -> torch.Tensor:
+    stream_kind = "counts"
+
+    def from_counts(self, counts: torch.Tensor, m, b: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def from_dense(self, updates: torch.Tensor) -> torch.Tensor:
+    def from_dense(self, updates: torch.Tensor, weights: torch.Tensor | None = None) -> torch.Tensor:
         raise NotImplementedError
 
-    def init_counts(self, p_bytes: int, device=None) -> torch.Tensor:
-        """Zero vote counts in int32: a uint8 count wraps past 255 clients."""
-        return torch.zeros((8 * p_bytes,), dtype=torch.int32, device=device)
+    def init_counts(self, p_bytes: int, device=None, *, weighted: bool = False) -> torch.Tensor:
+        """Zero vote counts: int32 (a uint8 count wraps past 255 clients), or
+        f32 when weights fold in (exact for 0/1 weights below 2**24 clients)."""
+        return torch.zeros((8 * p_bytes,), dtype=torch.float32 if weighted else torch.int32, device=device)
 
-    def accumulate_counts(self, counts: torch.Tensor, wire_chunk: torch.Tensor) -> torch.Tensor:
-        return counts + packed_counts(wire_chunk)
+    def accumulate_counts(
+        self, counts: torch.Tensor, wire_chunk: torch.Tensor, weights_chunk: torch.Tensor | None = None
+    ) -> torch.Tensor:
+        if weights_chunk is None:
+            return counts + packed_counts(wire_chunk)
+        return counts + packed_weighted_counts(wire_chunk, weights_chunk)
 
-    def finalize(self, counts: torch.Tensor, m: int, b: torch.Tensor) -> torch.Tensor:
-        """The estimate from accumulated counts (pad bits sliced off)."""
+    def finalize(self, counts: torch.Tensor, m, b: torch.Tensor) -> torch.Tensor:
+        """The estimate from accumulated counts (pad bits sliced off); ``m``
+        is the cohort size, or the 0-dim f32 weight sum ``M^w``."""
         return self.from_counts(counts[: b.shape[0]], m, b)
 
-    def aggregate(self, wire) -> torch.Tensor:
+    def finalize_weighted(self, counts: torch.Tensor, wsum: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """The estimate from weighted counts and their 0-dim f32 weight sum
+        ``M^w``; an empty buffer (nothing has arrived yet) estimates zero."""
+        est = self.finalize(counts, wsum.clamp(min=1e-12), b)
+        return torch.where(wsum > 0, est, torch.zeros_like(est))
+
+    def init_stream_sum(self, d: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Zero ``(sum_m w_m u_m, sum_m w_m)`` carry of a dense streaming round."""
+        return torch.zeros(d, device=device), torch.zeros((), device=device)
+
+    def accumulate_sum(self, carry, updates: torch.Tensor, weights_chunk: torch.Tensor):
+        s, w = carry
+        return s + (updates * weights_chunk[:, None]).sum(0), w + weights_chunk.sum()
+
+    def finalize_sum(self, carry) -> torch.Tensor:
+        """The weighted mean ``s / w`` (a true division by the traced sum, as
+        in the reference); zero when no weight arrived."""
+        s, w = carry
+        return torch.where(w > 0, s / w.clamp(min=1e-12), torch.zeros_like(s))
+
+    def aggregate(self, wire, weights: torch.Tensor | None = None) -> torch.Tensor:
         if isinstance(wire, DenseWire):
-            return self.from_dense(wire.updates)
-        return self.finalize(packed_counts(wire.packed), wire.n_clients, wire.b)
+            return self.from_dense(wire.updates, weights)
+        if weights is None:
+            return self.finalize(packed_counts(wire.packed), wire.n_clients, wire.b)
+        return self.finalize_weighted(packed_weighted_counts(wire.packed, weights), weights.float().sum(), wire.b)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,9 +332,13 @@ class ProBitPlusServer(ServerAggregator):
     def from_counts(self, counts, m, b):
         return ml_estimate_from_counts(counts, m, b)
 
-    def aggregate(self, wire: PackedWire) -> torch.Tensor:
+    def aggregate(self, wire: PackedWire, weights: torch.Tensor | None = None) -> torch.Tensor:
         from ..kernels import ops as kops
 
+        if weights is not None:
+            # the count kernel has no weighted form; the plain weighted
+            # count reads the same packed wire, as in the reference
+            return super().aggregate(wire, weights)
         # The kernel wire is padded_len(d)/8 bytes; a wire from the chunked
         # packer may carry more or fewer pad bytes. Pad bits encode
         # coordinates >= d, which bit_aggregate slices off, so realigning
@@ -277,16 +371,24 @@ class RSAServer(ServerAggregator):
 
 @dataclasses.dataclass(frozen=True)
 class FedAvgServer(ServerAggregator):
-    def from_dense(self, updates):
-        return fedavg_aggregate(updates)
+    """Dense mean; streams as a weighted running sum."""
+
+    stream_kind = "sum"
+
+    def from_dense(self, updates, weights=None):
+        return fedavg_aggregate(updates, weights)
 
 
 @dataclasses.dataclass(frozen=True)
 class FedGMServer(ServerAggregator):
-    iters: int = 16
+    """Weiszfeld geometric median: every step reads every row, so a
+    streaming round buffers all rows (memory stays O(M * d))."""
 
-    def from_dense(self, updates):
-        return geometric_median(updates, self.iters)
+    iters: int = 16
+    stream_kind = "buffer"
+
+    def from_dense(self, updates, weights=None):
+        return geometric_median(updates, self.iters, weights=weights)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,21 +407,30 @@ class AggregatorPipeline:
         residuals: torch.Tensor,
         *,
         flip_n: int = 0,
+        row_offset: int = 0,
     ):
         """Client half: compress every client onto the wire. ``flip_n > 0``
-        arms the ``bit_flip`` adversary, which inverts (or, on a dense wire,
-        negates) the first ``flip_n`` rows after compression; their
-        residuals stay the honest ones."""
-        wire, residuals = self.compressor.compress(key, deltas, b_scalar, residuals)
+        arms the ``bit_flip`` adversary, which inverts
+        (or, on a dense wire, negates) the rows of cohort positions below
+        ``flip_n`` after compression; their residuals stay the honest ones.
+        The rows are cohort positions ``row_offset ..``: a streaming round
+        passes its chunk's first position, which keys the quantizer draws
+        and, when it is not 0, flips by a row mask."""
+        wire, residuals = self.compressor.compress(key, deltas, b_scalar, residuals, row_offset=row_offset)
         if flip_n:
-            from .attacks import flip_wire
+            from .attacks import flip_wire, flip_wire_rows
 
-            wire = flip_wire(wire, flip_n)
+            if row_offset:
+                rows = row_offset + torch.arange(deltas.shape[0], device=deltas.device)
+                wire = flip_wire_rows(wire, rows < flip_n)
+            else:
+                wire = flip_wire(wire, flip_n)
         return wire, residuals
 
-    def estimate(self, wire) -> torch.Tensor:
-        """Server half: theta_hat (d,) from the wire."""
-        return self.server.aggregate(wire)
+    def estimate(self, wire, weights: torch.Tensor | None = None) -> torch.Tensor:
+        """Server half: theta_hat (d,) from the wire; ``weights``, one per
+        row, selects the weighted estimate."""
+        return self.server.aggregate(wire, weights)
 
 
 def _build_probit_plus(*, dp, b_mode, error_feedback, use_kernels, chunk, engine, **_):

@@ -11,6 +11,13 @@ Every attack takes ``(key, updates, n_byz)``; only ``gaussian`` draws, from
 the port's bit-exact :func:`repro_torch.prng.normal`. The means of
 ``zero_gradient``, ``alie`` and ``ipm`` are sums times the f32 reciprocal
 of the count, as the reference computes them under ``jit``.
+
+The streaming round sees one chunk of the cohort at a time, so it runs
+only the attacks that rewrite a row from that row alone
+(:data:`STREAM_ATTACKS`, :func:`apply_attack_stream`; the gaussian noise
+is then drawn a row at a time, keyed by the row's cohort position) and
+flips wire rows by a mask (:func:`flip_wire_rows`). The ``straggler``
+timing attack acts in the asynchronous round's arrivals.
 """
 
 from __future__ import annotations
@@ -36,7 +43,10 @@ __all__ = [
     "is_timing_attack",
     "parse_attack",
     "apply_attack",
+    "STREAM_ATTACKS",
+    "apply_attack_stream",
     "flip_wire",
+    "flip_wire_rows",
 ]
 
 
@@ -166,6 +176,32 @@ def apply_attack(idx: int, key: torch.Tensor, updates: torch.Tensor, n_byz: int)
     return ATTACKS[ATTACK_IDS[idx]](key, updates, n_byz)
 
 
+# Attacks whose Byzantine rows depend on the row's own update and cohort
+# position only; the colluding ones read the whole honest cohort.
+STREAM_ATTACKS: frozenset[str] = frozenset({"none", "gaussian", "sign_flip", "bit_flip"})
+
+
+def apply_attack_stream(idx: int, key: torch.Tensor, updates: torch.Tensor, n_byz: int, row0: int) -> torch.Tensor:
+    """The delta-level attack on one ``(C, d)`` chunk whose rows are cohort
+    positions ``row0 .. row0 + C - 1``; the Byzantines are the positions
+    below ``n_byz``, as in the dense round. ``sign_flip`` scales their rows
+    by -5 (the dense values); ``gaussian`` draws row ``r``'s noise as
+    ``10 * normal(fold_in(key, r), (d,))``, so any chunking of the cohort
+    draws the same noise (not the dense round's one blocked draw), with
+    the factor 10 folded into the normal's ``sqrt(2)`` as under ``jit``
+    (eager JAX rounds twice and differs in the last bit); every
+    other id leaves the chunk as it is (the colluding attacks are rejected
+    by the config). Only the Byzantine rows are drawn."""
+    n = min(max(n_byz - row0, 0), updates.shape[0])
+    name = ATTACK_IDS[idx]
+    if n == 0 or name not in ("gaussian", "sign_flip"):
+        return updates
+    if name == "sign_flip":
+        return _set_byz(updates, n, -5.0 * updates[:n])
+    rows = torch.arange(row0, row0 + n, dtype=torch.int64, device=key.device)
+    return _set_byz(updates, n, prng.normal(prng.fold_in(key, rows), (updates.shape[1],), scale=10.0))
+
+
 def flip_wire(wire, n_byz: int):
     """The ``bit_flip`` attack: invert every bit of the first ``n_byz``
     packed rows (pad bits flip too; every consumer slices the estimate to
@@ -174,3 +210,12 @@ def flip_wire(wire, n_byz: int):
     if isinstance(wire, DenseWire):
         return DenseWire(updates=_set_byz(wire.updates, n_byz, -wire.updates[:n_byz]))
     return dataclasses.replace(wire, packed=_set_byz(wire.packed, n_byz, torch.bitwise_not(wire.packed[:n_byz])))
+
+
+def flip_wire_rows(wire, row_mask: torch.Tensor):
+    """:func:`flip_wire` on the rows where ``row_mask`` is True: the
+    streaming round's chunks straddle the Byzantine boundary."""
+    mask = row_mask[:, None]
+    if isinstance(wire, DenseWire):
+        return DenseWire(updates=torch.where(mask, -wire.updates, wire.updates))
+    return dataclasses.replace(wire, packed=torch.where(mask, torch.bitwise_not(wire.packed), wire.packed))

@@ -15,8 +15,11 @@ the kernel wire of :mod:`repro_torch.kernels.ops` emits
 ``padded_len(d)/8``. Pad coordinates carry delta = -1, b = 1, so their bits
 are deterministically 0 and the two widths realign losslessly.
 
-The k-bit level grid, the 16-bit draws and the weighted counts of the
-reference come with later slices of the port.
+Vote counts come two ways: :func:`packed_counts` (int32, exact) and
+:func:`packed_weighted_counts` (f32, each client's bits times its weight),
+which the buffered-asynchronous server and the streaming round's padded
+chunks use. The k-bit level grid and the 16-bit draws of the reference
+come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ __all__ = [
     "packed_binarize_batch",
     "packed_sign_batch",
     "packed_counts",
+    "packed_weighted_counts",
 ]
 
 PACK_CHUNK = 8192  # coordinates per uniform-draw chunk (multiple of 8)
@@ -220,3 +224,28 @@ def packed_counts(packed: torch.Tensor) -> torch.Tensor:
     popcount; the integers are the same.
     """
     return _unpack_lastdim(packed).sum(0, dtype=torch.int32)
+
+
+WEIGHTED_BLOCK_WORDS = 1 << 26  # f32 words of one unpacked block of the weighted count: 256 MiB
+
+
+def packed_weighted_counts(packed: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Weighted vote counts ``N_i^w = sum_m w_m 1[c_i^m = +1]``: (M, P) uint8
+    and (M,) weights -> (8P,) f32.
+
+    The wire is unpacked to f32 a block of bytes at a time, as many as keep
+    the block near ``WEIGHTED_BLOCK_WORDS`` words (the reference walks one
+    chunk at a time; each count sums over the clients only, so with integer
+    weights the block width changes no count, while torch's order of a
+    fractional sum, and so its last bit, may depend on it). With unit or
+    0/1 weights the result equals :func:`packed_counts` exactly: an f32 sum
+    of {0, 1} terms is exact below 2**24 clients.
+    """
+    m, p = packed.shape
+    w = weights.float().reshape(m, 1)
+    block = max(1, WEIGHTED_BLOCK_WORDS // (8 * max(m, 1)))
+    out = torch.empty((8 * p,), dtype=torch.float32, device=packed.device)
+    for j0 in range(0, p, block):
+        j1 = min(j0 + block, p)
+        out[8 * j0 : 8 * j1] = (_unpack_lastdim(packed[:, j0:j1]).float() * w).sum(0)
+    return out

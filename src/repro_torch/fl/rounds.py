@@ -1,9 +1,10 @@
-"""One synchronous round (paper Algorithm 1) as state -> state.
+"""FL rounds (paper Algorithm 1) as state -> state.
 
-Counterpart of the synchronous half of ``repro/fl/rounds.py``
-(:func:`fl_round` and what it calls), with the reference's key schedule,
-so at a fixed seed the port draws the reference's client batches and
-quantizer bits:
+Counterpart of ``repro/fl/rounds.py``: the synchronous round
+(:func:`fl_round`), the same round streamed over chunks of clients
+(:func:`stream_fl_round`) and the buffered-asynchronous round
+(:func:`async_fl_round`), with the reference's key schedule, so at a fixed
+seed the port draws the reference's client batches and quantizer bits:
 
 * client ``m``'s batch indices: ``randint(fold_in(kb, m), (steps, batch))``;
 * the active cohort under partial participation:
@@ -20,15 +21,36 @@ error feedback, ``stoch_quant_ef``); the server estimates theta_hat
 (PRoBit+: ``bit_aggregate``); the global model steps, the b-controller
 votes and the active clients' state is written back at ``sel``.
 
+The streaming round (``client_chunk = C > 0``) runs the same protocol a
+chunk of C clients at a time: each chunk draws its own clients' batches,
+trains, attacks and compresses them (quantizer rows keyed by cohort
+position, so the bits are the dense round's), and folds them into additive
+carries (the server's vote counts, FedAvg's weighted sum or Fed-GM's row
+buffer, the b-vote, loss and delta sums, the weight sum). Only one chunk's
+(C, d) planes exist at a time. When C does not divide the cohort, the last
+chunk's pad rows wrap onto earlier clients, weigh 0 and are not written
+back. ``stateless_clients`` trains every client from the global model and
+keeps no per-client state. For the count schemes the streamed round equals
+the dense one exactly; FedAvg and Fed-GM sum in another order.
+
+The asynchronous round (``async_buffer = B > 0``) keeps the last B
+delivered wire rows: client ``m`` delivers with probability
+``1 / (1 + latency)`` (uniform ``fold_in(key, 7)``) into slot ``m mod B``,
+later clients winning a shared slot; the server estimates from the buffer
+with staleness weights ``(1 + age) ** -decay``; the ``straggler`` attack
+makes each Byzantine deliver only while no Byzantine upload sits in its
+slot. At ``B = M``, zero latency and zero decay it equals
+:func:`fl_round` bit for bit.
+
 Each step runs under a ``torch.profiler.record_function`` range
 (``round.batches``, ``round.sample`` under partial participation,
 ``round.local_train``, ``round.compress``,
-``round.estimate``, ``round.finish``), so a profiler trace splits a
+``round.estimate``, ``round.finish``; the streaming round's steps nest in
+one ``round.chunk`` range a chunk), so a profiler trace splits a
 round's device time by step; with no profiler active a range costs a few
 microseconds of host time.
 
-Not ported yet: the streaming, asynchronous and tree rounds and the
-masked campaign contexts.
+Not ported yet: the tree rounds and the masked campaign contexts.
 """
 
 from __future__ import annotations
@@ -41,20 +63,39 @@ import torch
 from torch.profiler import record_function
 
 from .. import prng
-from ..core import BState, apply_attack, attack_id, init_b_state, is_wire_attack, loss_bit, update_b
-from ..core.aggregation import mean_rows
+from ..core import (
+    BState,
+    DenseWire,
+    apply_attack,
+    apply_attack_stream,
+    attack_id,
+    init_b_state,
+    is_timing_attack,
+    is_wire_attack,
+    loss_bit,
+    staleness_weights,
+    update_b,
+    update_b_from_vote,
+)
+from ..core.aggregation import mean_rows, recip32
 from ..interop import ravel_params
 from ..optim import local_prox_train
 
 __all__ = [
     "RoundState",
+    "AsyncRoundState",
     "CellParams",
     "RoundContext",
     "make_context",
     "init_state",
+    "init_async_state",
+    "init_run_state",
     "cell_params",
     "round_batches",
     "fl_round",
+    "stream_fl_round",
+    "async_fl_round",
+    "round_fn",
     "evaluate",
 ]
 
@@ -64,9 +105,20 @@ class RoundState:
     """Evolving state of one FL run (tensors on the run's device)."""
 
     w_global: torch.Tensor  # (d,)
-    w_locals: torch.Tensor  # (n_clients, d) personal models
+    w_locals: torch.Tensor  # (n_clients, d) personal models; (1, d) when stateless
     b: BState  # dynamic-b controller state
-    residuals: torch.Tensor  # (n_clients, d) error-feedback residuals
+    residuals: torch.Tensor  # (n_clients, d) error-feedback residuals; (1, d) when stateless
+
+
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class AsyncRoundState(RoundState):
+    """A buffered-asynchronous run's state: the synchronous fields and the
+    server's buffer of the last ``B`` delivered wire rows."""
+
+    buf_rows: torch.Tensor  # (B, P) uint8 packed rows, or (B, d) f32 dense
+    buf_age: torch.Tensor  # (B,) int32 rounds since the slot's upload arrived
+    buf_valid: torch.Tensor  # (B,) bool: the slot holds an upload
+    buf_owner: torch.Tensor  # (B,) int32 client that wrote the slot, -1 before any
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,13 +197,49 @@ def make_context(
 
 
 def init_state(ctx: RoundContext) -> RoundState:
+    """Fresh run state; ``stateless_clients`` keeps one broadcast row of
+    each per-client plane, which no round reads."""
     cfg = ctx.cfg
+    n_rows = 1 if cfg.stateless_clients else cfg.n_clients
     return RoundState(
         w_global=ctx.w0,
-        w_locals=ctx.w0.unsqueeze(0).repeat(cfg.n_clients, 1),
+        w_locals=ctx.w0.unsqueeze(0).repeat(n_rows, 1),
         b=init_b_state(cfg.bctrl, ctx.device),
-        residuals=torch.zeros((cfg.n_clients, ctx.d), dtype=torch.float32, device=ctx.device),
+        residuals=torch.zeros((n_rows, ctx.d), dtype=torch.float32, device=ctx.device),
     )
+
+
+def init_async_state(ctx: RoundContext) -> AsyncRoundState:
+    """Fresh asynchronous run state: the synchronous fields and an empty
+    buffer of ``async_buffer`` rows in the wire's format (packed uint8 rows
+    of the compressor's width, dense f32 rows for FedAvg and Fed-GM)."""
+    n_buf, dev = ctx.cfg.async_buffer, ctx.device
+    n_bytes = ctx.pipeline.compressor.wire_bytes(ctx.d)
+    if n_bytes is None:
+        rows = torch.zeros((n_buf, ctx.d), dtype=torch.float32, device=dev)
+    else:
+        rows = torch.zeros((n_buf, n_bytes), dtype=torch.uint8, device=dev)
+    return AsyncRoundState(
+        **vars(init_state(ctx)),
+        buf_rows=rows,
+        buf_age=torch.zeros(n_buf, dtype=torch.int32, device=dev),
+        buf_valid=torch.zeros(n_buf, dtype=torch.bool, device=dev),
+        buf_owner=torch.full((n_buf,), -1, dtype=torch.int32, device=dev),
+    )
+
+
+def init_run_state(ctx: RoundContext) -> RoundState:
+    """The state the config calls for: asynchronous or synchronous."""
+    return init_async_state(ctx) if ctx.cfg.async_buffer else init_state(ctx)
+
+
+def round_fn(ctx: RoundContext) -> Callable:
+    """The round function of the config: asynchronous, streamed or dense."""
+    if ctx.cfg.async_buffer:
+        return async_fl_round
+    if ctx.cfg.client_chunk:
+        return stream_fl_round
+    return fl_round
 
 
 def cell_params(cfg) -> CellParams:
@@ -170,15 +258,20 @@ def _client_batch_idx(ctx: RoundContext, key: torch.Tensor, client_ids: torch.Te
     return prng.randint(keys, (_batch_steps(ctx), ctx.cfg.batch_size), 0, ctx.client_x.shape[1])
 
 
+def _gather_batches(ctx: RoundContext, key: torch.Tensor, ids: torch.Tensor) -> dict:
+    idx = _client_batch_idx(ctx, key, ids)
+    rows = ids.view(-1, 1, 1)
+    return {"x": ctx.client_x[rows, idx], "y": ctx.client_y[rows, idx]}
+
+
 def round_batches(ctx: RoundContext, key: torch.Tensor) -> dict:
     """One round's local-training batches of every client:
-    ``{"x": (n, steps, batch, ...), "y": (n, steps, batch)}``."""
-    n = ctx.cfg.n_clients
+    ``{"x": (n, steps, batch, ...), "y": (n, steps, batch)}``. A streaming
+    round draws each chunk's batches itself and gets ``{"key": key}``."""
+    if ctx.cfg.client_chunk:
+        return {"key": key}
     with record_function("round.batches"):
-        ids = torch.arange(n, dtype=torch.int64, device=ctx.device)
-        idx = _client_batch_idx(ctx, key, ids)
-        rows = ids.view(n, 1, 1)
-        return {"x": ctx.client_x[rows, idx], "y": ctx.client_y[rows, idx]}
+        return _gather_batches(ctx, key, torch.arange(ctx.cfg.n_clients, dtype=torch.int64, device=ctx.device))
 
 
 def _client_uploads(ctx, params, key, state, batches):
@@ -209,16 +302,17 @@ def _client_uploads(ctx, params, key, state, batches):
     return sel, w_new, loss_before, loss_after, deltas_att, wire, res_new
 
 
-def _finish_round(ctx, state, w_new, loss_before, loss_after, res_new, theta, deltas_att, sel=None):
+def _finish_round(ctx, state, w_new, loss_before, loss_after, res_new, theta, deltas_att, sel=None, **extra):
     """Server epilogue: global step, b-control, write-back of the active
-    clients' state at ``sel`` (all clients when None), metrics."""
+    clients' state at ``sel`` (all clients when None), metrics. ``extra``
+    replaces further fields of the state (the asynchronous buffer)."""
     cfg = ctx.cfg
     b_new = update_b(state.b, loss_bit(loss_before, loss_after), cfg.bctrl)
     if sel is not None:
         w_new = state.w_locals.index_copy(0, sel, w_new)
         res_new = state.residuals.index_copy(0, sel, res_new)
-    new_state = RoundState(
-        w_global=state.w_global + theta, w_locals=w_new, b=b_new, residuals=res_new
+    new_state = dataclasses.replace(
+        state, w_global=state.w_global + theta, w_locals=w_new, b=b_new, residuals=res_new, **extra
     )
     metrics = {
         "loss": mean_rows(loss_after),
@@ -247,6 +341,169 @@ def fl_round(
         theta = ctx.pipeline.estimate(wire)
     with record_function("round.finish"):
         return _finish_round(ctx, state, w_new, loss_before, loss_after, res_new, theta, deltas_att, sel)
+
+
+def _stream_chunks(ctx, params, kb, k_att, k_q, state, sel, n_byz, weighted):
+    """The streaming round's chunk loop: every chunk of ``cfg.client_chunk``
+    cohort rows trains, attacks and compresses, and folds into the additive
+    carries. Returns them with the written-back planes (the state's own when
+    stateless)."""
+    cfg, d, dev = ctx.cfg, ctx.d, ctx.device
+    C, n = cfg.client_chunk, sel.shape[0]
+    server = ctx.pipeline.server
+    kind = server.stream_kind
+    n_pad = -(-n // C) * C
+    # pad rows wrap onto earlier clients; they weigh 0 and are not written back
+    sel_p = sel[torch.arange(n_pad, device=dev) % n]
+    if kind == "counts":
+        acc = server.init_counts(ctx.pipeline.compressor.wire_bytes(d), dev, weighted=weighted)
+    elif kind == "sum":
+        acc = server.init_stream_sum(d, dev)
+    else:  # "buffer": Fed-GM reads every row in each Weiszfeld step
+        acc = torch.empty((n_pad, d), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), device=dev)
+    vote, loss, wsum, dsum = zero, zero, zero, torch.zeros(d, device=dev)
+    w_locals, residuals = state.w_locals, state.residuals
+    if not cfg.stateless_clients:
+        w_locals = w_locals.clone()  # the incoming state stays as it was
+    for g0 in range(0, n_pad, C):
+        with record_function("round.chunk"):
+            k = min(C, n - g0)  # real rows of the chunk, then pad rows
+            sel_c = sel_p[g0:g0 + C]
+            w_c = (torch.arange(C, device=dev) < k).float()
+            with record_function("round.batches"):
+                batches = _gather_batches(ctx, kb, sel_c)
+            if cfg.stateless_clients:
+                w_start = state.w_global.expand(C, d)
+                res_c = torch.zeros((1, d), device=dev).expand(C, d)
+            else:
+                # gathered copies: training and compressing never write the planes
+                w_start, res_c = w_locals.index_select(0, sel_c), residuals.index_select(0, sel_c)
+            with record_function("round.local_train"):
+                w_new, loss_before, loss_after = local_prox_train(
+                    ctx.loss_fn, state.w_global, w_start, ctx.unravel, batches,
+                    lr=params.lr, mu=params.momentum, lam=params.lam,
+                    use_kernel=cfg.use_kernels, engine=ctx.engine,
+                )
+            with record_function("round.compress"):
+                deltas = apply_attack_stream(params.attack_id, k_att, w_new - state.w_global, n_byz, g0)
+                wire, res_new = ctx.pipeline.compress_wire(
+                    k_q, deltas, state.b.b, res_c, flip_n=ctx.flip_n, row_offset=g0
+                )
+                if kind == "counts":
+                    acc = server.accumulate_counts(acc, wire.packed, w_c if weighted else None)
+                elif kind == "sum":
+                    acc = server.accumulate_sum(acc, wire.updates, w_c)
+                else:
+                    acc[g0:g0 + C] = wire.updates
+                vote = vote + (loss_bit(loss_before, loss_after).float() * w_c).sum()
+                loss = loss + (loss_after * w_c).sum()
+                dsum = dsum + (deltas * w_c[:, None]).sum(0)
+                wsum = wsum + w_c.sum()
+                if not cfg.stateless_clients:
+                    w_locals.index_copy_(0, sel_c[:k], w_new[:k])
+                    if res_new is not res_c:  # error feedback changed them
+                        if residuals is state.residuals:
+                            residuals = residuals.clone()
+                        residuals.index_copy_(0, sel_c[:k], res_new[:k])
+    return acc, vote, loss, dsum, wsum, w_locals, residuals
+
+
+def stream_fl_round(
+    ctx: RoundContext, params: CellParams, key: torch.Tensor, state: RoundState, batches: dict
+) -> tuple[RoundState, dict]:
+    """One synchronous round over chunks of ``cfg.client_chunk`` clients:
+    the protocol, key schedule and metrics of :func:`fl_round`, with
+    ``batches = {"key": kb}`` (each chunk draws its own). The estimate is
+    the server's finalize of the accumulated carry: the vote counts
+    (weighted, with ``M^w`` the weight sum, when the chunk does not divide
+    the cohort), FedAvg's weighted mean or Fed-GM's weighted median of the
+    buffered rows. Metric means are sums times the f32 reciprocal of the
+    weight sum."""
+    cfg, d, dev = ctx.cfg, ctx.d, ctx.device
+    n, C = cfg.n_active, cfg.client_chunk
+    server = ctx.pipeline.server
+    if cfg.participation < 1.0:
+        with record_function("round.sample"):
+            sel = prng.choice(prng.fold_in(key, 99), cfg.n_clients, (n,))
+    else:
+        sel = torch.arange(cfg.n_clients, dtype=torch.int64, device=dev)
+    k_att, k_q = prng.split(prng.fold_in(key, 1), 2)
+    weighted = n % C != 0
+    acc, vote, loss, dsum, wsum, w_locals, residuals = _stream_chunks(
+        ctx, params, batches["key"], k_att, k_q, state, sel, int(n * cfg.byz_frac), weighted
+    )
+    with record_function("round.estimate"):
+        if server.stream_kind == "counts":
+            b_vec = ctx.pipeline.compressor.b_vector(d, state.b.b)
+            if weighted:
+                theta = server.finalize_weighted(acc, wsum, b_vec)
+            else:
+                theta = server.finalize(acc, n, b_vec)
+        elif server.stream_kind == "sum":
+            theta = server.finalize_sum(acc)
+        else:
+            w_all = (torch.arange(acc.shape[0], device=dev) < n).float()
+            theta = server.from_dense(acc, w_all if weighted else None)
+    with record_function("round.finish"):
+        b_new = update_b_from_vote(state.b, vote, cfg.bctrl)
+        new_state = RoundState(w_global=state.w_global + theta, w_locals=w_locals, b=b_new, residuals=residuals)
+        recip = torch.reciprocal(wsum.clamp(min=1.0))
+        metrics = {
+            "loss": loss * recip,
+            "b": b_new.b,
+            "theta_mse": mean_rows((theta - dsum * recip) ** 2),
+            "theta": theta,
+        }
+    return new_state, metrics
+
+
+def async_fl_round(
+    ctx: RoundContext, params: CellParams, key: torch.Tensor, state: AsyncRoundState, batches: dict
+) -> tuple[AsyncRoundState, dict]:
+    """One buffered-asynchronous round: the client side of :func:`fl_round`,
+    then the arrivals fold into the buffer and the server estimates from
+    it with staleness weights. Extra metrics: ``buf_fill`` (share of valid
+    slots) and ``mean_age`` (mean age of the valid slots)."""
+    cfg, dev = ctx.cfg, ctx.device
+    m, n_buf = cfg.n_active, cfg.async_buffer
+    sel, w_new, loss_before, loss_after, deltas_att, wire, res_new = _client_uploads(
+        ctx, params, key, state, batches
+    )
+    with record_function("round.estimate"):
+        rows = wire.updates if isinstance(wire, DenseWire) else wire.packed
+        # arrivals: client m delivers with probability 1 / (1 + latency),
+        # compared in f32 as the reference's weakly typed scalar is
+        p_arrive = float(np.float32(1.0 / (1.0 + cfg.async_latency)))
+        delivered = prng.uniform(prng.fold_in(key, 7), (m,)) < p_arrive
+        n_byz = int(m * cfg.byz_frac)
+        if is_timing_attack(cfg.attack) and n_byz:
+            # a Byzantine delivers only while no Byzantine upload sits in its slot
+            owner = state.buf_owner[torch.arange(n_byz, device=dev) % n_buf]
+            byz_resident = (owner >= 0) & (owner < n_byz)
+            delivered = torch.cat([~byz_resident, delivered[n_byz:]])
+        # fold the M rows into the B slots, later clients winning a shared slot
+        buf, owner, hit = state.buf_rows.clone(), state.buf_owner.clone(), torch.zeros_like(state.buf_valid)
+        for g0 in range(0, m, n_buf):
+            got = delivered[g0:g0 + n_buf]
+            k = got.shape[0]
+            buf[:k] = torch.where(got.view((k,) + (1,) * (rows.dim() - 1)), rows[g0:g0 + k], buf[:k])
+            owner[:k] = torch.where(got, torch.arange(g0, g0 + k, dtype=torch.int32, device=dev), owner[:k])
+            hit[:k] |= got
+        age = torch.where(hit, torch.zeros_like(state.buf_age), state.buf_age + 1)
+        valid = state.buf_valid | hit
+        weights = staleness_weights(age, cfg.staleness_decay, valid)
+        buf_wire = DenseWire(updates=buf) if isinstance(wire, DenseWire) else dataclasses.replace(wire, packed=buf)
+        theta = ctx.pipeline.estimate(buf_wire, weights=weights)
+    with record_function("round.finish"):
+        new_state, metrics = _finish_round(
+            ctx, state, w_new, loss_before, loss_after, res_new, theta, deltas_att, sel,
+            buf_rows=buf, buf_age=age, buf_valid=valid, buf_owner=owner,
+        )
+        n_valid = valid.float().sum()
+        metrics["buf_fill"] = n_valid * recip32(n_buf)
+        metrics["mean_age"] = (age.float() * valid).sum() / n_valid.clamp(min=1.0)
+    return new_state, metrics
 
 
 @torch.no_grad()

@@ -1,9 +1,12 @@
-"""FL simulation runtime: the stateful harness around the synchronous round.
+"""FL simulation runtime: the stateful harness around the rounds.
 
 Counterpart of ``repro/fl/runtime.py``. :class:`FLConfig` keeps every field
-of the reference's config, so a config carries over unchanged; the fields
-of paths this slice does not port raise ``NotImplementedError`` naming the
-ROADMAP item that ports them. :class:`FLSimulation` runs rounds with the
+of the reference's config, so a config carries over unchanged, and rejects
+what the reference rejects with the same ``ValueError``; the fields of
+paths the port does not have yet raise ``NotImplementedError`` naming the
+ROADMAP item that ports them. :class:`FLSimulation` runs the round the
+config calls for (synchronous, streamed over ``client_chunk`` clients or
+buffered-asynchronous, :func:`~repro_torch.fl.rounds.round_fn`) with the
 reference's key schedule (``key = PRNGKey(seed)``; each round
 ``key, kb, kr = split(key, 3)``; batches from ``kb``, the round from
 ``kr``), on the card unless ``device="cpu"`` is passed.
@@ -19,11 +22,13 @@ import torch
 from .. import prng
 from ..core import (
     ACCOUNTANTS,
+    STREAM_ATTACKS,
     BControlConfig,
     DPConfig,
     PrivacyLedger,
     available_aggregators,
     build_pipeline,
+    is_timing_attack,
     parse_attack,
 )
 from . import rounds as _rounds
@@ -34,12 +39,7 @@ _B_MODES = ("dynamic", "fixed", "oracle")
 
 # Fields of paths not ported yet: (default, ROADMAP item that ports them).
 _UNPORTED = {
-    "async_buffer": (0, "A7"),
-    "async_latency": (0.0, "A7"),
-    "staleness_decay": (0.0, "A7"),
-    "client_chunk": (0, "A7"),
-    "stateless_clients": (False, "A7"),
-    "stream_shard": (False, "A7"),
+    "stream_shard": (False, "A14"),
     "wire_bits": (1, "A8"),
     "client_bits": (None, "A8"),
     "topk_frac": (1.0, "A9"),
@@ -101,24 +101,86 @@ class FLConfig:
             raise ValueError(
                 f"unknown aggregator {self.aggregator!r}; available: {available_aggregators()}"
             )
-        _, timing = parse_attack(self.attack)  # ValueError on unknown names
+        parse_attack(self.attack)  # ValueError on unknown names
         if self.dp_accountant not in ACCOUNTANTS:
             raise ValueError(f"unknown dp_accountant {self.dp_accountant!r}; available: {ACCOUNTANTS}")
         if not 0.0 < self.participation <= 1.0:
             raise ValueError(f"participation must be in (0, 1], got {self.participation}")
         if self.b_mode not in _B_MODES:
             raise ValueError(f"unknown b_mode {self.b_mode!r}; available: {_B_MODES}")
-        if self.pack_chunk < 0 or self.pack_chunk % 8:
-            raise ValueError(f"pack_chunk must be a non-negative multiple of 8, got {self.pack_chunk}")
-        if timing and not self.async_buffer:
-            raise ValueError(
-                f"timing attack {self.attack!r} needs asynchronous rounds "
-                "(set async_buffer > 0); synchronous rounds have no arrival "
-                "schedule to attack"
-            )
+        self._check_async_and_stream()
         for name, (default, item) in _UNPORTED.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(f"{name}={getattr(self, name)!r} is not ported yet (ROADMAP {item})")
+
+    def _check_async_and_stream(self):
+        """The reference's checks of the asynchronous and streaming fields."""
+        if self.async_buffer < 0:
+            raise ValueError(f"async_buffer must be >= 0, got {self.async_buffer}")
+        if self.async_latency < 0:
+            raise ValueError(f"async_latency must be >= 0, got {self.async_latency}")
+        if self.staleness_decay < 0:
+            raise ValueError(
+                f"staleness_decay must be >= 0 (weights must be monotone non-increasing in age), "
+                f"got {self.staleness_decay}"
+            )
+        if not self.async_buffer:
+            if (self.async_latency > 0 or self.staleness_decay > 0) and not self.edge_buffer:
+                raise ValueError(
+                    "async_latency/staleness_decay require buffered-async rounds (set async_buffer > 0 for "
+                    "client rounds or edge_buffer > 0 for a buffered-async tree root)"
+                )
+            if is_timing_attack(self.attack):
+                raise ValueError(
+                    f"timing attack {self.attack!r} needs asynchronous rounds (set async_buffer > 0); "
+                    "synchronous rounds have no arrival schedule to attack"
+                )
+        else:
+            if self.participation < 1.0:
+                raise ValueError(
+                    "async rounds require participation == 1.0: buffer slots, staleness ages and the "
+                    "straggler gate are keyed to client identity; model partial availability with "
+                    "async_latency instead"
+                )
+            if self.topk_frac < 1.0:
+                raise ValueError("async rounds buffer dense packed wires; topk_frac < 1 (SparseWire) cannot be "
+                                 "staleness-buffered")
+            if self.async_buffer > self.n_active:
+                raise ValueError(
+                    f"async_buffer={self.async_buffer} exceeds the cohort ({self.n_active} clients); "
+                    "slots beyond one per client would never be written"
+                )
+        if self.client_chunk < 0:
+            raise ValueError(f"client_chunk must be >= 0, got {self.client_chunk}")
+        if self.pack_chunk < 0 or self.pack_chunk % 8:
+            raise ValueError(f"pack_chunk must be a non-negative multiple of 8, got {self.pack_chunk}")
+        if self.client_chunk:
+            if self.async_buffer:
+                raise ValueError(
+                    "client_chunk streams the synchronous round; the buffered-async server holds a "
+                    "persistent wire buffer and cannot stream (set async_buffer=0)"
+                )
+            if self.topk_frac < 1.0:
+                raise ValueError("client_chunk requires the dense packed wire; topk_frac < 1 (SparseWire) has no "
+                                 "count accumulator")
+            if self.b_mode == "oracle":
+                raise ValueError(
+                    "b_mode='oracle' maxes |delta| over the full cohort and cannot stream; use 'dynamic' or "
+                    "'fixed' with client_chunk"
+                )
+            if self.byz_frac > 0 and parse_attack(self.attack)[0] not in STREAM_ATTACKS:
+                raise ValueError(
+                    f"attack {self.attack!r} colludes across the cohort and cannot run under a client-chunk "
+                    f"scan; streamable attacks: {tuple(sorted(STREAM_ATTACKS))}"
+                )
+        if self.stateless_clients:
+            if not self.client_chunk:
+                raise ValueError("stateless_clients requires client_chunk > 0")
+            if self.error_feedback:
+                raise ValueError(
+                    "error feedback carries a per-client residual across rounds and contradicts "
+                    "stateless_clients"
+                )
 
     @property
     def n_active(self) -> int:
@@ -172,8 +234,10 @@ def _default_device() -> torch.device:
 
 
 class FLSimulation:
-    """The experiment harness: owns a :class:`~repro_torch.fl.rounds.RoundState`
-    and runs one round per loop iteration, evaluating every ``eval_every``
+    """The experiment harness: owns the run's state (a
+    :class:`~repro_torch.fl.rounds.RoundState`, or an
+    :class:`~repro_torch.fl.rounds.AsyncRoundState`) and runs one round of
+    the config's kind per loop iteration, evaluating every ``eval_every``
     rounds.
 
     ``device`` defaults to the card and raises when there is none;
@@ -200,7 +264,8 @@ class FLSimulation:
             cfg, init_params, loss_fn, acc_fn, client_x, client_y, test,
             device=self.device, engine=engine,
         )
-        self.state = _rounds.init_state(self.ctx)
+        self.state = _rounds.init_run_state(self.ctx)
+        self._round = _rounds.round_fn(self.ctx)
         self._params = _rounds.cell_params(cfg)
         self.history: list[dict] = []
         self.ledger = cfg.ledger()
@@ -245,7 +310,7 @@ class FLSimulation:
         for t in range(rounds):
             key, kb, kr = prng.split(key, 3)
             batches = _rounds.round_batches(self.ctx, kb)
-            self.state, metrics = _rounds.fl_round(self.ctx, self._params, kr, self.state, batches)
+            self.state, metrics = self._round(self.ctx, self._params, kr, self.state, batches)
             self.ledger.record_round()
             yield t, metrics
 

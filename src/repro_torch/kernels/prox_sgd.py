@@ -72,7 +72,10 @@ def occupancy(device_index: int, shared_w0: bool) -> tuple[int, int]:
 
 
 def _span(t: torch.Tensor) -> tuple[int, int]:
-    return t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()
+    """The byte range ``t``'s elements lie in (an expanded view's is its
+    base row's, not ``numel`` elements)."""
+    extent = 1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride())) if t.numel() else 0
+    return t.data_ptr(), t.data_ptr() + extent * t.element_size()
 
 
 def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:

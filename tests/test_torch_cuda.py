@@ -373,3 +373,48 @@ def test_cnn_round_on_kernels_equals_round_on_plain_versions(dev, f32_convolutio
         assert kl == {"prox_sgd": 8, "bit_aggregate": 2, ("stoch_quant_ef" if ef else "stoch_quant_pack"): 2}
         for (t1, l1, b1), (t2, l2, b2) in zip(kern, plain):
             assert torch.equal(t1, t2) and l1 == l2 and b1 == b2 and np.isfinite(l1)
+
+
+def _mlp_task():
+    from repro_torch.data import make_classification, partition_label_skew
+    from repro_torch.models import init_mlp
+
+    (xtr, ytr), (xte, yte) = make_classification(0, n_train=600, n_test=100)
+    parts = partition_label_skew(ytr, 6, 2, 20, seed=1)
+    cx, cy = np.stack([xtr[i] for i in parts]), np.stack([ytr[i] for i in parts])
+    return init_mlp(prng.key(0), hidden=16), cx, cy, {"x": xte, "y": yte}
+
+
+@pytest.mark.parametrize("kw,launches", [
+    # async: B1 once a round, B4 once a local step, no B3 (the weighted estimate is plain)
+    ({"async_buffer": 3, "async_latency": 1.0, "staleness_decay": 0.5, "byz_frac": 0.34,
+      "attack": "straggler+sign_flip"}, {"stoch_quant_pack": 2, "prox_sgd": 8}),
+    ({"async_buffer": 6}, {"stoch_quant_pack": 2, "prox_sgd": 8}),
+    # streamed in chunks of 4 (6 clients: a pad chunk): B1 and 4 B4 a chunk
+    ({"client_chunk": 4, "error_feedback": True}, {"stoch_quant_ef": 4, "prox_sgd": 16}),
+    ({"client_chunk": 4, "stateless_clients": True, "byz_frac": 0.34, "attack": "gaussian"},
+     {"stoch_quant_pack": 4, "prox_sgd": 16}),
+], ids=["async-straggler", "async-full", "stream-ef", "stream-stateless-gaussian"])
+def test_async_and_stream_rounds_on_kernels_equal_plain_versions(dev, kw, launches):
+    """Two asynchronous or streamed rounds of a small FLSimulation through
+    the kernels equal the engine='ref' rounds on the card (theta, loss, b,
+    and the asynchronous buffer), with their own launch counts."""
+    from repro_torch.fl import FLConfig, FLSimulation
+    from repro_torch.models import accuracy, mlp_logits, xent_loss
+
+    p0, cx, cy, test = _mlp_task()
+    runs = []
+    for engine in (None, "ref"):
+        _build.reset_launches()
+        sim = FLSimulation(FLConfig(n_clients=6, rounds=2, local_epochs=2, use_kernels=True, **kw), p0,
+                           functools.partial(xent_loss, mlp_logits), functools.partial(accuracy, mlp_logits),
+                           cx, cy, test, device=dev, engine=engine)
+        rounds = [(m["theta"].clone(), m["loss"].item(), m["b"].item()) for _, m in sim.iter_rounds()]
+        runs.append((rounds, dict(_build.launches), sim.state))
+    (kern, kl, ks), (plain, pl, ps) = runs
+    assert pl == {} and kl == launches
+    for (t1, l1, b1), (t2, l2, b2) in zip(kern, plain):
+        assert torch.equal(t1, t2) and l1 == l2 and b1 == b2 and np.isfinite(l1)
+    if "async_buffer" in kw:
+        for f in ("buf_rows", "buf_age", "buf_valid", "buf_owner"):
+            assert torch.equal(getattr(ks, f), getattr(ps, f)), f
