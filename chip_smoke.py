@@ -4,6 +4,7 @@
 Usage, from the root of a checkout, on a machine with a CUDA card::
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --b4-parent DIR   # B4 of the checkout DIR against this one's, nothing else
 
 Phases (any failure raises and exits non-zero before the result line):
 
@@ -20,7 +21,10 @@ Phases (any failure raises and exits non-zero before the result line):
    d = 118,282, writing nothing at or beyond n; ``prox_sgd`` at d = 0, 1,
    2 and 3 (mod 4) and M in {1, 7, 100}, with w0 shared and full, out of
    place and in place (``out=``), at the geometries of B4_GEOMETRIES, on
-   its scalar path and on arrays off their 16-byte boundaries;
+   its scalar path and on arrays off their 16-byte boundaries; and every
+   kernel in its batched form, one launch for a group of E in {1, 3, 8}
+   runs, each with its own range b, w0 row and coefficients (B4 also at
+   ResNet-18's width with 3 rows a run, which its row groups do not divide);
 4. main path: ``FLSimulation`` with probit_plus, dynamic b and the kernels,
    on the paper's MLP at its default width (hidden 128, d = 118,282) with
    100 clients, 3 rounds in each of four variants: (a) plain, (b) error
@@ -78,6 +82,22 @@ Phases (any failure raises and exits non-zero before the result line):
    the sign wire and its counts, the oracle range, the gaussian attack's
    draw) at the main path's shapes, each as device time (one call captured
    in a CUDA graph and replayed) and as eager stream time;
+7. campaign (``repro_torch.sim``, phase 7) on the main path's MLP with the
+   kernels, 3 rounds: (h) Table I's 28 cells (4 attacks x 7 methods, the
+   async row included) and (i) Fig. 4's 11 cells (fused M-sweeps of PRoBit+
+   and FedAvg, eps at M = 20), each over seeds 0 and 1, and (j) (a) with
+   seeds 0-7 as one group of 8 runs. Each grid runs through
+   ``run_campaign`` (launch counts zeroed just before, read just after);
+   each group's prepared runner again, with its own launch counts (one B1,
+   one B3 unless masked, one B4 a local step for a whole synchronous
+   group), equal to the campaign's trajectories and to its
+   ``engine="ref"`` rerun exactly; every run against its sequential
+   ``FLSimulation`` run (b exact, loss within rtol 1e-6, accuracy within
+   1e-6), counting the runs equal bit for bit. (j) also reports its steady
+   round time, peak memory and nvidia-smi busy share beside the
+   sequential runs'; first, whether a run's gradient among a group's rows
+   equals its own (``campaign_model_rows``). It runs between phases 4d and
+   5, and phase 5 also times each kernel's batched call at E = 8, M = 100;
 6. with ``--profile`` only: (a) on the MLP and on ``resnet18w64-m100``:
    the device busy share as nvidia-smi reads it over unprofiled rounds and
    as the union of the kernels' records of one round under
@@ -288,11 +308,12 @@ def check_kernels(chk: Checker, dev) -> None:
             chk.same("bit_aggregate", theta_d, want, tag + " vs Eq.-13 of packed_counts")
 
             w, g, mom = randn(m, d), randn(m, d), 0.1 * randn(m, d)
+            coeffs = ops.prox_coeffs(0.01, 0.2, 0.5, dev)
             for w0 in (0.9 * w[0], 0.9 * w):
-                want = ref.prox_sgd_ref(w, w0, g, mom, 0.01, 0.2, 0.5)
+                want = ref.prox_sgd_ref(w, w0, g, mom, coeffs)
                 w_in, m_in = w.clone(), mom.clone()
-                for got, how in ((prox_sgd(w, w0.contiguous(), g, mom, 0.01, 0.2, 0.5), ""),
-                                 (prox_sgd(w_in, w0.contiguous(), g, m_in, 0.01, 0.2, 0.5, out=(w_in, m_in)),
+                for got, how in ((prox_sgd(w, w0.contiguous(), g, mom, coeffs), ""),
+                                 (prox_sgd(w_in, w0.contiguous(), g, m_in, coeffs, out=(w_in, m_in)),
                                   " in place")):
                     chk.same("prox_sgd", got[0], want[0], tag + how + " w")
                     chk.same("prox_sgd", got[1], want[1], tag + how + " momentum")
@@ -379,27 +400,27 @@ def check_prox_sgd(chk: Checker, dev) -> None:
     only ``w`` off its boundary (the wrapper takes the scalar path)."""
     import torch
 
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.prox_sgd import launch_geometry, occupancy, prox_sgd
 
     gen = torch.Generator(device=dev).manual_seed(2468)
     lib = _build.library("prox_sgd")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    coeffs = (0.01, 0.2, 0.5)
+    coeffs = ops.prox_coeffs(0.01, 0.2, 0.5, dev)
     for d in B4_CHECK_D:
         for m in B4_CHECK_M:
             w, g, mom = (torch.randn(m, d, generator=gen, device=dev) for _ in range(3))
             for w0 in (0.9 * w[0] + 0.1, 0.9 * w + 0.1):
                 tag = f"d={d} M={m} w0={'shared' if w0.dim() == 1 else 'full'}"
-                want_w, want_m = ref.prox_sgd_ref(w, w0, g, mom, *coeffs)
+                want_w, want_m = ref.prox_sgd_ref(w, w0, g, mom, coeffs)
 
                 def same(got, what):
                     chk.same("prox_sgd", got[0], want_w, f"{tag} {what} w")
                     chk.same("prox_sgd", got[1], want_m, f"{tag} {what} momentum")
 
-                same(prox_sgd(w, w0, g, mom, *coeffs), "wrapper")
+                same(prox_sgd(w, w0, g, mom, coeffs), "wrapper")
                 w_in, m_in = w.clone(), mom.clone()
-                got = prox_sgd(w_in, w0, g, m_in, *coeffs, out=(w_in, m_in))
+                got = prox_sgd(w_in, w0, g, m_in, coeffs, out=(w_in, m_in))
                 require(got[0] is w_in and got[1] is m_in, f"prox_sgd {tag}: out= not returned")
                 same(got, "in place")
                 shared = w0.dim() == 1
@@ -408,8 +429,8 @@ def check_prox_sgd(chk: Checker, dev) -> None:
                     for vector in (1, 0):
                         w_out, m_out = torch.full_like(w, float("nan")), torch.full_like(w, float("nan"))
                         rc = lib.probit_prox_sgd(w.data_ptr(), w0.data_ptr(), g.data_ptr(), mom.data_ptr(),
-                                                 w_out.data_ptr(), m_out.data_ptr(), *coeffs, m, d,
-                                                 0 if shared else d, tile, rows, ctas, vector, stream)
+                                                 w_out.data_ptr(), m_out.data_ptr(), coeffs.data_ptr(), 0, m, d,
+                                                 m if shared else 1, tile, rows, ctas, vector, stream)
                         require(rc == 0, f"prox_sgd {tag} geometry {(tile, rows, ctas)}: cudaError_t {rc}")
                         same((w_out, m_out), f"geometry {(tile, rows, ctas)} vector={vector}")
                 # every operand 4 bytes past a 16-byte boundary, then w alone
@@ -419,9 +440,83 @@ def check_prox_sgd(chk: Checker, dev) -> None:
                     v.copy_(src)
                 w_in, g_in, m_in, w_io, m_io = views[:5]
                 w0_in = w0 if shared else views[5]
-                same(prox_sgd(w_in, w0_in, g_in, m_in, *coeffs), "4 bytes off")
-                same(prox_sgd(w_io, w0_in, g_in, m_io, *coeffs, out=(w_io, m_io)), "4 bytes off, in place")
-                same(prox_sgd(w_in, w0, g, mom, *coeffs), "w alone 4 bytes off")
+                same(prox_sgd(w_in, w0_in, g_in, m_in, coeffs), "4 bytes off")
+                same(prox_sgd(w_io, w0_in, g_in, m_io, coeffs, out=(w_io, m_io)), "4 bytes off, in place")
+                same(prox_sgd(w_in, w0, g, mom, coeffs), "w alone 4 bytes off")
+
+
+# Batched kernels (phase 3): a campaign group of E runs in one launch, each
+# run with its own range b, counts, w0 row and coefficients; (M, d) of the
+# runs at the MLP's width and, for B4, 3 rows a run at ResNet-18's width,
+# where units take two rows, so a row group does not divide a run.
+BATCH_CHECK_E = (1, 3, 8)
+BATCH_CHECK_SHAPES = ((5, 40_522), (100, 118_282))
+
+
+def check_batched(chk: Checker, dev) -> None:
+    """Phase 3, the batched form of every kernel bit for bit against its
+    plain version at E in BATCH_CHECK_E: B1, B2 and B3 through the wrappers
+    (B3 also against each run's own call), B4 through the wrapper out of
+    place and in place and through the C entry at other geometries."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.bit_aggregate import bit_aggregate
+    from repro_torch.kernels.ops import padded_len
+    from repro_torch.kernels.prox_sgd import prox_sgd
+    from repro_torch.kernels.stoch_quant import stoch_quant_ef, stoch_quant_pack
+
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    lib = _build.library("prox_sgd")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for e in BATCH_CHECK_E:
+        for m, d in BATCH_CHECK_SHAPES:
+            tag = f"E={e} M={m} d={d}"
+            pad = padded_len(d) - d
+            b = F.pad(0.005 + 0.02 * torch.rand(e, d, generator=gen, device=dev), (0, pad), value=1.0)
+            delta = F.pad(0.02 * torch.randn(e * m, d, generator=gen, device=dev), (0, pad), value=-1.0)
+            u = F.pad(torch.rand(e * m, d, generator=gen, device=dev), (0, pad), value=1.0)
+            res = F.pad(0.005 * torch.randn(e * m, d, generator=gen, device=dev), (0, pad))
+            packed = stoch_quant_pack(delta, b, u)
+            chk.same("stoch_quant_pack", packed, ref.stoch_quant_compress_ref(delta, b, u)[0], tag)
+            got = stoch_quant_ef(delta, res, b, u)
+            want = ref.stoch_quant_compress_ref(delta, b, u, res, want_residual=True)
+            chk.same("stoch_quant_ef", got[0], want[0], tag + " wire")
+            chk.same("stoch_quant_ef", got[1], want[1], tag + " residual")
+            wire, b_n = packed.view(e, m, -1), b[:, :d].contiguous()
+            theta = bit_aggregate(wire, b_n)
+            chk.same("bit_aggregate", theta, ref.bit_aggregate_ref(wire, b_n), tag)
+            for i in range(e):
+                chk.same("bit_aggregate", theta[i], bit_aggregate(wire[i].contiguous(), b_n[i].contiguous()),
+                         f"{tag} run {i} alone")
+            del delta, u, res, packed, got, want
+        coeffs = torch.stack([0.01 + 0.01 * torch.arange(e, device=dev), 0.2 * (torch.arange(e, device=dev) % 2),
+                              torch.full((e,), 0.5, device=dev)], -1).contiguous()
+        for rows, d in ((100, 118_282), (5, 4_099), (3, RESNET_D)):
+            tag = f"E={e} rows={rows} d={d}"
+            w, g, mom = (torch.randn(e * rows, d, generator=gen, device=dev) for _ in range(3))
+            w0 = torch.randn(e, d, generator=gen, device=dev)
+            want_w, want_m = ref.prox_sgd_ref(w, w0, g, mom, coeffs)
+            got = prox_sgd(w, w0, g, mom, coeffs)
+            chk.same("prox_sgd", got[0], want_w, tag + " w")
+            chk.same("prox_sgd", got[1], want_m, tag + " momentum")
+            w_io, m_io = w.clone(), mom.clone()
+            prox_sgd(w_io, w0, g, m_io, coeffs, out=(w_io, m_io))
+            chk.same("prox_sgd", w_io, want_w, tag + " in place w")
+            chk.same("prox_sgd", m_io, want_m, tag + " in place momentum")
+            del got, w_io, m_io
+            for geometry in ((2048, 1, 1), (2048, 2, 7), (1024, 4, 64)):
+                w_out, m_out = torch.full_like(w, float("nan")), torch.full_like(w, float("nan"))
+                rc = lib.probit_prox_sgd(w.data_ptr(), w0.data_ptr(), g.data_ptr(), mom.data_ptr(), w_out.data_ptr(),
+                                         m_out.data_ptr(), coeffs.data_ptr(), 3, e * rows, d, rows, *geometry, 1,
+                                         stream)
+                require(rc == 0, f"prox_sgd {tag} geometry {geometry}: cudaError_t {rc}")
+                chk.same("prox_sgd", w_out, want_w, f"{tag} geometry {geometry} w")
+                chk.same("prox_sgd", m_out, want_m, f"{tag} geometry {geometry} momentum")
+                del w_out, m_out
+            del w, g, mom, w0, want_w, want_m
+        torch.cuda.empty_cache()
 
 
 def _split_clients(x, y, n_clients: int):
@@ -741,6 +836,341 @@ def byzantine_grid(dev) -> dict:
     return runs
 
 
+# Phase 7: the campaign engine (repro_torch.sim) on the paper's MLP at full
+# width with the kernels, 3 rounds, seeds (0, 1): (h) Table I's 28 cells
+# (benchmarks/table1_byzantine.py: 4 attacks x 7 methods, the async row
+# included); (i) Fig. 4's 11 cells (benchmarks/fig4_clients_privacy.py:
+# M-sweeps of PRoBit+ and FedAvg, eps at M = 20); (j) phase 4's (a) with
+# seeds 0-7 as one group of 8 runs of 100 clients.
+TABLE1_ATTACKS = ("gaussian", "sign_flip", "zero_gradient", "sample_duplicate")
+TABLE1_METHODS = (
+    ("probit_plus", {}),
+    ("probit_plus_dp", {"dp_epsilon": 0.1}),
+    ("probit_plus_async", {"async_buffer": 10, "async_latency": 1.0, "staleness_decay": 0.5}),
+    ("rsa", {"aggregator": "rsa"}),
+    ("signsgd_mv", {"aggregator": "signsgd_mv"}),
+    ("fed_gm", {"aggregator": "fed_gm"}),
+    ("fedavg", {"aggregator": "fedavg"}),
+)
+FIG4_CLIENTS = (5, 10, 20, 40)
+FIG4_EPSILONS = (1.0, 0.1, 0.01)
+CAMPAIGN_SEEDS = (0, 1)
+COHORT_SEEDS = tuple(range(8))
+
+
+def campaign_specs() -> dict:
+    """Phase 7's grids as campaign specs, written out here (this script
+    imports neither ``benchmarks`` nor the JAX package)."""
+    from repro_torch.sim import CampaignSpec, CellSpec
+
+    common = {"rounds": MAIN["rounds"], "local_epochs": MAIN["local_epochs"], "batch_size": MAIN["batch_size"],
+              "use_kernels": True}
+    table1 = CampaignSpec(
+        base={**common, "n_clients": 10, "byz_frac": 0.1, "b_mode": "fixed"},
+        cells=tuple(CellSpec(f"{attack}_{name}", {"aggregator": "probit_plus", **kw, "attack": attack})
+                    for attack in TABLE1_ATTACKS for name, kw in TABLE1_METHODS),
+        seeds=CAMPAIGN_SEEDS)
+    fig4 = CampaignSpec(
+        base={**common, "aggregator": "probit_plus"},
+        cells=tuple(CellSpec(f"M={m}_{short}", {"n_clients": m, "aggregator": agg})
+                    for m in FIG4_CLIENTS for short, agg in (("probit", "probit_plus"), ("fedavg", "fedavg")))
+        + tuple(CellSpec(f"eps={eps}", {"n_clients": 20, "dp_epsilon": eps}) for eps in FIG4_EPSILONS),
+        seeds=CAMPAIGN_SEEDS)
+    cohort = CampaignSpec(
+        base={**common, "n_clients": MAIN["n_clients"], "aggregator": "probit_plus", "b_mode": "dynamic"},
+        cells=(CellSpec("a"),), seeds=COHORT_SEEDS)
+    return {"table1": table1, "fig4": fig4, "cohort": cohort}
+
+
+def campaign_task(dev, engine=None):
+    """The campaign's task provider: phase 4's MLP data split among each
+    cell's clients (100 samples a client), on the card."""
+    from repro_torch.sim import Task
+
+    @functools.lru_cache(maxsize=None)
+    def task(n_clients: int):
+        p0, cx, cy, test, loss_fn, acc_fn = _task("mlp128-m100", None, n_clients)
+        return Task(p0, loss_fn, acc_fn, cx, cy, test, device=dev, engine=engine)
+
+    return lambda cfg: task(cfg.n_clients)
+
+
+def synchronous_dense(group, cfg) -> bool:
+    """Does the group's config call for the synchronous dense round, which
+    a campaign runs as one group? (Read from the config and the plan here,
+    not from the code under test.)"""
+    return cfg.async_buffer == 0 and cfg.client_chunk == 0 and not group.client_chunk
+
+
+def campaign_expected_launches(group, cfgs, n_seeds: int) -> dict:
+    """One group's launches: a synchronous dense group launches B1 once a
+    round, B3 once a round (PRoBit+ without a mask; a fused group counts
+    with the weighted plain count) and B4 once a local step, for all its
+    runs; an asynchronous group runs one run at a time (B1 and B4 each
+    run's own, no B3)."""
+    cfg = cfgs[group.cell_idx[0]]
+    runs = len(group.cell_idx) * n_seeds
+    steps = cfg.local_epochs * MAIN["per_client"] // cfg.batch_size
+    probit = cfg.aggregator == "probit_plus"
+    sync = synchronous_dense(group, cfg)
+    per = 1 if sync else runs
+    return {"stoch_quant_pack": cfg.rounds * per if probit else 0, "stoch_quant_ef": 0,
+            "bit_aggregate": cfg.rounds if probit and sync and not group.fused else 0,
+            "prox_sgd": cfg.rounds * steps * per}
+
+
+def group_run(dev, group, cfgs, spec, engine=None) -> dict:
+    """One plan group through its prepared runner (the one run_campaign
+    calls): the trajectories, each run's final global model, the group's
+    own launches and whether the runner ran it as one group."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.sim import campaign
+    from repro_torch.sim.plan import CompileCache
+
+    prepare, args, *_ = campaign._prepare_group(group, cfgs, spec, campaign_task(dev, engine), with_acc=True,
+                                                shard=False, cache=CompileCache())
+    runner = prepare(*args)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    traj, final = runner.run()
+    torch.cuda.synchronize()
+    return {"traj": {k: v.cpu() for k, v in traj.items()}, "final": final, "launches": dict(_build.launches),
+            "batched": runner.batched}
+
+
+def sequential_run(dev, cfg) -> dict:
+    """One cell and seed through FLSimulation on the card: each round's
+    loss, b, accuracy and wall time, and the final global model."""
+    import torch
+
+    from repro_torch.fl import FLSimulation
+
+    p0, cx, cy, test, loss_fn, acc_fn = _task("mlp128-m100", None, cfg.n_clients)
+    sim = FLSimulation(cfg, p0, loss_fn, acc_fn, cx, cy, test, device=dev)
+    recs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _, met in sim.iter_rounds():
+        rec = {"loss": met["loss"].item(), "b": met["b"].item(), "acc": sim.evaluate()}
+        rec["seconds"] = time.perf_counter() - t0
+        recs.append(rec)
+        t0 = time.perf_counter()
+    return {"rounds": recs, "final": sim.w_global}
+
+
+def campaign_phase(dev, name: str, spec) -> dict:
+    """Phase 7, one grid: its plan; run_campaign through the kernels, its
+    launches zeroed just before and read just after; each group's prepared
+    runner again, with its own launch counts, equal to the campaign's
+    trajectories and to its engine="ref" rerun exactly; every cell and seed
+    against its sequential FLSimulation run (b exact, loss within rtol
+    1e-6, accuracy within 1e-6), counting the runs equal bit for bit in the
+    final model and every loss."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.sim import plan_campaign, run_campaign
+    from repro_torch.sim.plan import CompileCache
+
+    plan = plan_campaign(spec)
+    cfgs = spec.configs()
+    n_seeds = len(spec.seeds)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    result = run_campaign(spec, campaign_task(dev), plan=plan, compile_cache=CompileCache())
+    wall = time.perf_counter() - t0
+    launches = {k: _build.launches[k] for k in KERNELS}
+    require(set(_build.launches) <= set(KERNELS), f"campaign {name}: unknown kernel {dict(_build.launches)}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    groups, seq_s, exact, n_runs = [], 0.0, 0, 0
+    for group, stats in zip(plan.groups, result.groups):
+        names = [spec.cells[i].name for i in group.cell_idx]
+        require(stats["cells"] == names, f"campaign {name}: group order {stats['cells']} != {names}")
+        run, ref = group_run(dev, group, cfgs, spec), group_run(dev, group, cfgs, spec, "ref")
+        want = campaign_expected_launches(group, cfgs, n_seeds)
+        got = {k: run["launches"].get(k, 0) for k in KERNELS}
+        require(got == want, f"campaign {name} {names}: launches {got} != expected {want}")
+        sync = synchronous_dense(group, cfgs[group.cell_idx[0]])
+        require(run["batched"] == sync and ref["batched"] == sync,
+                f"campaign {name} {names}: ran as one group {run['batched']}, its config calls for {sync}")
+        require(not ref["launches"], f"campaign {name} {names}: the engine='ref' run launched {ref['launches']}")
+        require(torch.equal(run["final"], ref["final"]) and set(run["traj"]) == set(ref["traj"])
+                and all(torch.equal(run["traj"][k], ref["traj"][k]) for k in run["traj"]),
+                f"campaign {name} {names}: differs from its engine='ref' rerun")
+        for j, i in enumerate(group.cell_idx):
+            cell = result.cell(spec.cells[i].name)
+            for s, seed in enumerate(spec.seeds):
+                e = j * n_seeds + s
+                for metric, values in run["traj"].items():
+                    require(np.array_equal(cell.metrics[metric][s], values[e].numpy()),
+                            f"campaign {name} {names[j]} seed {seed}: the runner's {metric} differs from the campaign's")
+                seq = sequential_run(dev, dataclasses.replace(cfgs[i], seed=seed))
+                seq_s += sum(r["seconds"] for r in seq["rounds"])
+                loss, b, acc = (np.asarray([r[k] for r in seq["rounds"]]) for k in ("loss", "b", "acc"))
+                tag = f"campaign {name} {names[j]} seed {seed}"
+                require(np.array_equal(cell.metrics["b"][s], b.astype(np.float32)), f"{tag}: b {cell.metrics['b'][s]} != {b}")
+                require(np.allclose(cell.metrics["loss"][s], loss, rtol=1e-6, atol=0), f"{tag}: loss differs")
+                require(np.allclose(cell.metrics["acc"][s], acc, rtol=0, atol=1e-6), f"{tag}: acc differs")
+                require(bool(np.isfinite(cell.metrics["loss"][s]).all()), f"{tag}: loss not finite")
+                n_runs += 1
+                exact += int(torch.equal(run["final"][e], seq["final"])
+                             and np.array_equal(cell.metrics["loss"][s], loss.astype(np.float32)))
+        groups.append({"cells": names, "fused": stats["fused"], "m_pad": stats["m_pad"], "n_elems": stats["n_elems"],
+                       "wall_s": stats["wall_s"], "compile_s": stats["compile_s"],
+                       "cells_per_sec": stats["cells_per_sec"], "launches": got,
+                       "batched": run["batched"]})
+    out = {"phase": "campaign", "grid": name, "describe": plan.describe(), "cells": len(spec.cells),
+           "seeds": list(spec.seeds), "runs": n_runs, "programs": plan.n_programs, "wall_s": wall,
+           "result_wall_s": result.wall_s, "cells_per_sec": result.cells_per_sec,
+           "sequential_round_seconds_sum": seq_s, "peak_gb": peak / 1e9, "launches": launches,
+           "equal_to_ref_groups": len(groups), "equal_to_sequential_runs": n_runs,
+           "bit_exact_runs_final_model_and_loss": exact, "groups": groups,
+           "final_acc": {c.name: c.final("acc")[0] for c in result.cells}}
+    print(json.dumps(out), flush=True)
+    return {"launches": launches, "stats": out}
+
+
+def cohort_phase(dev, spec, main_a: dict) -> dict:
+    """Phase 7 (j): the cohort group of 8 runs of 100 clients, round by
+    round through the round's group form (its steady round time and peak
+    memory), nvidia-smi's busy share over its rounds and over the
+    sequential driver's rounds of one run, against the 8 sequential runs'
+    round times; then the campaign's checks (:func:`campaign_phase`)."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.fl import rounds as R
+    from repro_torch.sim import batched, campaign, plan_campaign
+    from repro_torch.sim.plan import CompileCache
+
+    (group,) = plan_campaign(spec).groups
+    cfgs = spec.configs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    prepare, args, *_ = campaign._prepare_group(group, cfgs, spec, campaign_task(dev), with_acc=True, shard=False,
+                                                cache=CompileCache())
+    runner = prepare(*args)
+    require(runner.batched, "the cohort group did not batch")
+    state, keys = batched.init_group_state(runner.ctx, runner.b_inits), runner.keys
+
+    def rounds(n: int, timed: bool) -> list:
+        nonlocal state, keys
+        seconds = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            keys, kb, kr = prng.split(keys, 3).unbind(-2)
+            state, _ = R.fl_round(runner.ctx, runner.group_params, kr, state, R.round_batches(runner.ctx, kb))
+            R.accuracy(runner.ctx, state.w_global)
+            if timed:
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return seconds
+
+    round_s = rounds(MAIN["rounds"], True)
+    peak = torch.cuda.max_memory_allocated(dev)
+    steady = statistics.mean(round_s[1:])
+    smi_group = smi_busy_share(lambda: rounds(max(6, int(4.0 / steady) + 1), False))
+    seq_steady = statistics.mean(r["seconds"] for r in main_a["rounds"][1:])
+    sim = make_sim(dev, VARIANTS["a"])
+    it = sim.iter_rounds(max(8, int(4.0 / seq_steady) + 1) + 1)
+    next(it)
+
+    def seq_rounds():
+        for _ in it:
+            pass
+        torch.cuda.synchronize()
+
+    smi_seq = smi_busy_share(seq_rounds)
+    del runner, state, sim
+    torch.cuda.empty_cache()
+    checked = campaign_phase(dev, "cohort", spec)
+    out = {"phase": "campaign_cohort", "E": len(spec.seeds), "M": MAIN["n_clients"], "d": 118_282,
+           "rows": len(spec.seeds) * MAIN["n_clients"], "plane_mb": len(spec.seeds) * MAIN["n_clients"] * 118_282 * 4 / 1e6,
+           "round_seconds": round_s, "steady_round_s": steady, "peak_gb": peak / 1e9,
+           "smi_busy_share": smi_group, "sequential_smi_busy_share": smi_seq,
+           "sequential_steady_round_s_one_run": seq_steady,
+           "sequential_steady_round_s_8_runs": seq_steady * len(spec.seeds),
+           "speedup_steady_rounds": seq_steady * len(spec.seeds) / steady,
+           "cells_per_sec": checked["stats"]["cells_per_sec"], "campaign_wall_s": checked["stats"]["wall_s"],
+           "sequential_round_seconds_sum": checked["stats"]["sequential_round_seconds_sum"]}
+    print(json.dumps(out), flush=True)
+    return checked
+
+
+def model_rows(dev) -> dict:
+    """Phase 7: why the round's group form takes each run's loss and gradient
+    on its own rows. For the MLP at full width and runs of M = 10 and 100
+    clients in a group of 8: whether a run's per-client losses and
+    gradient computed among all 8M rows equal the run's own (M rows, a
+    fresh tensor) bit for bit, and on the run's slice of the group's plane;
+    the largest relative gradient difference; and the stream ms of one
+    step's gradient both ways (:func:`stream_ms`)."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.fl import FLConfig
+    from repro_torch.fl import rounds as R
+
+    out, e = {}, len(COHORT_SEEDS)
+    for m in (10, MAIN["n_clients"]):
+        p0, cx, cy, test, loss_fn, acc_fn = _task("mlp128-m100", None, m)
+        ctx = R.make_context(FLConfig(n_clients=m), p0, loss_fn, acc_fn, cx, cy, test, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(m)
+        w = ctx.w0 + 0.01 * torch.randn(e * m, ctx.d, generator=gen, device=dev)
+        group = R.round_batches(ctx, torch.stack([prng.key(s, dev) for s in range(e)]))
+        batch = {k: v.reshape((e * m,) + v.shape[2:])[:, 0].contiguous() for k, v in group.items()}
+
+        def loss_grad(w_rows, b):
+            wg = w_rows.detach().requires_grad_(True)
+            loss = ctx.loss_fn(ctx.unravel(wg), b)
+            return loss.detach(), torch.autograd.grad(loss.sum(), wg)[0]
+
+        def by_run():
+            return [loss_grad(w[i * m:(i + 1) * m], {k: v[i * m:(i + 1) * m] for k, v in batch.items()})
+                    for i in range(e)]
+
+        all_loss, all_grad = loss_grad(w, batch)
+        among, sliced, rel = [], [], 0.0
+        for i, (s_loss, s_grad) in enumerate(by_run()):
+            rows = slice(i * m, (i + 1) * m)
+            own_loss, own_grad = loss_grad(w[rows].clone(), {k: v[rows].clone() for k, v in batch.items()})
+            among.append(bool(torch.equal(all_loss[rows], own_loss) and torch.equal(all_grad[rows], own_grad)))
+            sliced.append(bool(torch.equal(s_loss, own_loss) and torch.equal(s_grad, own_grad)))
+            rel = max(rel, ((all_grad[rows] - own_grad).abs().max() / own_grad.abs().max()).item())
+        out[f"M={m}"] = {"runs_equal_among_all_rows": sum(among), "runs_equal_on_own_rows": sum(sliced), "runs": e,
+                         "max_rel_grad_diff_among_all_rows": rel,
+                         "step_gradient_ms_all_rows": stream_ms(lambda: loss_grad(w, batch)),
+                         "step_gradient_ms_by_run": stream_ms(by_run)}
+        require(all(sliced), f"M={m}: a run's gradient on its own rows differs from the run alone")
+    return {"phase": "campaign_model_rows", **out}
+
+
+def campaign_runs(dev, main: dict) -> dict:
+    """Phase 7: every grid of :func:`campaign_specs`; returns each one's
+    launch counts for the kernel line, each requiring the launches of the
+    path (B1, B3, B4)."""
+    specs = campaign_specs()
+    t0 = time.perf_counter()
+    print(json.dumps(model_rows(dev)), flush=True)
+    runs = {f"campaign/{name}": campaign_phase(dev, name, specs[name]) for name in ("table1", "fig4")}
+    runs["campaign/cohort"] = cohort_phase(dev, specs["cohort"], main["a"])
+    for name in ("stoch_quant_pack", "bit_aggregate", "prox_sgd"):
+        require(all(run["launches"][name] for run in runs.values()), f"phase 7 never launched {name} in a grid")
+    print(json.dumps({"phase": "campaign_done", "seconds": time.perf_counter() - t0,
+                      "launches": {k: run["launches"] for k, run in runs.items()}}), flush=True)
+    return runs
+
+
 # CUPTI's own records, which the profiler lists beside the kernels: host
 # waits and buffer handling, not device work.
 CUPTI_OVERHEAD = ("Command Buffer Full", "Buffer Flush", "Activity Buffer Request")
@@ -953,12 +1383,14 @@ def check_main_path(runs, b_init: float) -> None:
             b_prev = np.float32(rec["b"])
 
 
-def kernel_times(dev, m: int, d: int, copy_gbs: float) -> dict:
+def kernel_times(dev, m: int, d: int, copy_gbs: float, elements: int = 1) -> dict:
     """Phase 5: each kernel at (m, d) against its plain version: device ms
-    a launch, bytes, byte and operation bound, copy bound and GB/s. Every
-    input is made first, in one order of draws, and all stay live while the
-    kernels are timed (at ResNet-18's shape, M = 100 and d = 11,172,042,
-    27 GB), then freed."""
+    a launch, bytes, byte and operation bound, copy bound and GB/s; with
+    ``elements`` > 1, the batched call of a campaign group of that many
+    runs of m clients each (its own range b, w0 row and coefficients a
+    run). Every input is made first, in one order of draws, and all stay
+    live while the kernels are timed (at ResNet-18's shape, M = 100 and
+    d = 11,172,042, 27 GB), then freed."""
     import torch
     import torch.nn.functional as F
 
@@ -968,51 +1400,58 @@ def kernel_times(dev, m: int, d: int, copy_gbs: float) -> dict:
     from repro_torch.kernels.stoch_quant import stoch_quant_ef, stoch_quant_pack
 
     gen = torch.Generator(device=dev).manual_seed(99)
+    e, rows = elements, elements * m
     d_pad = ops.padded_len(d)
     p = d_pad // 8
     pad = d_pad - d
-    delta = F.pad(0.01 * torch.randn(m, d, generator=gen, device=dev), (0, pad), value=-1.0)
-    res = F.pad(0.005 * torch.randn(m, d, generator=gen, device=dev), (0, pad))
-    u = F.pad(torch.rand(m, d, generator=gen, device=dev), (0, pad), value=1.0)
-    b = F.pad(torch.full((d,), 0.01, device=dev), (0, pad), value=1.0)
-    packed = stoch_quant_pack(delta, b, u)
-    w = torch.randn(m, d, generator=gen, device=dev)
-    w0 = torch.randn(d, generator=gen, device=dev)
-    g = torch.randn(m, d, generator=gen, device=dev)
-    mom = torch.randn(m, d, generator=gen, device=dev)
+    delta = F.pad(0.01 * torch.randn(rows, d, generator=gen, device=dev), (0, pad), value=-1.0)
+    res = F.pad(0.005 * torch.randn(rows, d, generator=gen, device=dev), (0, pad))
+    u = F.pad(torch.rand(rows, d, generator=gen, device=dev), (0, pad), value=1.0)
+    b = F.pad(torch.full((e, d), 0.01, device=dev), (0, pad), value=1.0)
+    packed = stoch_quant_pack(delta, b, u).view(e, m, p) if e > 1 else stoch_quant_pack(delta, b[0], u)
+    b_n = b[:, :d].contiguous() if e > 1 else b[0, :d]
+    w = torch.randn(rows, d, generator=gen, device=dev)
+    w0 = torch.randn(e, d, generator=gen, device=dev)
+    g = torch.randn(rows, d, generator=gen, device=dev)
+    mom = torch.randn(rows, d, generator=gen, device=dev)
+    coeffs = ops.prox_coeffs(0.01, 0.2, 0.5, dev).expand(e, 3).contiguous()
+    b_rows = b if e > 1 else b[0]
+    b3_bytes, b3_ops = b3_work(m, d)
+    b4_bytes, b4_ops = b4_work(m, d)
 
     # (kernel call, plain call, bytes moved, f32-class operations)
     cases = {
-        "stoch_quant_pack": (lambda: stoch_quant_pack(delta, b, u),
-                             lambda: ref.stoch_quant_compress_ref(delta, b, u),
-                             8 * m * d_pad + 4 * d_pad + m * p, 7 * m * d_pad),
-        "stoch_quant_ef": (lambda: stoch_quant_ef(delta, res, b, u),
-                           lambda: ref.stoch_quant_compress_ref(delta, b, u, res, want_residual=True),
-                           16 * m * d_pad + 4 * d_pad + m * p, 9 * m * d_pad),
-        "bit_aggregate": (lambda: bit_aggregate(packed, b[:d]),
-                          lambda: ref.bit_aggregate_ref(packed, b[:d]),
-                          *b3_work(m, d)),
+        "stoch_quant_pack": (lambda: stoch_quant_pack(delta, b_rows, u),
+                             lambda: ref.stoch_quant_compress_ref(delta, b_rows, u),
+                             8 * rows * d_pad + 4 * e * d_pad + rows * p, 7 * rows * d_pad),
+        "stoch_quant_ef": (lambda: stoch_quant_ef(delta, res, b_rows, u),
+                           lambda: ref.stoch_quant_compress_ref(delta, b_rows, u, res, want_residual=True),
+                           16 * rows * d_pad + 4 * e * d_pad + rows * p, 9 * rows * d_pad),
+        "bit_aggregate": (lambda: bit_aggregate(packed, b_n),
+                          lambda: ref.bit_aggregate_ref(packed, b_n),
+                          e * b3_bytes, e * b3_ops),
         # in place, as the round runs it (local_prox_train)
-        "prox_sgd": (lambda: prox_sgd(w, w0, g, mom, 0.01, 0.2, 0.5, out=(w, mom)),
-                     lambda: ref.prox_sgd_ref(w, w0, g, mom, 0.01, 0.2, 0.5, out=(w, mom)),
-                     *b4_work(m, d)),
+        "prox_sgd": (lambda: prox_sgd(w, w0, g, mom, coeffs, out=(w, mom)),
+                     lambda: ref.prox_sgd_ref(w, w0, g, mom, coeffs, out=(w, mom)),
+                     e * b4_bytes, e * b4_ops),
     }
-    rows = {}
+    out = {}
     for name, (kern, plain, nbytes, ops_n) in cases.items():
         ms = timed_ms(kern)
         plain_ms = timed_ms(plain, reps=10)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops_n / PEAK_F32_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
-        rows[name] = {
+        out[name] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "gbs": nbytes / (ms * 1e-3) / 1e9, "share_of_bound": bound / ms,
-            "copy_bound_ms": nbytes / (copy_gbs * 1e9) * 1e3, "shape": f"M={m} d={d} d_pad={d_pad}",
+            "copy_bound_ms": nbytes / (copy_gbs * 1e9) * 1e3,
+            "shape": f"E={e} M={m} d={d} d_pad={d_pad}" if e > 1 else f"M={m} d={d} d_pad={d_pad}",
         }
-    rows["prox_sgd"]["fused_sgd_ms"] = stream_ms(fused_sgd(w, g, mom), reps=20)
+    out["prox_sgd"]["fused_sgd_ms"] = stream_ms(fused_sgd(w, g, mom), reps=20)
     del cases, delta, res, u, packed, w, g, mom
     torch.cuda.empty_cache()
-    return rows
+    return out
 
 
 def b4_work(m: int, d: int) -> tuple[int, int]:
@@ -1035,10 +1474,11 @@ def fused_sgd(w, g, mom):
                              dampening=0.0, nesterov=False, maximize=False, is_first_step=False)
 
 
-def kernel_rows(runs: dict, chk: Checker, at_main: dict, at_resnet: dict) -> list[dict]:
+def kernel_rows(runs: dict, chk: Checker, at_main: dict, at_resnet: dict, at_group: dict) -> list[dict]:
     """The per-kernel JSON rows: times at the main path's shapes, with the
-    same at ResNet-18's beside them; ``launches`` is the sum over every
-    run of phases 4, 4b, 4c and 4d of each one's own count, by run beside it."""
+    same at ResNet-18's and the batched call at E = 8 runs of the main
+    path's cohort beside them; ``launches`` is the sum over every run of
+    phases 4, 4b, 4c, 4d and 7 of each one's own count, by run beside it."""
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rows.append({
@@ -1046,7 +1486,7 @@ def kernel_rows(runs: dict, chk: Checker, at_main: dict, at_resnet: dict) -> lis
             "launches": sum(run["launches"][name] for run in runs.values()),
             "launches_by_variant": {v: run["launches"][name] for v, run in runs.items()},
             "max_abs_err": chk.max_err[name], "library_ms": None,
-            **at_main[name], f"at_{RESNET_D}": at_resnet[name],
+            **at_main[name], f"at_{RESNET_D}": at_resnet[name], "batched_E8_M100": at_group[name],
         })
     return rows
 
@@ -1179,7 +1619,7 @@ def b3_sweep(dev, copy_gbs: float) -> dict:
         for size in (1, 2, 4, 8):
             def launch():
                 rc = lib.probit_bit_aggregate(packed.data_ptr(), b.data_ptr(), out.data_ptr(), m, p, d, recip,
-                                              tiles_m, size, stream)
+                                              tiles_m, size, 1, stream)
                 require(rc == 0, f"bit_aggregate M={m} cluster={size}: cudaError_t {rc}")
 
             out.fill_(float("nan"))
@@ -1228,6 +1668,64 @@ def b4_candidates(m: int, d: int, device_index: int) -> dict:
     }
 
 
+def b4_parent_ab(dev, parent: pathlib.Path) -> dict:
+    """``--b4-parent DIR``: B4 of another checkout (DIR, whose C entry takes
+    ``(eta, lam, mu)`` by value and a ``w0_row_stride``, as before the
+    campaign's batched form) against this one's, in one process, at the
+    MLP's shape and at ResNet-18's (M = 100, w0 one shared row, in place as
+    the round runs it): built with this checkout's nvcc flags, checked bit
+    for bit against each other, then timed (:func:`timed_ms`) in the order
+    parent, this, this, parent."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.prox_sgd import launch_geometry, occupancy, prox_sgd
+
+    src = parent / "src" / "repro_torch" / "kernels" / "csrc" / "prox_sgd.cu"
+    out_dir = ROOT / "build" / "b4_parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / "prox_sgd_parent.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)], capture_output=True,
+                          text=True)
+    require(proc.returncode == 0, f"nvcc failed for the parent's prox_sgd.cu:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(so))
+    P, I64, F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+    lib.probit_prox_sgd.argtypes = (P, P, P, P, P, P, F32, F32, F32, I64, I64, I64, I64, I64, I64, I64, P)
+    lib.probit_prox_sgd.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    coeffs = ops.prox_coeffs(0.01, 0.2, 0.5, dev)
+    eta, lam, mu = coeffs[0].tolist()
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    shapes = []
+    for m, d in ((MAIN["n_clients"], 118_282), (MAIN["n_clients"], RESNET_D)):
+        w, g, mom = (torch.randn(m, d, generator=gen, device=dev) for _ in range(3))
+        w0 = torch.randn(d, generator=gen, device=dev)
+        tile, rows, ctas = launch_geometry(m, d, *occupancy(dev.index, True))
+
+        def parent_call(w_io=w, m_io=mom):
+            rc = lib.probit_prox_sgd(w_io.data_ptr(), w0.data_ptr(), g.data_ptr(), m_io.data_ptr(), w_io.data_ptr(),
+                                     m_io.data_ptr(), eta, lam, mu, m, d, 0, tile, rows, ctas, 1, stream)
+            require(rc == 0, f"parent prox_sgd at M={m} d={d}: cudaError_t {rc}")
+
+        w1, m1, w2, m2 = w.clone(), mom.clone(), w.clone(), mom.clone()
+        parent_call(w1, m1)
+        prox_sgd(w2, w0, g, m2, coeffs, out=(w2, m2))
+        parent_call(w1, m1)
+        prox_sgd(w2, w0, g, m2, coeffs, out=(w2, m2))
+        require(torch.equal(w1, w2) and torch.equal(m1, m2), f"B4 at M={m} d={d} differs from the parent's")
+        del w1, m1, w2, m2
+        calls = {"parent": parent_call, "this": lambda: prox_sgd(w, w0, g, mom, coeffs, out=(w, mom))}
+        order = ("parent", "this", "this", "parent")
+        times = [timed_ms(calls[name]) for name in order]
+        shapes.append({"m": m, "d": d, "geometry": [tile, rows, ctas], "order": list(order), "ms": times,
+                       **{name: [t for o, t in zip(order, times) if o == name] for name in calls}})
+        del w, g, mom, w0
+        torch.cuda.empty_cache()
+    return {"phase": "b4_parent_ab", "parent": str(parent), "shapes": shapes}
+
+
 def b4_sweep(dev, copy_gbs: float) -> dict:
     """Phase 5, B4 over the cohort: for each (M, d) of B4_SWEEP, in place
     through the wrapper (launch_geometry's choice) with its bytes, bound and
@@ -1239,14 +1737,14 @@ def b4_sweep(dev, copy_gbs: float) -> dict:
     updates)."""
     import torch
 
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.prox_sgd import launch_geometry, occupancy, prox_sgd
 
     gen = torch.Generator(device=dev).manual_seed(88)
     lib = _build.library("prox_sgd")
     stream = torch.cuda.current_stream(dev).cuda_stream
     sms, per_sm = occupancy(dev.index, True)
-    coeffs = (0.01, 0.2, 0.5)
+    coeffs = ops.prox_coeffs(0.01, 0.2, 0.5, dev)
     rows = []
     for m, d in B4_SWEEP:
         w, g, mom = (torch.randn(m, d, generator=gen, device=dev) for _ in range(3))
@@ -1264,14 +1762,14 @@ def b4_sweep(dev, copy_gbs: float) -> dict:
             for name, (tile, group_rows, ctas, vector) in b4_candidates(m, d, dev.index).items():
                 def launch(w_o=w_out, m_o=m_out):
                     rc = lib.probit_prox_sgd(w.data_ptr(), w0.data_ptr(), g.data_ptr(), mom.data_ptr(),
-                                             w_o.data_ptr(), m_o.data_ptr(), *coeffs, m, d, 0, tile, group_rows,
-                                             ctas, vector, stream)
+                                             w_o.data_ptr(), m_o.data_ptr(), coeffs.data_ptr(), 0, m, d, m, tile,
+                                             group_rows, ctas, vector, stream)
                     require(rc == 0, f"prox_sgd {name} at M={m} d={d}: cudaError_t {rc}")
 
                 w_out.fill_(float("nan"))
                 m_out.fill_(float("nan"))
                 launch()
-                want = ref.prox_sgd_ref(w, w0, g, mom, *coeffs)  # of this candidate's inputs
+                want = ref.prox_sgd_ref(w, w0, g, mom, coeffs)  # of this candidate's inputs
                 require(torch.equal(w_out, want[0]) and torch.equal(m_out, want[1]),
                         f"prox_sgd {name} at M={m} d={d}: differs from the plain version")
                 del want
@@ -1280,10 +1778,10 @@ def b4_sweep(dev, copy_gbs: float) -> dict:
                                       "share_of_bound": bound / ms}
             del w_out, m_out
             torch.utils.deterministic.fill_uninitialized_memory = True
-            row["out_of_place_nan_fill_ms"] = timed_ms(lambda: prox_sgd(w, w0, g, mom, *coeffs))
+            row["out_of_place_nan_fill_ms"] = timed_ms(lambda: prox_sgd(w, w0, g, mom, coeffs))
             torch.utils.deterministic.fill_uninitialized_memory = False
             row["candidates"] = by_candidate
-        batches = timed_batches(lambda: prox_sgd(w, w0, g, mom, *coeffs, out=(w, mom)))
+        batches = timed_batches(lambda: prox_sgd(w, w0, g, mom, coeffs, out=(w, mom)))
         ms = statistics.median(batches)
         row.update({"ms": ms, "min_ms": min(batches), "max_ms": max(batches), "gbs": nbytes / (ms * 1e-3) / 1e9,
                     "share_of_bound": bound / ms, "fused_sgd_ms": stream_ms(fused_sgd(w, g, mom), reps=20)})
@@ -1364,6 +1862,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="phase 6: one profiled round of (a) on the MLP and on ResNet-18")
+    parser.add_argument("--b4-parent", type=pathlib.Path, metavar="DIR",
+                        help="only time B4 of the checkout DIR against this one's (no other phase)")
     args = parser.parse_args()
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
@@ -1384,12 +1884,17 @@ def main() -> int:
     build_s = _build.build_all()
     print(json.dumps({"phase": "build", "seconds": build_s, "dir": str(_build.build_dir()),
                       "ptxas": kernel_resources()}), flush=True)
+    if args.b4_parent:
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        print(json.dumps(b4_parent_ab(dev, args.b4_parent.resolve())), flush=True)
+        return 0
 
     chk = Checker()
     t0 = time.perf_counter()
     check_kernels(chk, dev)
     check_bit_aggregate(chk, dev)
     check_prox_sgd(chk, dev)
+    check_batched(chk, dev)
     torch.cuda.synchronize()
     print(json.dumps({"phase": "kernels_vs_plain", "checked": sorted(chk.count), "comparisons": chk.count,
                       "max_abs_err": chk.max_err, "seconds": time.perf_counter() - t0}), flush=True)
@@ -1426,6 +1931,7 @@ def main() -> int:
     grid = byzantine_grid(dev)
     vision = vision_runs(dev)
     async_stream = async_stream_runs(dev, runs, vision["resnet18w64-m100/a"]["peak_bytes"])
+    campaigns = campaign_runs(dev, runs)
 
     # Phase 5 times kernels, not allocations: under deterministic algorithms
     # every torch.empty is filled with NaN by a kernel of its own.
@@ -1433,10 +1939,11 @@ def main() -> int:
     copy_gbs = copy_bandwidth_gbs(dev)
     at_main = kernel_times(dev, MAIN["n_clients"], 118_282, copy_gbs)
     at_resnet = kernel_times(dev, MAIN["n_clients"], RESNET_D, copy_gbs)
-    rows = kernel_rows({**runs, **grid, **vision, **async_stream}, chk, at_main, at_resnet)
+    at_group = kernel_times(dev, MAIN["n_clients"], 118_282, copy_gbs, elements=len(COHORT_SEEDS))
+    rows = kernel_rows({**runs, **grid, **vision, **async_stream, **campaigns}, chk, at_main, at_resnet, at_group)
     print(json.dumps({"phase": "times", "card": card, "copy_gbs": copy_gbs,
                       "round_seconds_a": [r["seconds"] for r in runs["a"]["rounds"]],
-                      f"kernels_at_{RESNET_D}": at_resnet}), flush=True)
+                      f"kernels_at_{RESNET_D}": at_resnet, "kernels_batched_E8_M100": at_group}), flush=True)
     print(json.dumps(stage_times(dev)), flush=True)
     print(json.dumps(b3_sweep(dev, copy_gbs)), flush=True)
     print(json.dumps(b4_sweep(dev, copy_gbs)), flush=True)

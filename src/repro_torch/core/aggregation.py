@@ -31,6 +31,12 @@ the count kernel has no weighted form, as in the reference) and M becomes
 same carries (``stream_kind``: vote counts, FedAvg's weighted running sum,
 or Fed-GM's buffer of every row).
 
+A campaign group of E runs compresses and estimates in one call: keys
+``(E, 2)``, updates ``(E, M, d)``, b ``(E,)``, and wires with a leading E
+(:attr:`PackedWire.elements`). PRoBit+ counts an unweighted group with one
+launch of the count kernel; every other estimate of a group is its
+elements' own, one after another.
+
 Every mean is a sum times the f32 reciprocal of the count
 (:func:`mean_rows`): the reference computes its means so under ``jit``
 (XLA folds a division by a constant), and on the card torch divides by a
@@ -149,7 +155,8 @@ def geometric_median(
 
 @dataclasses.dataclass(frozen=True)
 class PackedWire:
-    """Canonical wire: (M, P) uint8 packed codes (P * 8 >= d) + range b (d,)."""
+    """Canonical wire: (M, P) uint8 packed codes (P * 8 >= d) + range b (d,);
+    a group's wire has a leading E on both."""
 
     packed: torch.Tensor
     b: torch.Tensor
@@ -157,18 +164,33 @@ class PackedWire:
 
     @property
     def n_clients(self) -> int:
-        return self.packed.shape[0]
+        return self.packed.shape[-2]
 
     @property
     def wire_bytes(self) -> int:
-        return self.packed.shape[0] * self.packed.shape[1]
+        return self.packed.numel()
+
+    @property
+    def elements(self) -> int | None:
+        """E of a group's wire, None for one run's."""
+        return self.packed.shape[0] if self.packed.dim() == 3 else None
+
+    def element(self, e: int) -> "PackedWire":
+        return PackedWire(packed=self.packed[e], b=self.b[e], d=self.d)
 
 
 @dataclasses.dataclass(frozen=True)
 class DenseWire:
     """Full-precision passthrough (FedAvg / Fed-GM)."""
 
-    updates: torch.Tensor  # (M, d) f32
+    updates: torch.Tensor  # (M, d) f32; (E, M, d) for a group
+
+    @property
+    def elements(self) -> int | None:
+        return self.updates.shape[0] if self.updates.dim() == 3 else None
+
+    def element(self, e: int) -> "DenseWire":
+        return DenseWire(updates=self.updates[e])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,9 +229,9 @@ class ClientCompressor:
         if self.b_mode == "oracle":
             raise ValueError("oracle b depends on all updates and cannot stream")
         if self.mode == "pack_sign":
-            return torch.ones(d, device=b_scalar.device)
+            return torch.ones(b_scalar.shape + (d,), device=b_scalar.device)
         b_eff = b_scalar + self.dp.b_margin if self.dp.enabled else b_scalar
-        return torch.broadcast_to(b_eff.float(), (d,)).contiguous()
+        return torch.broadcast_to(b_eff.float().unsqueeze(-1), b_eff.shape + (d,)).contiguous()
 
     def compress(
         self,
@@ -221,13 +243,15 @@ class ClientCompressor:
         row_offset: int = 0,
     ):
         """(M, d) updates -> (wire, residuals'). Residuals pass through
-        unchanged unless PRoBit+'s error feedback is on (never under DP)."""
-        d = deltas.shape[1]
+        unchanged unless PRoBit+'s error feedback is on (never under DP).
+        A group: keys (E, 2), updates and residuals (E, M, d), b (E,)."""
+        d = deltas.shape[-1]
         if self.mode == "dense":
             return DenseWire(updates=deltas), residuals
         if self.mode == "pack_sign":
             packed = packed_sign_batch(deltas, chunk=self.chunk)
-            return PackedWire(packed=packed, b=torch.ones(d, device=deltas.device), d=d), residuals
+            ones = torch.ones(deltas.shape[:-2] + (d,), device=deltas.device)
+            return PackedWire(packed=packed, b=ones, d=d), residuals
         use_ef = self.error_feedback and not self.dp.enabled
         if self.b_mode == "oracle":
             from .bcontrol import oracle_b
@@ -314,6 +338,11 @@ class ServerAggregator:
         return torch.where(w > 0, s / w.clamp(min=1e-12), torch.zeros_like(s))
 
     def aggregate(self, wire, weights: torch.Tensor | None = None) -> torch.Tensor:
+        """theta_hat (d,) from a wire; (E, d) from a group's wire (and (E, M)
+        weights), each element estimated on its own."""
+        if wire.elements is not None:
+            return torch.stack([self.aggregate(wire.element(e), None if weights is None else weights[e])
+                                for e in range(wire.elements)])
         if isinstance(wire, DenseWire):
             return self.from_dense(wire.updates, weights)
         if weights is None:
@@ -324,7 +353,8 @@ class ServerAggregator:
 @dataclasses.dataclass(frozen=True)
 class ProBitPlusServer(ServerAggregator):
     """Eq.-13 ML estimate through ``ops.bit_aggregate``: the fused count
-    kernel with ``use_kernels``, else its plain version."""
+    kernel with ``use_kernels``, else its plain version; a group's
+    unweighted wire in one call."""
 
     use_kernels: bool = False
     engine: str | None = None
@@ -407,17 +437,29 @@ class AggregatorPipeline:
         residuals: torch.Tensor,
         *,
         flip_n: int = 0,
+        flip_gate=None,
         row_offset: int = 0,
     ):
         """Client half: compress every client onto the wire. ``flip_n > 0``
         arms the ``bit_flip`` adversary, which inverts
         (or, on a dense wire, negates) the rows of cohort positions below
         ``flip_n`` after compression; their residuals stay the honest ones.
-        The rows are cohort positions ``row_offset ..``: a streaming round
-        passes its chunk's first position, which keys the quantizer draws
-        and, when it is not 0, flips by a row mask."""
+        ``flip_gate`` (a bool, or one a run for a group's (E, M, d) updates)
+        keeps the adversary off where it is False: a campaign group arms
+        ``flip_n`` when any of its cells is a bit_flip cell, and the gate
+        of each run says whether it is one. The rows are cohort positions
+        ``row_offset ..``: a streaming round passes its chunk's first
+        position, which keys the quantizer draws and, when it is not 0,
+        flips by a row mask."""
         wire, residuals = self.compressor.compress(key, deltas, b_scalar, residuals, row_offset=row_offset)
-        if flip_n:
+        gate = True if flip_gate is None else flip_gate
+        if flip_n and deltas.dim() == 3:
+            from .attacks import flip_wire
+
+            runs = np.flatnonzero(np.broadcast_to(gate, deltas.shape[:1]))
+            if runs.size:
+                wire = flip_wire(wire, flip_n, runs=runs.tolist())
+        elif flip_n and gate:
             from .attacks import flip_wire, flip_wire_rows
 
             if row_offset:

@@ -202,11 +202,19 @@ def apply_attack_stream(idx: int, key: torch.Tensor, updates: torch.Tensor, n_by
     return _set_byz(updates, n, prng.normal(prng.fold_in(key, rows), (updates.shape[1],), scale=10.0))
 
 
-def flip_wire(wire, n_byz: int):
+def flip_wire(wire, n_byz: int, runs=None):
     """The ``bit_flip`` attack: invert every bit of the first ``n_byz``
     packed rows (pad bits flip too; every consumer slices the estimate to
     the true dimension, so they are inert), or negate the first ``n_byz``
-    rows of a dense wire."""
+    rows of a dense wire. On a group's wire, the first ``n_byz`` rows of
+    each run (element) listed in ``runs``."""
+    if runs is not None:
+        dense = isinstance(wire, DenseWire)
+        out = (wire.updates if dense else wire.packed).clone()
+        for e in runs:
+            byz = out[e, :n_byz]
+            byz.copy_(-byz if dense else torch.bitwise_not(byz))
+        return DenseWire(updates=out) if dense else dataclasses.replace(wire, packed=out)
     if isinstance(wire, DenseWire):
         return DenseWire(updates=_set_byz(wire.updates, n_byz, -wire.updates[:n_byz]))
     return dataclasses.replace(wire, packed=_set_byz(wire.packed, n_byz, torch.bitwise_not(wire.packed[:n_byz])))

@@ -57,9 +57,16 @@ def loss_bit(loss_before: torch.Tensor, loss_after: torch.Tensor) -> torch.Tenso
     return torch.where(loss_after < loss_before, 1, -1).to(torch.int8)
 
 
-def update_b(state: BState, bits: torch.Tensor, cfg: BControlConfig) -> BState:
-    """Sum the loss bits and rescale ``b``."""
-    return update_b_from_vote(state, bits.float().sum(), cfg)
+def update_b(state: BState, bits: torch.Tensor, cfg: BControlConfig, weights: torch.Tensor | None = None) -> BState:
+    """Sum the loss bits and rescale ``b``. ``weights`` (one per bit)
+    restricts the vote to a sub-cohort: a fused campaign group passes its
+    0/1 active-client mask, so padded clients cast no vote (a float sum of
+    masked +-1 bits is exact below 2**24 clients). Bits ``(E, M)`` with
+    ``b`` ``(E,)`` vote each run on its own."""
+    votes = bits.float()
+    if weights is not None:
+        votes = votes * weights
+    return update_b_from_vote(state, votes.sum(-1), cfg)
 
 
 def update_b_from_vote(state: BState, vote: torch.Tensor, cfg: BControlConfig) -> BState:
@@ -74,5 +81,6 @@ def update_b_from_vote(state: BState, vote: torch.Tensor, cfg: BControlConfig) -
 
 def oracle_b(updates: torch.Tensor, dp: DPConfig) -> torch.Tensor:
     """Omniscient per-coordinate range: ``max_m |delta_i^m|`` plus the DP
-    margin (:func:`~repro_torch.core.privacy.dp_b_floor`)."""
-    return dp_b_floor(updates.abs().amax(0), dp)
+    margin (:func:`~repro_torch.core.privacy.dp_b_floor`); (E, M, d)
+    updates of a group give each run its own (E, d) range."""
+    return dp_b_floor(updates.abs().amax(-2), dp)

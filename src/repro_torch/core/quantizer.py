@@ -135,6 +135,12 @@ def uniform_block_rows(n: int) -> int:
     return max(1, UNIFORM_BLOCK_WORDS // n)
 
 
+def _row_uniforms(keys: torch.Tensor, m: int, rows: torch.Tensor, n: int, chunk: int, row_offset: int):
+    """The uniforms of flat group rows ``rows``: row ``r`` is client
+    ``row_offset + r % m`` of element ``r // m``, keyed by ``keys[r // m]``."""
+    return client_uniforms(prng.fold_in(keys[rows // m], row_offset + rows % m), n, chunk)
+
+
 def cohort_uniforms(
     key: torch.Tensor,
     m: int,
@@ -146,18 +152,23 @@ def cohort_uniforms(
 ) -> torch.Tensor:
     """The ``(m, n)`` uniforms of clients ``row_offset .. row_offset + m - 1``:
     row ``i`` is :func:`client_uniforms` of ``fold_in(key, row_offset + i)``.
+    Keys ``(E, 2)`` give the ``(E * m, n)`` uniforms of a group of E such
+    cohorts, element ``e``'s rows keyed by ``key[e]``.
 
-    Drawn :func:`uniform_block_rows` rows at a time into ``out[:, :n]``,
-    which may be wider (its other columns are left as they are). Each draw is a pure function of (key, row, chunk), so any
-    block size gives the same bits.
+    Drawn :func:`uniform_block_rows` rows of the group at a time into
+    ``out[:, :n]``, which may be wider (its other columns are left as they
+    are). Each draw is a pure function of (key, row, chunk), so any block
+    size gives the same bits.
     """
+    keys = key.reshape(-1, 2)
+    total = keys.shape[0] * m
     if out is None:
-        out = torch.empty((m, n), dtype=torch.float32, device=key.device)
+        out = torch.empty((total, n), dtype=torch.float32, device=key.device)
     block = uniform_block_rows(padded_dim(n, chunk))
-    for r0 in range(0, m, block):
-        r1 = min(r0 + block, m)
-        rows = torch.arange(row_offset + r0, row_offset + r1, dtype=torch.int64, device=key.device)
-        out[r0:r1, :n] = client_uniforms(prng.fold_in(key, rows), n, chunk)
+    for r0 in range(0, total, block):
+        r1 = min(r0 + block, total)
+        rows = torch.arange(r0, r1, dtype=torch.int64, device=key.device)
+        out[r0:r1, :n] = _row_uniforms(keys, m, rows, n, chunk, row_offset)
     return out
 
 
@@ -180,40 +191,53 @@ def packed_binarize_batch(
     want_residual: bool = False,
     row_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Eq.-5 binarize + pack: (M, d) f32 -> (M, padded_dim(d)/8) uint8.
+    """Eq.-5 binarize + pack: (M, d) f32 -> (M, padded_dim(d)/8) uint8; or a
+    group of E cohorts, keys (E, 2), deltas (E, M, d) and b (E, d) (or
+    broadcastable to it) -> (E, M, padded_dim(d)/8).
 
     Client ``m``'s chunk ``j`` draws from
-    ``fold_in(fold_in(key, row_offset + m), j)``, exactly the reference's
-    schedule, so the bytes equal the JAX wire's. With ``want_residual``
-    the error-feedback residual ``delta - c * b`` comes back as (M, d).
-    Pad coordinates get delta = -1, b = 1, so their bit is 0. The cohort
-    is compressed :func:`uniform_block_rows` clients at a time, so the
-    uniforms and the binarize temporaries never span the whole
-    (M, padded_dim) cohort.
+    ``fold_in(fold_in(key, row_offset + m), j)`` (its element's key in a
+    group), exactly the reference's schedule, so the bytes equal the JAX
+    wire's. With ``want_residual`` the error-feedback residual
+    ``delta - c * b`` comes back with the deltas' shape. Pad coordinates get
+    delta = -1, b = 1, so their bit is 0. The rows are compressed
+    :func:`uniform_block_rows` at a time over the whole group, so the
+    uniforms and the binarize temporaries never span the whole (E * M,
+    padded_dim) group.
     """
-    m, d = deltas.shape
+    single = key.dim() == 1
+    keys = key.reshape(-1, 2)
+    e = keys.shape[0]
+    m, d = deltas.shape[-2:]
+    flat = deltas.reshape(e * m, d)
     d_pad = padded_dim(d, chunk)
-    b_full = torch.broadcast_to(torch.as_tensor(b, dtype=torch.float32, device=deltas.device), (d,))
-    b_full = torch.nn.functional.pad(b_full, (0, d_pad - d), value=1.0)
-    packed = torch.empty((m, d_pad // 8), dtype=torch.uint8, device=deltas.device)
-    res = torch.empty((m, d), dtype=torch.float32, device=deltas.device) if want_residual else None
+    b_rows = torch.as_tensor(b, dtype=torch.float32, device=deltas.device)
+    b_rows = torch.broadcast_to(torch.broadcast_to(b_rows, (d,)) if single else b_rows, (e, d))
+    b_full = torch.nn.functional.pad(b_rows, (0, d_pad - d), value=1.0)
+    packed = torch.empty((e * m, d_pad // 8), dtype=torch.uint8, device=deltas.device)
+    res = torch.empty((e * m, d), dtype=torch.float32, device=deltas.device) if want_residual else None
     block = uniform_block_rows(d_pad)
-    for r0 in range(0, m, block):
-        r1 = min(r0 + block, m)
-        deltas_p = pad_rows(deltas[r0:r1], d_pad, -1.0)
-        u = cohort_uniforms(key, r1 - r0, d_pad, chunk, row_offset=row_offset + r0)
-        bits = u < binarize_prob(deltas_p, b_full)
+    for r0 in range(0, e * m, block):
+        r1 = min(r0 + block, e * m)
+        rows = torch.arange(r0, r1, dtype=torch.int64, device=deltas.device)
+        b_blk = b_full[0] if e == 1 else b_full[rows // m]
+        deltas_p = pad_rows(flat[r0:r1], d_pad, -1.0)
+        u = _row_uniforms(keys, m, rows, d_pad, chunk, row_offset)
+        bits = u < binarize_prob(deltas_p, b_blk)
         packed[r0:r1] = _pack_bool_lastdim(bits)
         if want_residual:
-            res[r0:r1] = (deltas_p - torch.where(bits, b_full, -b_full))[:, :d]
-    return packed, res
+            res[r0:r1] = (deltas_p - torch.where(bits, b_blk, -b_blk))[:, :d]
+    shape = deltas.shape[:-1]
+    return packed.view(shape + (d_pad // 8,)), None if res is None else res.view(deltas.shape)
 
 
 def packed_sign_batch(deltas: torch.Tensor, *, chunk: int = PACK_CHUNK) -> torch.Tensor:
     """Deterministic sign codes (the signSGD-MV / RSA wire): bit =
-    ``delta >= 0``, (M, d) -> (M, padded_dim(d)/8) uint8; pad coordinates
-    (delta -1) pack 0."""
-    return _pack_bool_lastdim(pad_rows(deltas, padded_dim(deltas.shape[1], chunk), -1.0) >= 0)
+    ``delta >= 0``, (..., M, d) -> (..., M, padded_dim(d)/8) uint8; pad
+    coordinates (delta -1) pack 0."""
+    d = deltas.shape[-1]
+    packed = _pack_bool_lastdim(pad_rows(deltas.reshape(-1, d), padded_dim(d, chunk), -1.0) >= 0)
+    return packed.view(deltas.shape[:-1] + packed.shape[-1:])
 
 
 def packed_counts(packed: torch.Tensor) -> torch.Tensor:

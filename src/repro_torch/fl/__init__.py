@@ -6,6 +6,8 @@ from .rounds import (
     RoundContext,
     RoundState,
     async_fl_round,
+    cell_params,
+    client_mask,
     evaluate,
     fl_round,
     init_async_state,
@@ -14,6 +16,7 @@ from .rounds import (
     make_context,
     round_batches,
     round_fn,
+    run_rounds,
     stream_fl_round,
 )
 from .runtime import FLConfig, FLSimulation
@@ -35,4 +38,7 @@ __all__ = [
     "async_fl_round",
     "round_fn",
     "evaluate",
+    "cell_params",
+    "client_mask",
+    "run_rounds",
 ]

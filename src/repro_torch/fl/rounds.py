@@ -42,6 +42,19 @@ makes each Byzantine deliver only while no Byzantine upload sits in its
 slot. At ``B = M``, zero latency and zero decay it equals
 :func:`fl_round` bit for bit.
 
+A masked context (a fused heterogeneous-M campaign group, ``masked=True``)
+pads the client axis to the group's largest cohort; the run's own cohort
+``CellParams.m_active`` enters as a 0/1 row mask (:func:`client_mask`) on
+the weighted count path of the estimate, on the b-vote and on the metric
+means, so one context serves every M of the group. :func:`fl_round` also
+takes a group of E runs at once, with a leading E on the keys, the state
+and the batches: each kernel is launched once a step for the group.
+:func:`run_rounds` runs ``rounds`` rounds on ``FLSimulation``'s key
+schedule and returns the final state and each metric's trajectory; the
+campaign engine (:mod:`repro_torch.sim`) runs a synchronous dense group
+through it as one group, and an asynchronous or streamed group one run at
+a time.
+
 Each step runs under a ``torch.profiler.record_function`` range
 (``round.batches``, ``round.sample`` under partial participation,
 ``round.local_train``, ``round.compress``,
@@ -50,7 +63,7 @@ one ``round.chunk`` range a chunk), so a profiler trace splits a
 round's device time by step; with no profiler active a range costs a few
 microseconds of host time.
 
-Not ported yet: the tree rounds and the masked campaign contexts.
+Not ported yet: the tree rounds (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -91,12 +104,14 @@ __all__ = [
     "init_async_state",
     "init_run_state",
     "cell_params",
+    "client_mask",
     "round_batches",
     "fl_round",
     "stream_fl_round",
     "async_fl_round",
     "round_fn",
     "evaluate",
+    "run_rounds",
 ]
 
 
@@ -123,12 +138,24 @@ class AsyncRoundState(RoundState):
 
 @dataclasses.dataclass(frozen=True)
 class CellParams:
-    """Per-run scenario knobs (scalars)."""
+    """Per-run scenario knobs: the fields that may differ between the runs
+    of one campaign group (and so cannot come from the group's shared
+    ``ctx.cfg``). Python scalars for one run (:func:`cell_params`); numpy
+    arrays ``(E,)`` for the E runs of a batched group
+    (``repro_torch.sim.campaign._batched_inputs``)."""
 
-    lr: float
-    momentum: float
-    lam: float
-    attack_id: int  # index into repro_torch.core.ATTACK_IDS (delta stage)
+    lr: Any
+    momentum: Any
+    lam: Any
+    attack_id: Any  # index into repro_torch.core.ATTACK_IDS (delta stage)
+    flip_gate: Any  # bool: arm the bit_flip wire adversary (needs ctx.flip_n > 0)
+    latency: Any  # mean upload latency in rounds; P(arrive) = 1 / (1 + latency)
+    staleness_decay: Any  # age-weight exponent: w(age) = (1 + age) ** -decay
+    straggler_gate: Any  # bool: arm the straggler timing adversary
+    # The run's real cohort; read only by a masked context, whose client
+    # axis is padded to the group's largest (rows >= m_active are masked out
+    # of the estimate, the b-vote and the metrics).
+    m_active: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,9 +171,12 @@ class RoundContext:
     client_x: torch.Tensor  # (n_clients, per_client, ...)
     client_y: torch.Tensor  # (n_clients, per_client)
     test: dict
-    flip_n: int  # rows bit-flipped on the wire by the bit_flip adversary
+    flip_n: int  # rows bit-flipped on the wire when a run's flip_gate is on
     device: torch.device
     engine: str | None = None  # kernel engine passed to ops (None: by device)
+    # A fused heterogeneous-M campaign group's context: cfg.n_clients is the
+    # group's largest cohort and each run's own is CellParams.m_active.
+    masked: bool = False
 
     @property
     def d(self) -> int:
@@ -170,16 +200,30 @@ def make_context(
     *,
     device,
     engine: str | None = None,
+    wire_flip: bool | None = None,
+    masked: bool = False,
 ) -> RoundContext:
     """Resolve a config and a task into a RoundContext on ``device``.
 
     ``init_params`` is a (nested) dict of arrays in the reference's layout;
     ``engine`` forces the kernel engine of every ``ops`` call (``"ref"``
-    runs the plain versions on the card).
+    runs the plain versions on the card). ``wire_flip`` arms the bit_flip
+    slot (``flip_n``) even when ``cfg.attack`` is not bit_flip: a campaign
+    group sets it when any of its cells is one, and each run's
+    ``flip_gate`` selects. ``masked`` marks a fused heterogeneous-M
+    context (``cfg.n_clients`` is the group's largest cohort), which needs
+    synchronous rounds at full participation.
     """
+    if masked and (cfg.async_buffer or cfg.participation < 1.0):
+        raise ValueError(
+            "masked (fused heterogeneous-M) contexts require synchronous rounds at full participation; "
+            "see repro_torch.sim.plan.fusable"
+        )
     device = torch.device(device)
     w0, unravel = ravel_params(init_params, device)
     n_byz = int(cfg.n_active * cfg.byz_frac)
+    if wire_flip is None:
+        wire_flip = is_wire_attack(cfg.attack)
     return RoundContext(
         cfg=cfg,
         loss_fn=loss_fn,
@@ -190,26 +234,29 @@ def make_context(
         client_x=_to(client_x, device).float(),
         client_y=_to(client_y, device).long(),
         test={k: _to(v, device) for k, v in test.items()},
-        flip_n=n_byz if is_wire_attack(cfg.attack) else 0,
+        flip_n=n_byz if wire_flip else 0,
         device=device,
         engine=engine,
+        masked=masked,
     )
 
 
-def init_state(ctx: RoundContext) -> RoundState:
-    """Fresh run state; ``stateless_clients`` keeps one broadcast row of
+def init_state(ctx: RoundContext, b_init=None) -> RoundState:
+    """Fresh run state; ``b_init`` overrides the config's initial b (a
+    campaign cell's own). ``stateless_clients`` keeps one broadcast row of
     each per-client plane, which no round reads."""
     cfg = ctx.cfg
     n_rows = 1 if cfg.stateless_clients else cfg.n_clients
+    b = init_b_state(cfg.bctrl if b_init is None else dataclasses.replace(cfg.bctrl, init=b_init), ctx.device)
     return RoundState(
         w_global=ctx.w0,
         w_locals=ctx.w0.unsqueeze(0).repeat(n_rows, 1),
-        b=init_b_state(cfg.bctrl, ctx.device),
+        b=b,
         residuals=torch.zeros((n_rows, ctx.d), dtype=torch.float32, device=ctx.device),
     )
 
 
-def init_async_state(ctx: RoundContext) -> AsyncRoundState:
+def init_async_state(ctx: RoundContext, b_init=None) -> AsyncRoundState:
     """Fresh asynchronous run state: the synchronous fields and an empty
     buffer of ``async_buffer`` rows in the wire's format (packed uint8 rows
     of the compressor's width, dense f32 rows for FedAvg and Fed-GM)."""
@@ -220,7 +267,7 @@ def init_async_state(ctx: RoundContext) -> AsyncRoundState:
     else:
         rows = torch.zeros((n_buf, n_bytes), dtype=torch.uint8, device=dev)
     return AsyncRoundState(
-        **vars(init_state(ctx)),
+        **vars(init_state(ctx, b_init)),
         buf_rows=rows,
         buf_age=torch.zeros(n_buf, dtype=torch.int32, device=dev),
         buf_valid=torch.zeros(n_buf, dtype=torch.bool, device=dev),
@@ -228,9 +275,9 @@ def init_async_state(ctx: RoundContext) -> AsyncRoundState:
     )
 
 
-def init_run_state(ctx: RoundContext) -> RoundState:
+def init_run_state(ctx: RoundContext, b_init=None) -> RoundState:
     """The state the config calls for: asynchronous or synchronous."""
-    return init_async_state(ctx) if ctx.cfg.async_buffer else init_state(ctx)
+    return init_async_state(ctx, b_init) if ctx.cfg.async_buffer else init_state(ctx, b_init)
 
 
 def round_fn(ctx: RoundContext) -> Callable:
@@ -243,7 +290,30 @@ def round_fn(ctx: RoundContext) -> Callable:
 
 
 def cell_params(cfg) -> CellParams:
-    return CellParams(lr=cfg.lr, momentum=cfg.momentum, lam=cfg.lam, attack_id=attack_id(cfg.attack))
+    """The CellParams one FLConfig describes (scalars)."""
+    return CellParams(
+        lr=cfg.lr,
+        momentum=cfg.momentum,
+        lam=cfg.lam,
+        attack_id=attack_id(cfg.attack),
+        flip_gate=is_wire_attack(cfg.attack),
+        latency=cfg.async_latency,
+        staleness_decay=cfg.staleness_decay,
+        straggler_gate=is_timing_attack(cfg.attack),
+        m_active=cfg.n_active,
+    )
+
+
+def client_mask(ctx: RoundContext, params: CellParams) -> torch.Tensor | None:
+    """The 0/1 f32 active-client row mask of a masked context (rows below
+    the run's ``m_active``; (E, n) rows for a group whose ``m_active`` is
+    an (E,) tensor); None for an unmasked one, whose estimate, b-vote and
+    metric means stay the exact unweighted ones."""
+    if not ctx.masked:
+        return None
+    rows = torch.arange(ctx.cfg.n_active, device=ctx.device)
+    m = params.m_active
+    return (rows < (m.unsqueeze(-1) if torch.is_tensor(m) else int(m))).float()
 
 
 def _batch_steps(ctx: RoundContext) -> int:
@@ -264,25 +334,46 @@ def _gather_batches(ctx: RoundContext, key: torch.Tensor, ids: torch.Tensor) -> 
     return {"x": ctx.client_x[rows, idx], "y": ctx.client_y[rows, idx]}
 
 
-def round_batches(ctx: RoundContext, key: torch.Tensor) -> dict:
+def round_batches(ctx: RoundContext, key: torch.Tensor, data=None) -> dict:
     """One round's local-training batches of every client:
-    ``{"x": (n, steps, batch, ...), "y": (n, steps, batch)}``. A streaming
-    round draws each chunk's batches itself and gets ``{"key": key}``."""
+    ``{"x": (n, steps, batch, ...), "y": (n, steps, batch)}``, with a
+    leading E for a group's keys (E, 2). ``data`` is a fused group's client
+    data (``repro_torch.sim.batched.GroupData``): each run reads its own
+    cell's rows. A streaming round draws each chunk's batches itself and
+    gets ``{"key": key}``."""
     if ctx.cfg.client_chunk:
         return {"key": key}
     with record_function("round.batches"):
-        return _gather_batches(ctx, key, torch.arange(ctx.cfg.n_clients, dtype=torch.int64, device=ctx.device))
+        ids = torch.arange(ctx.cfg.n_clients, dtype=torch.int64, device=ctx.device)
+        idx = _client_batch_idx(ctx, key.unsqueeze(-2), ids)
+        rows = ids.view(-1, 1, 1)
+        if data is None:
+            return {"x": ctx.client_x[rows, idx], "y": ctx.client_y[rows, idx]}
+        cell = data.data_idx.view(-1, 1, 1, 1)
+        return {"x": data.client_x[cell, rows, idx], "y": data.client_y[cell, rows, idx]}
 
 
 def _client_uploads(ctx, params, key, state, batches):
     """The client side of a round: participation sampling, local
-    prox-training, delta attack, and compression onto the wire. ``sel`` is
-    None at full participation."""
-    cfg = ctx.cfg
-    w_sel, res_sel, sel = state.w_locals, state.residuals, None
+    prox-training, delta attack, and compression onto the wire.
+
+    ``key`` is (2,) for one run, or (E, 2) for a group of E runs whose
+    state and batches carry the same leading E and whose ``params`` hold
+    one value a run. Returns ``sel``, the active rows' indices into the
+    (E * n_clients, d) view of the client planes (None at full
+    participation), the trained rows ``w_new`` (E * n_active, d) and their
+    losses before and after training, and the attacked deltas, the wire
+    and the new residuals with the key's leading axes."""
+    cfg, d = ctx.cfg, ctx.d
+    lead = tuple(key.shape[:-1])
+    m, n = cfg.n_clients, cfg.n_active
+    w_sel, res_sel, sel = state.w_locals.reshape(-1, d), state.residuals.reshape(-1, d), None
+    batches = {k: v.flatten(0, len(lead)) for k, v in batches.items()}
     if cfg.participation < 1.0:
         with record_function("round.sample"):
-            sel = prng.choice(prng.fold_in(key, 99), cfg.n_clients, (cfg.n_active,))
+            # each run draws its own cohort from its own key
+            sels = [prng.choice(prng.fold_in(k, 99), m, (n,)) for k in key.view(-1, 2)]
+            sel = sels[0] if len(sels) == 1 else torch.cat([s + i * m for i, s in enumerate(sels)])
             w_sel, res_sel = w_sel.index_select(0, sel), res_sel.index_select(0, sel)
             batches = {k: v.index_select(0, sel) for k, v in batches.items()}
     with record_function("round.local_train"):
@@ -292,35 +383,72 @@ def _client_uploads(ctx, params, key, state, batches):
             use_kernel=cfg.use_kernels, engine=ctx.engine,
         )
     with record_function("round.compress"):
-        deltas = w_new - state.w_global
-        k_att, k_q = prng.split(prng.fold_in(key, 1), 2)
-        n_byz = int(cfg.n_active * cfg.byz_frac)
-        deltas_att = apply_attack(params.attack_id, k_att, deltas, n_byz)
+        deltas = w_new.view(lead + (n, d)) - state.w_global.unsqueeze(-2)
+        k_att, k_q = prng.split(prng.fold_in(key, 1), 2).unbind(-2)
+        deltas_att = _attack(params.attack_id, k_att, deltas, int(n * cfg.byz_frac))
         wire, res_new = ctx.pipeline.compress_wire(
-            k_q, deltas_att, state.b.b, res_sel, flip_n=ctx.flip_n
+            k_q, deltas_att, state.b.b, res_sel.view(lead + (n, d)), flip_n=ctx.flip_n, flip_gate=params.flip_gate
         )
     return sel, w_new, loss_before, loss_after, deltas_att, wire, res_new
 
 
-def _finish_round(ctx, state, w_new, loss_before, loss_after, res_new, theta, deltas_att, sel=None, **extra):
+def _attack(attack_id, k_att, deltas, n_byz):
+    """The delta-level attack on one run's (n, d) deltas, or on each run's
+    own rows of a group's (E, n, d), with the run's own id and key (written
+    into ``deltas``)."""
+    if deltas.dim() == 2:
+        return apply_attack(attack_id, k_att, deltas, n_byz)
+    for i, rows in enumerate(deltas):
+        attacked = apply_attack(int(attack_id[i]), k_att[i], rows, n_byz)
+        if attacked is not rows:
+            rows.copy_(attacked)
+    return deltas
+
+
+def _finish_round(ctx, state, w_new, loss_before, loss_after, res_new, theta, deltas_att, sel=None, mask=None,
+                  **extra):
     """Server epilogue: global step, b-control, write-back of the active
-    clients' state at ``sel`` (all clients when None), metrics. ``extra``
-    replaces further fields of the state (the asynchronous buffer)."""
-    cfg = ctx.cfg
-    b_new = update_b(state.b, loss_bit(loss_before, loss_after), cfg.bctrl)
-    if sel is not None:
-        w_new = state.w_locals.index_copy(0, sel, w_new)
-        res_new = state.residuals.index_copy(0, sel, res_new)
+    clients' state at ``sel`` (all clients when None), metrics; for one run
+    or, with a leading E on ``theta`` and the state, for a group (the
+    shapes of :func:`_client_uploads`). ``mask`` (a masked context's
+    active-client rows) keeps padded clients out of the b-vote and the loss
+    and theta_mse means, which then multiply by the f32 reciprocal of the
+    mask's sum. ``extra`` replaces further fields of the state (the
+    asynchronous buffer)."""
+    cfg, d = ctx.cfg, ctx.d
+    bits = loss_bit(loss_before, loss_after).view(theta.shape[:-1] + (-1,))
+    b_new = update_b(state.b, bits, cfg.bctrl, weights=mask)
+    if sel is None:
+        w_new = w_new.view(state.w_locals.shape)
+    else:
+        w_new = state.w_locals.reshape(-1, d).index_copy(0, sel, w_new).view(state.w_locals.shape)
+        res_new = state.residuals.reshape(-1, d).index_copy(0, sel, res_new.reshape(-1, d)).view(state.residuals.shape)
     new_state = dataclasses.replace(
         state, w_global=state.w_global + theta, w_locals=w_new, b=b_new, residuals=res_new, **extra
     )
-    metrics = {
-        "loss": mean_rows(loss_after),
-        "b": b_new.b,
-        "theta_mse": mean_rows((theta - mean_rows(deltas_att)) ** 2),
-        "theta": theta,
-    }
-    return new_state, metrics
+    loss, theta_mse = round_metrics(loss_after, deltas_att, theta, mask)
+    return new_state, {"loss": loss, "b": b_new.b, "theta_mse": theta_mse, "theta": theta}
+
+
+def round_metrics(loss_after, deltas_att, theta, mask=None):
+    """A round's ``loss`` (the mean post-training local loss) and
+    ``theta_mse`` (theta_hat's squared error against the mean uploaded
+    update); ``mask`` keeps a masked context's padded clients out of both
+    means, which then multiply by the f32 reciprocal of its sum. A group's
+    (E, d) ``theta`` gives (E,) metrics, each run's means taken on its own
+    rows: on the card a reduction over one axis of (E, n) rounds otherwise
+    than one over (n,) (ROADMAP C)."""
+    if theta.dim() == 2:
+        e = theta.shape[0]
+        per_run = [round_metrics(loss_after.view(e, -1)[i], deltas_att[i], theta[i], None if mask is None else mask[i])
+                   for i in range(e)]
+        return tuple(torch.stack(values) for values in zip(*per_run))
+    if mask is None:
+        loss, delta_mean = mean_rows(loss_after), mean_rows(deltas_att)
+    else:
+        recip = torch.reciprocal(mask.sum().clamp(min=1.0))
+        loss, delta_mean = (loss_after * mask).sum() * recip, (deltas_att * mask[:, None]).sum(0) * recip
+    return loss, mean_rows((theta - delta_mean) ** 2)
 
 
 def fl_round(
@@ -332,22 +460,35 @@ def fl_round(
     (mean post-training local loss), ``b`` (after the vote),
     ``theta_mse`` (squared error of theta_hat against the mean uploaded
     update, the aggregation error Theorem 1 bounds) and ``theta``, the
-    (d,) estimate itself.
+    (d,) estimate itself. Under a masked context the active-client mask
+    weighs the vote counts (``N_i^w`` counts real clients only and
+    ``M^w = m_active``), the b-vote and the means.
+
+    A group of E runs (a campaign group, ``repro_torch.sim``) passes keys
+    (E, 2), a state and batches with a leading E, and ``params`` holding
+    one value a run (``lr``, ``momentum`` and ``lam`` as (E,) f32 tensors
+    on the device, ``m_active`` too under a masked context): each kernel
+    is launched once a step for the whole group, and the metrics are (E,).
+    Each run's values are its own single round's bit for bit: its draws
+    are the same function of its key, each kernel computes a run's rows as
+    it computes one run's, and the model's forward and backward, the
+    attacks and the metric means run on each run's own rows.
     """
     sel, w_new, loss_before, loss_after, deltas_att, wire, res_new = _client_uploads(
         ctx, params, key, state, batches
     )
+    mask = client_mask(ctx, params)
     with record_function("round.estimate"):
-        theta = ctx.pipeline.estimate(wire)
+        theta = ctx.pipeline.estimate(wire, weights=mask)
     with record_function("round.finish"):
-        return _finish_round(ctx, state, w_new, loss_before, loss_after, res_new, theta, deltas_att, sel)
+        return _finish_round(ctx, state, w_new, loss_before, loss_after, res_new, theta, deltas_att, sel, mask)
 
 
-def _stream_chunks(ctx, params, kb, k_att, k_q, state, sel, n_byz, weighted):
+def _stream_chunks(ctx, params, kb, k_att, k_q, state, sel, n_byz, weighted, limit):
     """The streaming round's chunk loop: every chunk of ``cfg.client_chunk``
     cohort rows trains, attacks and compresses, and folds into the additive
-    carries. Returns them with the written-back planes (the state's own when
-    stateless)."""
+    carries, where cohort positions at or past ``limit`` weigh 0. Returns
+    them with the written-back planes (the state's own when stateless)."""
     cfg, d, dev = ctx.cfg, ctx.d, ctx.device
     C, n = cfg.client_chunk, sel.shape[0]
     server = ctx.pipeline.server
@@ -370,7 +511,7 @@ def _stream_chunks(ctx, params, kb, k_att, k_q, state, sel, n_byz, weighted):
         with record_function("round.chunk"):
             k = min(C, n - g0)  # real rows of the chunk, then pad rows
             sel_c = sel_p[g0:g0 + C]
-            w_c = (torch.arange(C, device=dev) < k).float()
+            w_c = (torch.arange(C, device=dev) < min(k, limit - g0)).float()
             with record_function("round.batches"):
                 batches = _gather_batches(ctx, kb, sel_c)
             if cfg.stateless_clients:
@@ -388,7 +529,7 @@ def _stream_chunks(ctx, params, kb, k_att, k_q, state, sel, n_byz, weighted):
             with record_function("round.compress"):
                 deltas = apply_attack_stream(params.attack_id, k_att, w_new - state.w_global, n_byz, g0)
                 wire, res_new = ctx.pipeline.compress_wire(
-                    k_q, deltas, state.b.b, res_c, flip_n=ctx.flip_n, row_offset=g0
+                    k_q, deltas, state.b.b, res_c, flip_n=ctx.flip_n, flip_gate=params.flip_gate, row_offset=g0
                 )
                 if kind == "counts":
                     acc = server.accumulate_counts(acc, wire.packed, w_c if weighted else None)
@@ -419,7 +560,8 @@ def stream_fl_round(
     (weighted, with ``M^w`` the weight sum, when the chunk does not divide
     the cohort), FedAvg's weighted mean or Fed-GM's weighted median of the
     buffered rows. Metric means are sums times the f32 reciprocal of the
-    weight sum."""
+    weight sum. A masked context weighs cohort positions at or past the
+    run's ``m_active`` 0, as the dense round's mask does."""
     cfg, d, dev = ctx.cfg, ctx.d, ctx.device
     n, C = cfg.n_active, cfg.client_chunk
     server = ctx.pipeline.server
@@ -429,9 +571,10 @@ def stream_fl_round(
     else:
         sel = torch.arange(cfg.n_clients, dtype=torch.int64, device=dev)
     k_att, k_q = prng.split(prng.fold_in(key, 1), 2)
-    weighted = n % C != 0
+    limit = min(n, int(params.m_active)) if ctx.masked else n
+    weighted = ctx.masked or n % C != 0
     acc, vote, loss, dsum, wsum, w_locals, residuals = _stream_chunks(
-        ctx, params, batches["key"], k_att, k_q, state, sel, int(n * cfg.byz_frac), weighted
+        ctx, params, batches["key"], k_att, k_q, state, sel, int(n * cfg.byz_frac), weighted, limit
     )
     with record_function("round.estimate"):
         if server.stream_kind == "counts":
@@ -443,7 +586,7 @@ def stream_fl_round(
         elif server.stream_kind == "sum":
             theta = server.finalize_sum(acc)
         else:
-            w_all = (torch.arange(acc.shape[0], device=dev) < n).float()
+            w_all = (torch.arange(acc.shape[0], device=dev) < limit).float()
             theta = server.from_dense(acc, w_all if weighted else None)
     with record_function("round.finish"):
         b_new = update_b_from_vote(state.b, vote, cfg.bctrl)
@@ -474,10 +617,10 @@ def async_fl_round(
         rows = wire.updates if isinstance(wire, DenseWire) else wire.packed
         # arrivals: client m delivers with probability 1 / (1 + latency),
         # compared in f32 as the reference's weakly typed scalar is
-        p_arrive = float(np.float32(1.0 / (1.0 + cfg.async_latency)))
+        p_arrive = float(np.float32(1.0 / (1.0 + params.latency)))
         delivered = prng.uniform(prng.fold_in(key, 7), (m,)) < p_arrive
         n_byz = int(m * cfg.byz_frac)
-        if is_timing_attack(cfg.attack) and n_byz:
+        if params.straggler_gate and n_byz:
             # a Byzantine delivers only while no Byzantine upload sits in its slot
             owner = state.buf_owner[torch.arange(n_byz, device=dev) % n_buf]
             byz_resident = (owner >= 0) & (owner < n_byz)
@@ -492,7 +635,7 @@ def async_fl_round(
             hit[:k] |= got
         age = torch.where(hit, torch.zeros_like(state.buf_age), state.buf_age + 1)
         valid = state.buf_valid | hit
-        weights = staleness_weights(age, cfg.staleness_decay, valid)
+        weights = staleness_weights(age, params.staleness_decay, valid)
         buf_wire = DenseWire(updates=buf) if isinstance(wire, DenseWire) else dataclasses.replace(wire, packed=buf)
         theta = ctx.pipeline.estimate(buf_wire, weights=weights)
     with record_function("round.finish"):
@@ -507,6 +650,54 @@ def async_fl_round(
 
 
 @torch.no_grad()
+def accuracy(ctx: RoundContext, w_global: torch.Tensor) -> torch.Tensor:
+    """Test accuracy of the flat global model, a 0-dim tensor on its device
+    (read it without waiting for the device: no host copy); (E,) for a
+    group's (E, d) models, each taken on its own."""
+    if w_global.dim() == 2:
+        return torch.stack([accuracy(ctx, w) for w in w_global])
+    return ctx.acc_fn(ctx.unravel(w_global), ctx.test)
+
+
 def evaluate(ctx: RoundContext, w_global: torch.Tensor) -> float:
     """Test accuracy of the flat global model."""
-    return float(ctx.acc_fn(ctx.unravel(w_global), ctx.test))
+    return float(accuracy(ctx, w_global))
+
+
+def run_rounds(
+    ctx: RoundContext,
+    params: CellParams,
+    key: torch.Tensor,
+    state: RoundState,
+    rounds: int | None = None,
+    *,
+    data=None,
+    with_acc: bool = True,
+) -> tuple[RoundState, dict]:
+    """Run ``rounds`` rounds (the config's by default) of the round the
+    context calls for, on ``FLSimulation.run``'s key schedule (each round
+    ``key, kb, kr = split(key, 3)``; batches from ``kb``, the round from
+    ``kr``), so at a fixed seed this is the sequential driver's run.
+
+    Keys (E, 2) with a state of leading E run a group of E synchronous
+    dense runs at once (:func:`fl_round`'s group form; ``data``, a fused
+    group's client data, see :func:`round_batches`). Returns the final
+    state and each metric's trajectory, a ``(rounds,)`` tensor (``(E,
+    rounds)`` for a group) on the context's device (``acc`` included when
+    ``with_acc``; the (d,) ``theta`` is not kept). Nothing waits for the
+    device.
+    """
+    rounds = rounds or ctx.cfg.rounds
+    step = round_fn(ctx)
+    if key.dim() > 1 and step is not fl_round:
+        raise ValueError("only the synchronous dense round runs a group of runs at once")
+    traj: dict[str, list] = {}
+    for _ in range(rounds):
+        key, kb, kr = prng.split(key, 3).unbind(-2)
+        state, metrics = step(ctx, params, kr, state, round_batches(ctx, kb, data))
+        metrics.pop("theta")
+        if with_acc:
+            metrics["acc"] = accuracy(ctx, state.w_global)
+        for name, value in metrics.items():
+            traj.setdefault(name, []).append(value)
+    return state, {name: torch.stack(values, dim=-1) for name, values in traj.items()}

@@ -51,15 +51,15 @@ _F = ctypes.c_float
 # C signatures of the entry points (every one returns its cudaError_t).
 _SIGNATURES = {
     "stoch_quant": {
-        "probit_stoch_quant_pack": (_P, _P, _P, _P, _I64, _I64, _P),
-        "probit_stoch_quant_ef": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P),
+        "probit_stoch_quant_pack": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
+        "probit_stoch_quant_ef": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     },
     "bit_aggregate": {
-        "probit_bit_aggregate": (_P, _P, _P, _I64, _I64, _I64, _F, _I64, _I64, _P),
+        "probit_bit_aggregate": (_P, _P, _P, _I64, _I64, _I64, _F, _I64, _I64, _I64, _P),
         "probit_bit_aggregate_empty": (_I64, _I64, _P),
     },
     "prox_sgd": {
-        "probit_prox_sgd": (_P, _P, _P, _P, _P, _P, _F, _F, _F, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P),
+        "probit_prox_sgd": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P),
         "probit_prox_sgd_occupancy": (_I64, _I64, _P),
     },
 }

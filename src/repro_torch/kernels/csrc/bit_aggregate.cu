@@ -44,6 +44,12 @@
 // * b and theta_hat have the true length n: wire bits at or beyond n are
 //   counted but never written, and column tiles wholly at or beyond n are
 //   not read.
+// * A campaign group of E elements, each with its own M clients, range b
+//   and estimate (the reference vmaps the kernel over them), is one launch:
+//   the grid's second dimension is the element, which offsets the wire, b
+//   and theta_hat to its own (M, P), (n,) and (n,) slices. A cluster lies
+//   within one element, so counts never cross elements, and every element
+//   has the same M (a group pads its cohorts to one size).
 //
 // Finalize: theta = ((2 N - M) * (1/M)) * b in f32, one rounding per
 // operation. That is the reference's (2N - M) / M * b as XLA compiles it
@@ -122,6 +128,10 @@ bit_aggregate_kernel(const uint8_t* __restrict__ packed, const float* __restrict
   constexpr int kPerRank = kTileCoords / kCluster;  // coordinates this block finalizes
   constexpr int kOwn = kPerRank / kThreads;         // ... per thread
   __shared__ int counts[kSlots];
+  const int64_t element = blockIdx.y;
+  packed += element * m * p;
+  b += element * n;
+  out += element * n;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int64_t tile = blockIdx.x / kCluster;
@@ -218,9 +228,10 @@ bit_aggregate_kernel(const uint8_t* __restrict__ packed, const float* __restrict
 
 __global__ void empty_kernel() {}
 
-cudaLaunchConfig_t config(int64_t blocks, int cluster, cudaStream_t stream, cudaLaunchAttribute* attr) {
+cudaLaunchConfig_t config(int64_t blocks, int64_t elements, int cluster, cudaStream_t stream,
+                          cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.gridDim = dim3((unsigned)blocks, (unsigned)elements);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
@@ -235,9 +246,9 @@ cudaLaunchConfig_t config(int64_t blocks, int cluster, cudaStream_t stream, cuda
 
 template <int kCluster>
 cudaError_t launch(const uint8_t* packed, const float* b, float* out, int64_t m, int64_t p, int64_t n,
-                   float recip_m, int64_t tiles, cudaStream_t stream) {
+                   float recip_m, int64_t tiles, int64_t elements, cudaStream_t stream) {
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = config(tiles * kCluster, kCluster, stream, &attr);
+  const cudaLaunchConfig_t cfg = config(tiles * kCluster, elements, kCluster, stream, &attr);
   const bool aligned = p % 4 == 0 && reinterpret_cast<uintptr_t>(packed) % 4 == 0;
   if (aligned)
     return cudaLaunchKernelEx(&cfg, bit_aggregate_kernel<kCluster, true>, packed, b, out, m, p, n,
@@ -248,19 +259,20 @@ cudaError_t launch(const uint8_t* packed, const float* b, float* out, int64_t m,
 
 }  // namespace
 
-// packed: (m, p) u8; b, out: (n,) f32 with 0 < n <= 8p; recip_m = f32(1) / f32(m);
-// tiles: column tiles of kTileBytes wire bytes, ceil(ceil(n / 8) / kTileBytes);
-// cluster: blocks per column tile, 1, 2, 4 or 8 (both from launch_geometry).
+// packed: (elements, m, p) u8; b, out: (elements, n) f32 with 0 < n <= 8p;
+// recip_m = f32(1) / f32(m); tiles: column tiles of kTileBytes wire bytes,
+// ceil(ceil(n / 8) / kTileBytes); cluster: blocks per column tile, 1, 2, 4
+// or 8 (both from launch_geometry); elements: 1 to 65,535.
 extern "C" int probit_bit_aggregate(const uint8_t* packed, const float* b, float* out, int64_t m,
                                     int64_t p, int64_t n, float recip_m, int64_t tiles,
-                                    int64_t cluster, cudaStream_t stream) {
-  if (tiles * kTileBytes < (n + 7) / 8) return (int)cudaErrorInvalidValue;
+                                    int64_t cluster, int64_t elements, cudaStream_t stream) {
+  if (tiles * kTileBytes < (n + 7) / 8 || elements < 1 || elements > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   switch (cluster) {
-    case 1: err = launch<1>(packed, b, out, m, p, n, recip_m, tiles, stream); break;
-    case 2: err = launch<2>(packed, b, out, m, p, n, recip_m, tiles, stream); break;
-    case 4: err = launch<4>(packed, b, out, m, p, n, recip_m, tiles, stream); break;
-    case 8: err = launch<8>(packed, b, out, m, p, n, recip_m, tiles, stream); break;
+    case 1: err = launch<1>(packed, b, out, m, p, n, recip_m, tiles, elements, stream); break;
+    case 2: err = launch<2>(packed, b, out, m, p, n, recip_m, tiles, elements, stream); break;
+    case 4: err = launch<4>(packed, b, out, m, p, n, recip_m, tiles, elements, stream); break;
+    case 8: err = launch<8>(packed, b, out, m, p, n, recip_m, tiles, elements, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
@@ -271,7 +283,7 @@ extern "C" int probit_bit_aggregate(const uint8_t* packed, const float* b, float
 // same size in clusters of `cluster`. Its time is the floor under B3's.
 extern "C" int probit_bit_aggregate_empty(int64_t blocks, int64_t cluster, cudaStream_t stream) {
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = config(blocks, (int)cluster, stream, &attr);
+  const cudaLaunchConfig_t cfg = config(blocks, 1, (int)cluster, stream, &attr);
   const cudaError_t err = cudaLaunchKernelEx(&cfg, empty_kernel);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

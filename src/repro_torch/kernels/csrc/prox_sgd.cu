@@ -2,21 +2,26 @@
 //
 // Replaces the Pallas kernel prox_sgd_2d (_kernel) of
 // src/repro/kernels/prox_sgd.py. The TPU kernel ran one client's
-// (rows, 1024) view inside a vmap; here one launch updates the whole
-// (M, d) cohort, each element as
+// (rows, 1024) view inside a vmap (and the campaign engine vmapped that
+// over its (cell, seed) elements); here one launch updates all R rows of a
+// group of E elements of R / E client rows each, every value as
 //
 //   g  = grad + lam * (w - w0)
 //   m' = mu * m + g
 //   w' = w - eta * m'
 //
 // Bound: bytes (reads w, grad, m and w0, writes w' and m'; 6 flops per
-// element). The global model w0 is one (d,) row shared by every client
-// (w0_row_stride = 0) or a full (M, d) operand (w0_row_stride = d).
+// value). Element e has its own global model w0, row e of an (E, d)
+// operand shared by its R / E rows, and its own (eta, lam, mu), row e of an
+// (E, 3) f32 array in device memory (or one row for all, coeff_stride 0).
+// With one row per element (R / E = 1) w0 is a full (R, d) operand.
 //
 // Design, for a cohort whose arrays are each larger than the 50 MB L2:
 // - Work units are a column tile of `tile` floats times a group of
-//   `group_rows` client rows. A CTA stages its unit's slice of a shared w0
-//   in shared memory once and streams every row of the group against it.
+//   `group_rows` client rows of one element: a unit never straddles two
+//   elements, so a CTA stages its unit's slice of the element's w0 row in
+//   shared memory once and streams every row of the group against it, with
+//   the element's coefficients.
 // - Units are numbered tile first: the CTAs resident at one time work on
 //   neighbouring tiles of the same rows, so each array is read and written
 //   as one contiguous band, row after row.
@@ -57,6 +62,11 @@ struct Coeffs {
   float eta, lam, mu;
 };
 
+__device__ __forceinline__ Coeffs coeffs_of(const float* coeffs, int64_t element, int64_t stride) {
+  const float* c = coeffs + element * stride;
+  return Coeffs{__ldg(c), __ldg(c + 1), __ldg(c + 2)};
+}
+
 // (w', m') of one element; writes m' into *m and returns w'.
 __device__ __forceinline__ float step(float w, float w0, float g, float& m, Coeffs c) {
   const float gt = __fadd_rn(g, __fmul_rn(c.lam, __fsub_rn(w, w0)));
@@ -67,23 +77,36 @@ __device__ __forceinline__ float step(float w, float w0, float g, float& m, Coef
 template <bool kSharedW0>
 __global__ void __launch_bounds__(kThreads)
 prox_sgd_kernel(const float* w, const float* w0, const float* grad, const float* mom, float* w_out,
-                float* m_out, Coeffs coeffs, int64_t rows, int64_t d, int tile_log2,
-                int64_t group_rows, int vector, int phase) {
+                float* m_out, const float* coeff_rows, int64_t coeff_stride, int64_t rows_per_element,
+                int64_t d, int tile_log2, int64_t group_rows, int tiles, int groups, int units, int vector,
+                int phase) {
+  // tiles a row, row groups an element and units of the launch come from
+  // the host (each below 2**31): a CTA of the MLP's shape runs one unit, and
+  // a 64-bit division in its prologue is a measurable part of its time.
   extern __shared__ float s_w0[];
   const int64_t tile = int64_t{1} << tile_log2;
-  const int64_t tiles = (d + tile - 1) >> tile_log2;
-  const int64_t units = tiles * ((rows + group_rows - 1) / group_rows);
   const int vpr_log2 = tile_log2 - 2;  // float4 slots of a row segment, log2
   const int scalar_log2 = vector ? 3 : tile_log2;  // scalar positions of a row segment, log2
 
-  for (int64_t u = blockIdx.x; u < units; u += gridDim.x) {
-    const int64_t c0 = (u % tiles) << tile_log2;
-    const int64_t r0 = (u / tiles) * group_rows;
+  // A CTA's units mostly share an element: its coefficients are loaded when
+  // the element changes, and one run (q < groups throughout) divides once.
+  int64_t coeffs_element = -1;
+  Coeffs coeffs{};
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int q = u / tiles;  // row group of the whole launch
+    const int64_t c0 = (int64_t)(u - q * tiles) << tile_log2;
+    const int element = q < groups ? 0 : q / groups;
+    const int64_t first = (int64_t)(q - element * groups) * group_rows;  // within the element
+    const int64_t r0 = (int64_t)element * rows_per_element + first;
     const int len = (int)min(tile, d - c0);
-    const int64_t nr = min(group_rows, rows - r0);
+    const int64_t nr = min(group_rows, rows_per_element - first);
+    if (element != coeffs_element) {
+      coeffs = coeffs_of(coeff_rows, element, coeff_stride);
+      coeffs_element = element;
+    }
     if (kSharedW0) {
       __syncthreads();  // the previous unit has read its slice
-      for (int k = threadIdx.x; k < len; k += kThreads) s_w0[k] = __ldg(w0 + c0 + k);
+      for (int k = threadIdx.x; k < len; k += kThreads) s_w0[k] = __ldg(w0 + (int64_t)element * d + c0 + k);
       __syncthreads();
     }
     // Row r of the unit starts at flat element e = (r0 + r) * d + c0; its
@@ -182,20 +205,29 @@ extern "C" int probit_prox_sgd_occupancy(int64_t tile, int64_t shared_w0, int64_
   return (int)err;
 }
 
-// w, grad, mom, w_out, m_out: (rows, d) f32; w0: (d,) with w0_row_stride = 0
-// (one row shared by the cohort) or (rows, d) with w0_row_stride = d. w_out
-// may be w and m_out may be mom. Geometry: `tile` columns (a power of two,
-// 4 to 8,192) by `group_rows` rows a unit, `ctas` CTAs. `vector` != 0 needs
-// every (rows, d) operand at the same address mod 16 bytes.
+// w, grad, mom, w_out, m_out: (rows, d) f32, E = rows / rows_per_element
+// elements of rows_per_element rows each; w0: (E, d), element e's global
+// model (staged in shared memory when rows_per_element > 1; read as a full
+// (rows, d) operand when it is 1); coeffs: (E, 3) f32 (eta, lam, mu) rows
+// in device memory, coeff_stride 3, or one row for all, coeff_stride 0.
+// w_out may be w and m_out may be mom. Geometry: `tile` columns (a power of
+// two, 4 to 8,192) by `group_rows` rows of one element a unit, `ctas` CTAs.
+// `vector` != 0 needs every (rows, d) operand at the same address mod 16
+// bytes.
 extern "C" int probit_prox_sgd(const float* w, const float* w0, const float* grad, const float* mom,
-                               float* w_out, float* m_out, float eta, float lam, float mu, int64_t rows,
-                               int64_t d, int64_t w0_row_stride, int64_t tile, int64_t group_rows,
-                               int64_t ctas, int64_t vector, cudaStream_t stream) {
+                               float* w_out, float* m_out, const float* coeffs, int64_t coeff_stride,
+                               int64_t rows, int64_t d, int64_t rows_per_element, int64_t tile,
+                               int64_t group_rows, int64_t ctas, int64_t vector, cudaStream_t stream) {
   if (rows == 0 || d == 0) return 0;
   const int lg = tile_log2_of(tile);
-  const bool shared = w0_row_stride == 0;
-  if (lg < 0 || group_rows < 1 || ctas < 1 || ctas > 0x7fffffff || (!shared && w0_row_stride != d))
+  const bool shared = rows_per_element > 1;
+  if (lg < 0 || group_rows < 1 || ctas < 1 || ctas > 0x7fffffff || rows_per_element < 1 ||
+      rows % rows_per_element || (coeff_stride != 0 && coeff_stride != 3))
     return (int)cudaErrorInvalidValue;
+  const int64_t tiles = (d + tile - 1) >> lg;
+  const int64_t groups = (rows_per_element + group_rows - 1) / group_rows;
+  const int64_t units = tiles * (rows / rows_per_element) * groups;
+  if (units > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const uintptr_t a = reinterpret_cast<uintptr_t>(w);
   if (vector) {
     const uintptr_t ptrs[] = {reinterpret_cast<uintptr_t>(grad), reinterpret_cast<uintptr_t>(mom),
@@ -205,14 +237,15 @@ extern "C" int probit_prox_sgd(const float* w, const float* w0, const float* gra
       if ((p & 15) != (a & 15)) return (int)cudaErrorInvalidValue;
     if (a & 3) return (int)cudaErrorInvalidValue;
   }
-  const Coeffs coeffs{eta, lam, mu};
   const int phase = (int)((a >> 2) & 3);
   if (shared) {
     prox_sgd_kernel<true><<<(unsigned)ctas, kThreads, (size_t)tile * sizeof(float), stream>>>(
-        w, w0, grad, mom, w_out, m_out, coeffs, rows, d, lg, group_rows, (int)(vector != 0), phase);
+        w, w0, grad, mom, w_out, m_out, coeffs, coeff_stride, rows_per_element, d, lg, group_rows, (int)tiles,
+        (int)groups, (int)units, (int)(vector != 0), phase);
   } else {
     prox_sgd_kernel<false><<<(unsigned)ctas, kThreads, 0, stream>>>(
-        w, w0, grad, mom, w_out, m_out, coeffs, rows, d, lg, group_rows, (int)(vector != 0), phase);
+        w, w0, grad, mom, w_out, m_out, coeffs, coeff_stride, rows_per_element, d, lg, group_rows, (int)tiles,
+        (int)groups, (int)units, (int)(vector != 0), phase);
   }
   return (int)cudaGetLastError();
 }

@@ -21,6 +21,8 @@ chunked packer's ``padded_dim(d)/8`` row losslessly, as the reference does.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -33,6 +35,7 @@ __all__ = [
     "resolve_engine",
     "padded_len",
     "realign_wire",
+    "prox_coeffs",
     "stoch_quant_compress_batch",
     "bit_aggregate",
     "prox_sgd",
@@ -56,13 +59,39 @@ def padded_len(n: int) -> int:
 
 
 def realign_wire(packed: torch.Tensor, target: int) -> torch.Tensor:
-    """Cut or zero-pad packed rows to ``target`` bytes (pad bits are 0)."""
-    width = packed.shape[1]
+    """Cut or zero-pad packed rows (the last axis) to ``target`` bytes (pad
+    bits are 0)."""
+    width = packed.shape[-1]
     if width > target:
-        return packed[:, :target].contiguous()
+        return packed[..., :target].contiguous()
     if width < target:
         return F.pad(packed, (0, target - width))
     return packed
+
+
+def prox_coeffs(eta, lam, mu, device=None) -> torch.Tensor:
+    """The f32 ``coeffs`` of :func:`prox_sgd`: ``(1, 3)`` from Python
+    numbers (made once per value and device: a copy to the card waits for
+    it, so a run's rounds reuse one), ``(E, 3)`` from ``(E,)`` tensors (one
+    row per element)."""
+    if not torch.is_tensor(eta):
+        return _number_coeffs(float(eta), float(lam), float(mu), torch.device(device or "cpu"))
+    return torch.stack([eta, lam, mu], dim=-1).to(device=device, dtype=torch.float32).contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _number_coeffs(eta: float, lam: float, mu: float, device: torch.device) -> torch.Tensor:
+    return torch.tensor([[eta, lam, mu]], dtype=torch.float32, device=device)
+
+
+def _as_group(key: torch.Tensor, deltas: torch.Tensor, b: torch.Tensor):
+    """(keys (E, 2), deltas (E, M, d), b (E, d)) of a compress call: one
+    run's (2,) key, (M, d) cohort and (d,) range are a group of one."""
+    if key.dim() == 1:
+        key, deltas = key.unsqueeze(0), deltas.unsqueeze(0)
+        b = torch.as_tensor(b, dtype=torch.float32, device=deltas.device).reshape(1, -1)
+    e, _, d = deltas.shape
+    return key, deltas, torch.broadcast_to(b.float(), (e, d))
 
 
 def stoch_quant_compress_batch(
@@ -76,52 +105,66 @@ def stoch_quant_compress_batch(
     want_residual: bool = False,
     engine: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Eq.-5 compress of an (M, d) cohort onto the kernel wire.
+    """Eq.-5 compress of an (M, d) cohort onto the kernel wire, or of a
+    group of E cohorts at once: keys (E, 2), deltas (E, M, d), b (E, d).
 
-    Client ``i`` draws from ``fold_in(key, row_offset + i)`` on the
-    ``client_uniforms`` chunk schedule, so both engines emit the JAX
-    wire's bytes. The kernel engine draws the uniforms in blocks of client
-    rows (``cohort_uniforms``) into one padded (M, padded_len) buffer and
-    launches one kernel over the whole cohort; the ``ref`` engine
-    compresses block by block (``packed_binarize_batch``). ``residual``
-    is the error-feedback carry added to the deltas first (fused into the
+    Client ``i`` of element ``e`` draws from ``fold_in(key[e], row_offset +
+    i)`` on the ``client_uniforms`` chunk schedule, so both engines emit
+    the JAX wire's bytes (a group equals E separate calls). The kernel
+    engine draws the uniforms in blocks of client rows
+    (``cohort_uniforms``) into one padded (E * M, padded_len) buffer and
+    launches one kernel over the whole group; the ``ref`` engine
+    compresses block by block (``packed_binarize_batch``). ``residual`` is
+    the error-feedback carry added to the deltas first (fused into the
     kernel); with ``want_residual`` the next carry ``eff - c * b`` comes
-    back. ``b`` is the (d,) public range.
+    back. ``b`` is the public range, (d,) or a scalar for one cohort.
 
-    Returns (packed (M, padded_len(d)/8) uint8, residuals (M, d) or None).
+    Returns (packed (M, padded_len(d)/8) uint8, residuals (M, d) or None),
+    with a leading E for a group.
     """
     engine = resolve_engine(engine, deltas.device)
-    m, d = deltas.shape
+    single = key.dim() == 1
+    keys, group, b_rows = _as_group(key, deltas, b)
+    e, m, d = group.shape
     target = padded_len(d) // 8
+    if residual is not None:
+        residual = residual.reshape(group.shape)
     if engine == "ref":
-        eff = deltas if residual is None else deltas + residual
+        eff = group if residual is None else group + residual
         packed, res = packed_binarize_batch(
-            key, eff, b, chunk=chunk, want_residual=want_residual, row_offset=row_offset
+            keys, eff, b_rows, chunk=chunk, want_residual=want_residual, row_offset=row_offset
         )
-        return realign_wire(packed, target), res
-    from .stoch_quant import stoch_quant_ef, stoch_quant_pack
+        packed = realign_wire(packed, target)
+    else:
+        from .stoch_quant import stoch_quant_ef, stoch_quant_pack
 
-    width = 8 * target
-    u = torch.empty((m, width), dtype=torch.float32, device=deltas.device)
-    u[:, d:] = 1.0
-    cohort_uniforms(key, m, d, chunk, row_offset=row_offset, out=u)
-    d_p = pad_rows(deltas, width, -1.0)
-    b_p = F.pad(torch.broadcast_to(b.float(), (d,)), (0, width - d), value=1.0)
-    if residual is None and not want_residual:
-        return stoch_quant_pack(d_p, b_p, u), None
-    r_p = torch.zeros_like(d_p) if residual is None else pad_rows(residual, width, 0.0)
-    packed, res = stoch_quant_ef(d_p, r_p, b_p, u)
-    return packed, (res[:, :d] if want_residual else None)
+        width = 8 * target
+        u = torch.empty((e * m, width), dtype=torch.float32, device=deltas.device)
+        u[:, d:] = 1.0
+        cohort_uniforms(keys, m, d, chunk, row_offset=row_offset, out=u)
+        d_p = pad_rows(group.reshape(e * m, d), width, -1.0)
+        b_p = pad_rows(b_rows, width, 1.0)
+        if residual is None and not want_residual:
+            packed, res = stoch_quant_pack(d_p, b_p, u), None
+        else:
+            r_p = torch.zeros_like(d_p) if residual is None else pad_rows(residual.reshape(e * m, d), width, 0.0)
+            packed, res = stoch_quant_ef(d_p, r_p, b_p, u)
+            res = res[:, :d].reshape(e, m, d) if want_residual else None
+        packed = packed.view(e, m, target)
+    if single:
+        return packed[0], None if res is None else res[0]
+    return packed, res
 
 
 def bit_aggregate(packed: torch.Tensor, b: torch.Tensor, n: int, *, engine: str | None = None) -> torch.Tensor:
-    """packed (M, P) uint8, b (n,) or a scalar -> theta_hat (n,) f32 (Eq. 13).
+    """packed (M, P) uint8, b (n,) or a scalar -> theta_hat (n,) f32 (Eq. 13);
+    or a group of E elements, packed (E, M, P) and b (E, n) -> (E, n).
 
     Pad coordinates (>= n) never reach the estimate: both engines take b at
     its true length n.
     """
     engine = resolve_engine(engine, packed.device)
-    b_full = torch.broadcast_to(b.float(), (n,))
+    b_full = torch.broadcast_to(b.float(), packed.shape[:-2] + (n,))
     if engine == "ref":
         return ref.bit_aggregate_ref(packed, b_full)
     from .bit_aggregate import bit_aggregate as kernel
@@ -129,21 +172,22 @@ def bit_aggregate(packed: torch.Tensor, b: torch.Tensor, n: int, *, engine: str 
     return kernel(packed.contiguous(), b_full.contiguous())
 
 
-def prox_sgd(w, w0, grad, momentum, eta: float, lam: float, mu: float, *, out=None,
-             engine: str | None = None):
-    """Fused prox-SGD step on an (M, d) cohort (or one (d,) row); ``w0``
-    may be one shared (d,) row. Returns (w_new, momentum_new), written into
-    ``out=(w_out, m_out)`` when it is given: contiguous buffers of ``w``'s
-    shape, where ``w_out`` may be ``w`` and ``m_out`` ``momentum`` (an update
-    in place). Both engines take the same ``out``."""
+def prox_sgd(w, w0, grad, momentum, coeffs, *, out=None, engine: str | None = None):
+    """Fused prox-SGD step on the rows of E elements (an (M, d) cohort, or
+    one (d,) row, is one element): ``w0`` (E, d) holds each element's global
+    model ((d,) for one) and ``coeffs`` (E, 3) its ``(eta, lam, mu)``, or
+    (1, 3) for all (:func:`prox_coeffs`). Returns (w_new, momentum_new),
+    written into ``out=(w_out, m_out)`` when it is given: contiguous
+    buffers of ``w``'s shape, where ``w_out`` may be ``w`` and ``m_out``
+    ``momentum`` (an update in place). Both engines take the same ``out``."""
     engine = resolve_engine(engine, w.device)
     if engine == "ref":
         if out is not None:
             from .prox_sgd import check_out
 
             out = check_out(out, w, w0, grad, momentum)
-        return ref.prox_sgd_ref(w, w0, grad, momentum, eta, lam, mu, out=out)
+        return ref.prox_sgd_ref(w, w0, grad, momentum, coeffs, out=out)
     from .prox_sgd import prox_sgd as kernel
 
-    return kernel(w.contiguous(), w0.contiguous(), grad.contiguous(), momentum.contiguous(), eta, lam, mu,
+    return kernel(w.contiguous(), w0.contiguous(), grad.contiguous(), momentum.contiguous(), coeffs.contiguous(),
                   out=out)

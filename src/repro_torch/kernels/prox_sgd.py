@@ -2,12 +2,16 @@
 
 ``prox_sgd`` replaces the Pallas ``prox_sgd_2d``
 (``repro/kernels/prox_sgd.py``); the CUDA source is ``csrc/prox_sgd.cu``.
-One launch updates the whole ``(M, d)`` cohort; the global model ``w0`` may
-be one shared ``(d,)`` row. ``out=(w_out, m_out)`` receives the result,
-``w_out`` and ``m_out`` may be ``w`` and ``momentum`` themselves (an update
-in place).
+One launch updates all rows of a group of E elements (a campaign group's
+(cell, seed) runs; one run's ``(M, d)`` cohort is E = 1): each element has
+its own global model, a row of ``w0`` (E, d), and its own ``(eta, lam,
+mu)``, a row of the f32 ``coeffs`` (E, 3) that the kernel reads from
+device memory (:func:`repro_torch.kernels.ops.prox_coeffs` makes it).
+``out=(w_out, m_out)`` receives the result, ``w_out`` and ``m_out`` may be
+``w`` and ``momentum`` themselves (an update in place).
 
-The launch covers (column tiles x row groups), one CTA a unit:
+The launch covers (column tiles x row groups of each element), one CTA a
+unit:
 :func:`launch_geometry` picks the tile, the group and the grid, and the C
 entry launches what it is given. On a CPU tensor the wrapper computes the plain version
 (:func:`repro_torch.kernels.ref.prox_sgd_ref`); on a CUDA tensor it
@@ -31,17 +35,19 @@ W0_L2_BYTES = 12_500_000  # a w0 row up to a quarter of the H100's 50 MB L2 stay
 
 
 @functools.lru_cache(maxsize=None)
-def launch_geometry(m: int, d: int, sms: int, blocks_per_sm: int) -> tuple[int, int, int]:
-    """(tile columns, rows per group, CTAs) of the launch for an ``(m, d)``
-    cohort on a card with ``sms`` SMs that holds ``blocks_per_sm`` of the
-    kernel's CTAs on each.
+def launch_geometry(m: int, d: int, sms: int, blocks_per_sm: int, elements: int = 1) -> tuple[int, int, int]:
+    """(tile columns, rows per group, CTAs) of the launch for ``elements``
+    elements of ``m`` rows of ``d`` columns each (an ``(m, d)`` cohort is
+    one element) on a card with ``sms`` SMs that holds ``blocks_per_sm`` of
+    the kernel's CTAs on each.
 
-    A unit is ``TILE`` columns of ``rows`` client rows, and each unit gets a
-    CTA of its own; its CTA reads w0's slice of those columns once. While w0
-    (``4 d`` bytes) stays in L2 a unit is one row, and w0 is re-read from L2
-    for every row; a larger w0 is read from device memory once per group of
-    ``ROWS`` rows. A cohort whose units would not fill one wave of the
-    ``sms * blocks_per_sm`` CTA slots takes one-row units too.
+    A unit is ``TILE`` columns of ``rows`` client rows of one element, and
+    each unit gets a CTA of its own; its CTA reads its element's w0 slice of
+    those columns once. While w0 (``4 d`` bytes a row) stays in L2 a unit
+    is one row, and w0 is re-read from L2 for every row; a larger w0 is read
+    from device memory once per group of ``ROWS`` rows. A launch whose units
+    would not fill one wave of the ``sms * blocks_per_sm`` CTA slots takes
+    one-row units too.
 
     Measured on the H100 at 700 W (``chip_smoke.py`` phase 5, ``b4_sweep``;
     ``PERF.md``): at M = 100 and ResNet-18's d = 11,172,042, units of 4,096
@@ -54,9 +60,9 @@ def launch_geometry(m: int, d: int, sms: int, blocks_per_sm: int) -> tuple[int, 
     """
     tiles = -(-d // TILE)
     rows = 1 if 4 * d <= W0_L2_BYTES else min(ROWS, m)
-    if tiles * -(-m // rows) < sms * blocks_per_sm:
+    if tiles * elements * -(-m // rows) < sms * blocks_per_sm:
         rows = 1
-    return TILE, rows, tiles * -(-m // rows)
+    return TILE, rows, tiles * elements * -(-m // rows)
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,37 +108,40 @@ def check_out(out, w, w0, grad, momentum) -> tuple[torch.Tensor, torch.Tensor]:
     return w_out, m_out
 
 
-def prox_sgd(w, w0, grad, momentum, eta: float, lam: float, mu: float, *, out=None):
-    """w, grad, momentum (M, d) or (d,) f32; w0 the same shape or (d,).
+def prox_sgd(w, w0, grad, momentum, coeffs, *, out=None):
+    """w, grad, momentum (R, d) or (d,) f32: the rows of E elements of R/E
+    rows each; w0 (E, d) f32, the global model of each element ((d,) for
+    E = 1; (R, d) gives every row its own); coeffs (E, 3) f32, each
+    element's ``(eta, lam, mu)``, or (1, 3) for all, on w's device.
     Returns (w_new, momentum_new), written into ``out`` when it is given."""
     d = w.shape[-1]
-    for name, t in (("w", w), ("grad", grad), ("momentum", momentum), ("w0", w0)):
+    for name, t in (("w", w), ("grad", grad), ("momentum", momentum), ("w0", w0), ("coeffs", coeffs)):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != w.device:
             raise ValueError(f"{name}: need contiguous f32 on {w.device}")
     if grad.shape != w.shape or momentum.shape != w.shape:
         raise ValueError("grad and momentum must match w's shape")
-    if w0.shape == w.shape:
-        w0_stride = d
-    elif w0.shape == (d,):
-        w0_stride = 0
-    else:
-        raise ValueError(f"w0 must be {tuple(w.shape)} or ({d},), got {tuple(w0.shape)}")
+    if w0.dim() not in (1, 2) or w0.shape[-1] != d:
+        raise ValueError(f"w0 must be ({d},) or (E, {d}), got {tuple(w0.shape)}")
+    rows = w.numel() // d
+    elements = w0.numel() // d
+    per = ref.element_rows(rows, elements)
+    if coeffs.dim() != 2 or coeffs.shape[1] != 3 or coeffs.shape[0] not in (1, elements):
+        raise ValueError(f"coeffs must be (1, 3) or ({elements}, 3), got {tuple(coeffs.shape)}")
     if out is not None:
         out = check_out(out, w, w0, grad, momentum)
     if w.device.type == "cpu":
-        return ref.prox_sgd_ref(w, w0, grad, momentum, eta, lam, mu, out=out)
+        return ref.prox_sgd_ref(w, w0, grad, momentum, coeffs, out=out)
     if w.device.type != "cuda":
         raise ValueError(f"unsupported device {w.device}")
     w_out, m_out = out if out is not None else (torch.empty_like(w), torch.empty_like(w))
-    rows = w.numel() // d
-    shared = w0_stride == 0
-    tile, group_rows, ctas = launch_geometry(rows, d, *occupancy(w.device.index or 0, shared))
+    shared = per > 1
+    tile, group_rows, ctas = launch_geometry(per, d, *occupancy(w.device.index or 0, shared), elements)
     streams = (w, grad, momentum, w_out, m_out) + (() if shared else (w0,))
     vector = len({t.data_ptr() % 16 for t in streams}) == 1
     lib = _build.library("prox_sgd")
     rc = lib.probit_prox_sgd(
         w.data_ptr(), w0.data_ptr(), grad.data_ptr(), momentum.data_ptr(), w_out.data_ptr(), m_out.data_ptr(),
-        eta, lam, mu, rows, d, w0_stride, tile, group_rows, ctas, int(vector),
+        coeffs.data_ptr(), 3 if coeffs.shape[0] > 1 else 0, rows, d, per, tile, group_rows, ctas, int(vector),
         torch.cuda.current_stream(w.device).cuda_stream,
     )
     _build.check(rc, "prox_sgd")

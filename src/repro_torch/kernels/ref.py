@@ -5,13 +5,29 @@ what its kernel computes, with the same f32 operation order, so the kernel
 can be held to it bit for bit on the card. The CPU path and the tests run
 these; on a CUDA tensor nothing on the main path calls them unless
 ``engine="ref"`` is passed explicitly.
+
+Each takes a group of E elements (a campaign group's (cell, seed) runs)
+in one call: the rows of element ``e`` are rows ``e * R/E .. (e+1) * R/E - 1``
+of the ``R`` rows given, and each element has its own range ``b``, its own
+global model ``w0`` and its own step coefficients. E = 1 is the single
+run.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.quantizer import _pack_bool_lastdim, binarize_prob, packed_counts
+from ..core.quantizer import _pack_bool_lastdim, _unpack_lastdim, binarize_prob
+
+__all__ = ["element_rows", "stoch_quant_compress_ref", "bit_aggregate_ref", "prox_sgd_ref"]
+
+
+def element_rows(rows: int, elements: int) -> int:
+    """Rows of one element when ``rows`` rows split into ``elements``
+    equal elements; raises when they do not."""
+    if elements < 1 or rows % elements:
+        raise ValueError(f"{rows} rows do not split into {elements} elements")
+    return rows // elements
 
 
 def stoch_quant_compress_ref(
@@ -24,13 +40,16 @@ def stoch_quant_compress_ref(
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """EF-add + Eq.-5 binarize + LSB-first 8:1 pack (kernels B1 and B2).
 
-    ``delta``/``uniforms`` (..., N) f32 with N % 8 == 0, ``b`` broadcast
-    against them. Returns ((..., N/8) uint8, the next EF carry
-    ``eff - c * b`` or None).
+    ``delta``/``uniforms`` (R, N) f32 with N % 8 == 0; ``b`` (N,), or
+    (E, N) with row ``r`` ranged by ``b[r // (R/E)]``. Returns
+    ((R, N/8) uint8, the next EF carry ``eff - c * b`` or None).
     """
     eff = delta.float()
     if residual is not None:
         eff = eff + residual.float()
+    if b.dim() == 2:
+        per = element_rows(eff.shape[0], b.shape[0])
+        b = b.repeat_interleave(per, dim=0) if b.shape[0] > 1 else b
     b = torch.broadcast_to(b, eff.shape).float()
     bits = uniforms < binarize_prob(eff, b)
     packed = _pack_bool_lastdim(bits)
@@ -42,26 +61,42 @@ def stoch_quant_compress_ref(
 def bit_aggregate_ref(packed: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Vote-count M clients' packed codes, then the Eq.-13 estimate (B3).
 
-    packed (M, P) uint8, b (N,) f32 with N <= 8P -> theta_hat (N,) f32.
+    packed (M, P) uint8 and b (N,) f32 with N <= 8P -> theta_hat (N,) f32;
+    or a group, packed (E, M, P) and b (E, N) -> (E, N), each element
+    counted over its own M rows.
     """
     from ..core.aggregation import ml_estimate_from_counts
 
-    counts = packed_counts(packed)[: b.shape[0]]
-    return ml_estimate_from_counts(counts, packed.shape[0], b)
+    counts = _unpack_lastdim(packed).sum(-2, dtype=torch.int32)[..., : b.shape[-1]]
+    return ml_estimate_from_counts(counts, packed.shape[-2], b)
 
 
-def prox_sgd_ref(w, w0, grad, momentum, eta: float, lam: float, mu: float, *, out=None):
+def prox_sgd_ref(w, w0, grad, momentum, coeffs, *, out=None):
     """Fused prox-regularized SGD+momentum step (Eq. 4 local solver, B4).
 
+    w, grad, momentum (R, d); w0 (E, d), the global model of each of E
+    elements of R/E rows (a (d,) row is one element); coeffs (E, 3) or
+    (1, 3) f32, each element's ``(eta, lam, mu)``.
     g = grad + lam (w - w0); m' = mu m + g; w' = w - eta m' — one rounding
     per operation, no fused multiply-add. ``out=(w_out, m_out)`` receives
     the result; ``w_out`` may be ``w`` and ``m_out`` ``momentum`` (m' is
     written after g is formed and before w' reads it, w' last).
     """
-    g = grad + lam * (w - w0)
+    d = w.shape[-1]
+    w0 = w0.reshape(-1, d)
+    e = w0.shape[0]
+    per = element_rows(w.numel() // d, e)
+    shape = (e, per, d)
+
+    def by_element(t):
+        return t.reshape(shape)
+
+    eta, lam, mu = (coeffs[:, k].reshape(-1, 1, 1) for k in range(3))
+    g = by_element(grad) + lam * (by_element(w) - w0.unsqueeze(1))
     if out is None:
-        new_m = mu * momentum + g
-        return w - eta * new_m, new_m
+        new_m = mu * by_element(momentum) + g
+        return (by_element(w) - eta * new_m).reshape(w.shape), new_m.reshape(w.shape)
     w_out, m_out = out
-    torch.add(mu * momentum, g, out=m_out)
-    return torch.sub(w, eta * m_out, out=w_out), m_out
+    torch.add(mu * by_element(momentum), g, out=by_element(m_out))
+    torch.sub(by_element(w), eta * by_element(m_out), out=by_element(w_out))
+    return w_out, m_out

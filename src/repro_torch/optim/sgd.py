@@ -2,13 +2,21 @@
 
 Counterpart of ``repro/optim/sgd.py: local_prox_train``. Clients minimize
 ``f_m(w) + (lam/2) ||w - w_g||^2`` with momentum SGD. The reference vmaps
-one client's ``lax.scan``; here the whole cohort steps together: each local
-step takes one autograd gradient for all M clients (their losses are
+one client's ``lax.scan`` (and its campaign engine vmaps that over (cell,
+seed) elements); here every client row of one or more runs steps together:
+each local step takes one autograd gradient for all rows (their losses are
 independent, so the gradient of their sum is every client's own) and one
-fused prox step on the ``(M, d)`` cohort through ``ops.prox_sgd``: with
-``use_kernel`` one launch of the ``prox_sgd`` kernel on a CUDA tensor,
-without it the plain version (``engine="ref"``) on any device. The step
-updates the cohort's weights and momentum in place (JAX returns new
+fused prox step on them through ``ops.prox_sgd``: with ``use_kernel`` one
+launch of the ``prox_sgd`` kernel on a CUDA tensor, without it the plain
+version (``engine="ref"``) on any device. A group of E runs (a campaign
+group) passes each run's global model as a row of ``w0`` (E, d) and its
+``lr``, ``mu`` and ``lam`` as (E,) tensors; its rows are the E cohorts one
+after another. Each run's losses and gradient are taken on its own rows,
+a view of the group's plane: on the card a run's gradient computed among
+all E runs' rows differs from the run's own in the last bits (the GEMM
+kernels and reductions follow the batch's shape), while on its own rows it
+is the single run's bit for bit; the prox step is one launch for the
+group. The step updates the weights and momentum in place (JAX returns new
 arrays; the values are the same), and never writes into ``w_init``.
 """
 
@@ -30,9 +38,9 @@ def local_prox_train(
     unravel: Callable,
     batches: dict,
     *,
-    lr: float,
-    mu: float,
-    lam: float,
+    lr,
+    mu,
+    lam,
     use_kernel: bool = False,
     engine: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -40,30 +48,53 @@ def local_prox_train(
 
     ``w0_flat`` (d,) is the global model, ``w_init`` (M, d) the clients'
     starting points, ``batches`` leaves ``(M, n_steps, batch, ...)``;
-    ``loss_fn(params, batch)`` returns one loss per client. Returns
+    ``loss_fn(params, batch)`` returns one loss per client. ``lr``, ``mu``
+    and ``lam`` are numbers. For a group of E runs, ``w0_flat`` is (E, d),
+    ``w_init`` and the batches hold the E cohorts' rows one after another
+    (each run's losses and gradient taken on its own rows), and ``lr``,
+    ``mu`` and ``lam`` are (E,) f32 tensors. Returns
     ``(w_final (M, d), loss_first (M,), loss_last (M,))``: the loss before
     training on the first batch and after it on the last, the two values
     the dynamic-b controller's loss bit compares.
     """
     n_steps = next(iter(batches.values())).shape[1]
+    coeffs = kops.prox_coeffs(lr, lam, mu, w_init.device)
+    runs = w0_flat.numel() // w0_flat.shape[-1]
+    per = w_init.shape[0] // runs
+    spans = [slice(i * per, (i + 1) * per) for i in range(runs)]
 
     def step_batch(s):
         return {k: v[:, s] for k, v in batches.items()}
 
+    def run_batch(batch, span):
+        return {k: v[span] for k, v in batch.items()}
+
     def data_loss(w, batch):
-        return loss_fn(unravel(w), batch)
+        losses = [loss_fn(unravel(w[span]), run_batch(batch, span)) for span in spans]
+        return losses[0] if runs == 1 else torch.cat(losses)
+
+    # a group's gradient: one buffer for every step, written a run's rows at a time
+    g = torch.empty_like(w_init) if runs > 1 else None
+
+    def gradient(w, batch):
+        for span in spans:
+            wg = w[span].detach().requires_grad_(True)
+            grad = torch.autograd.grad(loss_fn(unravel(wg), run_batch(batch, span)).sum(), wg)[0]
+            if g is None:
+                return grad
+            g[span] = grad
+        return g
 
     with torch.no_grad():
         loss_before = data_loss(w_init, step_batch(0))
     w = w_init
     m = torch.zeros_like(w_init)
     for s in range(n_steps):
-        wg = w.detach().requires_grad_(True)
-        (g,) = torch.autograd.grad(data_loss(wg, step_batch(s)).sum(), wg)
+        g = gradient(w, step_batch(s))
         # in place from step 1 on; step 0 writes a fresh buffer, since the
         # caller still holds w_init
         w_out = w if s else torch.empty_like(w_init)
-        w, m = kops.prox_sgd(w, w0_flat, g, m, lr, lam, mu, out=(w_out, m),
+        w, m = kops.prox_sgd(w, w0_flat, g, m, coeffs, out=(w_out, m),
                              engine=engine if use_kernel else "ref")
     with torch.no_grad():
         loss_after = data_loss(w, step_batch(n_steps - 1))

@@ -54,8 +54,9 @@ def test_kernels_equal_plain_versions(dev, d, m):
     w, g = torch.randn(m, d, generator=gen, device=dev), torch.randn(m, d, generator=gen, device=dev)
     mom = torch.randn(m, d, generator=gen, device=dev)
     for w0 in (w[0].contiguous(), 0.9 * w):
-        got = prox_sgd(w, w0, g, mom, 0.01, 0.2, 0.5)
-        want = ref.prox_sgd_ref(w, w0, g, mom, 0.01, 0.2, 0.5)
+        coeffs = ops.prox_coeffs(0.01, 0.2, 0.5, dev)
+        got = prox_sgd(w, w0, g, mom, coeffs)
+        want = ref.prox_sgd_ref(w, w0, g, mom, coeffs)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -78,37 +79,37 @@ def test_prox_sgd_equals_plain_version_at_every_alignment(dev, d, m):
     off its boundary (the wrapper then takes the scalar path)."""
     from repro_torch.kernels.prox_sgd import launch_geometry, occupancy, prox_sgd
 
-    coeffs = (0.01, 0.2, 0.5)
+    coeffs = ops.prox_coeffs(0.01, 0.2, 0.5, dev)
     gen = torch.Generator(device=dev).manual_seed(d * 1000 + m)
     w, g, mom = (torch.randn(m, d, generator=gen, device=dev) for _ in range(3))
     lib = _build.library("prox_sgd")
     stream = torch.cuda.current_stream(dev).cuda_stream
     for w0, form in _prox_cases(w, g, mom):
-        want = ref.prox_sgd_ref(w, w0, g, mom, *coeffs)
+        want = ref.prox_sgd_ref(w, w0, g, mom, coeffs)
 
         def same(got):
             return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
-        assert same(prox_sgd(w, w0, g, mom, *coeffs)), form
+        assert same(prox_sgd(w, w0, g, mom, coeffs)), form
         w_io, m_io = w.clone(), mom.clone()
-        assert same(prox_sgd(w_io, w0, g, m_io, *coeffs, out=(w_io, m_io))), form
+        assert same(prox_sgd(w_io, w0, g, m_io, coeffs, out=(w_io, m_io))), form
         shared = form == "shared"
         chosen = launch_geometry(m, d, *occupancy(dev.index, shared))
         for geometry in (chosen, (2048, 1, 1), (2048, 3, 5), (1024, 100, 2), (8192, 2, 1000), (4, 5, 7)):
             for vector in (1, 0):
                 outs = (torch.full_like(w, float("nan")), torch.full_like(w, float("nan")))
                 rc = lib.probit_prox_sgd(w.data_ptr(), w0.data_ptr(), g.data_ptr(), mom.data_ptr(),
-                                         outs[0].data_ptr(), outs[1].data_ptr(), *coeffs, m, d,
-                                         0 if shared else d, *geometry, vector, stream)
+                                         outs[0].data_ptr(), outs[1].data_ptr(), coeffs.data_ptr(), 0, m, d,
+                                         m if shared else 1, *geometry, vector, stream)
                 assert rc == 0 and same(outs), (form, geometry, vector)
         flats = [torch.empty(m * d + 1, device=dev) for _ in range(6)]
         views = [f[1:].view(m, d) for f in flats]
         for v, src in zip(views, (w, g, mom, w, mom, w0.expand(m, d))):
             v.copy_(src)
         w0_off = w0 if shared else views[5]
-        assert same(prox_sgd(views[0], w0_off, views[1], views[2], *coeffs)), form
-        assert same(prox_sgd(views[3], w0_off, views[1], views[4], *coeffs, out=(views[3], views[4]))), form
-        assert same(prox_sgd(views[0], w0, g, mom, *coeffs)), form
+        assert same(prox_sgd(views[0], w0_off, views[1], views[2], coeffs)), form
+        assert same(prox_sgd(views[3], w0_off, views[1], views[4], coeffs, out=(views[3], views[4]))), form
+        assert same(prox_sgd(views[0], w0, g, mom, coeffs)), form
 
 
 @pytest.mark.parametrize("m", [1, 8])
@@ -117,15 +118,15 @@ def test_prox_sgd_at_resnet_width(dev, m):
     forms, out of place and in place."""
     from repro_torch.kernels.prox_sgd import prox_sgd
 
-    d, coeffs = 11_172_042, (0.01, 0.2, 0.5)
+    d, coeffs = 11_172_042, ops.prox_coeffs(0.01, 0.2, 0.5, dev)
     gen = torch.Generator(device=dev).manual_seed(m)
     w, g, mom = (torch.randn(m, d, generator=gen, device=dev) for _ in range(3))
     for w0, form in _prox_cases(w, g, mom):
-        want = ref.prox_sgd_ref(w, w0, g, mom, *coeffs)
-        got = prox_sgd(w, w0, g, mom, *coeffs)
+        want = ref.prox_sgd_ref(w, w0, g, mom, coeffs)
+        got = prox_sgd(w, w0, g, mom, coeffs)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), form
         w_io, m_io = w.clone(), mom.clone()
-        prox_sgd(w_io, w0, g, m_io, *coeffs, out=(w_io, m_io))
+        prox_sgd(w_io, w0, g, m_io, coeffs, out=(w_io, m_io))
         assert torch.equal(w_io, want[0]) and torch.equal(m_io, want[1]), form
 
 
@@ -418,3 +419,156 @@ def test_async_and_stream_rounds_on_kernels_equal_plain_versions(dev, kw, launch
     if "async_buffer" in kw:
         for f in ("buf_rows", "buf_age", "buf_valid", "buf_owner"):
             assert torch.equal(getattr(ks, f), getattr(ps, f)), f
+
+
+@pytest.mark.parametrize("e", [1, 3, 8])
+def test_batched_kernels_equal_plain_versions(dev, e):
+    """Each kernel over a group of E runs in one launch, each run with its
+    own range b, its own counts and estimate, its own w0 row and (eta, lam,
+    mu), bit for bit against the plain versions: B1/B2 and B3 at 5 clients a
+    run, B4 at 5 rows a run (and at ResNet-18's width, where units take two
+    rows, 3 rows a run: a row group does not divide the run) through the
+    wrapper and the C entry at other geometries."""
+    from repro_torch.kernels.bit_aggregate import bit_aggregate
+    from repro_torch.kernels.prox_sgd import prox_sgd
+    from repro_torch.kernels.stoch_quant import stoch_quant_ef, stoch_quant_pack
+
+    gen = torch.Generator(device=dev).manual_seed(e)
+    m, d = 5, 40522
+    d_pad = ops.padded_len(d)
+    b = F.pad(0.005 + 0.02 * torch.rand(e, d, generator=gen, device=dev), (0, d_pad - d), value=1.0)
+    delta = F.pad(0.02 * torch.randn(e * m, d, generator=gen, device=dev), (0, d_pad - d), value=-1.0)
+    u = F.pad(torch.rand(e * m, d, generator=gen, device=dev), (0, d_pad - d), value=1.0)
+    res = F.pad(0.005 * torch.randn(e * m, d, generator=gen, device=dev), (0, d_pad - d))
+    packed = stoch_quant_pack(delta, b, u)
+    assert torch.equal(packed, ref.stoch_quant_compress_ref(delta, b, u)[0])
+    got = stoch_quant_ef(delta, res, b, u)
+    want = ref.stoch_quant_compress_ref(delta, b, u, res, want_residual=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    wire = packed.view(e, m, -1)
+    assert torch.equal(bit_aggregate(wire, b[:, :d].contiguous()), ref.bit_aggregate_ref(wire, b[:, :d]))
+    for i in range(e):
+        assert torch.equal(bit_aggregate(wire[i].contiguous(), b[i, :d].contiguous()),
+                           ref.bit_aggregate_ref(wire, b[:, :d])[i])
+    lib = _build.library("prox_sgd")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    coeffs = torch.stack([0.01 + 0.01 * torch.arange(e, device=dev), 0.2 * (torch.arange(e, device=dev) % 2),
+                          torch.full((e,), 0.5, device=dev)], -1).contiguous()
+    for rows, width in ((5, 4099), (3, 11_172_042)):
+        w, g, mom = (torch.randn(e * rows, width, generator=gen, device=dev) for _ in range(3))
+        w0 = torch.randn(e, width, generator=gen, device=dev)
+        want = ref.prox_sgd_ref(w, w0, g, mom, coeffs)
+        got = prox_sgd(w, w0, g, mom, coeffs)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (rows, width)
+        w_io, m_io = w.clone(), mom.clone()
+        prox_sgd(w_io, w0, g, m_io, coeffs, out=(w_io, m_io))
+        assert torch.equal(w_io, want[0]) and torch.equal(m_io, want[1]), (rows, width)
+        for geometry in ((2048, 1, 1), (2048, 2, 7), (1024, 4, 64)):
+            w_out, m_out = torch.full_like(w, float("nan")), torch.full_like(w, float("nan"))
+            rc = lib.probit_prox_sgd(w.data_ptr(), w0.data_ptr(), g.data_ptr(), mom.data_ptr(), w_out.data_ptr(),
+                                     m_out.data_ptr(), coeffs.data_ptr(), 3, e * rows, width, rows, *geometry, 1,
+                                     stream)
+            assert rc == 0 and torch.equal(w_out, want[0]) and torch.equal(m_out, want[1]), (rows, width, geometry)
+        del w, g, mom, w0, want, got, w_io, m_io, w_out, m_out
+
+
+def test_campaign_on_kernels_equals_plain_versions(dev):
+    """A small campaign on the card through the kernels equals its
+    engine='ref' rerun exactly (every metric of every round and each run's
+    final global model), and each batched synchronous group launches B1
+    (B2 with error feedback) and B3 once a round and B4 once a local step
+    for all its runs; the fused M-sweep counts with the weighted plain
+    count (no B3), the asynchronous group runs one run at a time."""
+    from repro_torch.data import make_classification, partition_label_skew
+    from repro_torch.models import accuracy, init_mlp, mlp_logits, xent_loss
+    from repro_torch.sim import CampaignSpec, CellSpec, Task, plan_campaign
+    from repro_torch.sim import campaign as campaign_mod
+    from repro_torch.sim.plan import CompileCache
+
+    (xtr, ytr), (xte, yte) = make_classification(0, n_train=600, n_test=100)
+    p0 = init_mlp(prng.key(0), hidden=16)
+
+    @functools.lru_cache(maxsize=None)
+    def data(m):
+        parts = partition_label_skew(ytr, m, 2, 20, seed=1)
+        return np.stack([xtr[i] for i in parts]), np.stack([ytr[i] for i in parts])
+
+    spec = CampaignSpec(
+        base=dict(rounds=2, local_epochs=2, use_kernels=True),
+        cells=(CellSpec("gauss", {"n_clients": 6, "byz_frac": 0.34, "attack": "gaussian"}),
+               CellSpec("flip", {"n_clients": 6, "byz_frac": 0.34, "attack": "bit_flip", "lr": 0.02}),
+               CellSpec("ef", {"n_clients": 6, "error_feedback": True}),
+               CellSpec("M4", {"n_clients": 4}), CellSpec("M5", {"n_clients": 5}),
+               CellSpec("async", {"n_clients": 6, "async_buffer": 6, "async_latency": 1.0})),
+        seeds=(0, 1))
+    plan = plan_campaign(spec)
+    cfgs = spec.configs()
+    steps = 2 * 20 // 10
+    runs = {}
+    for engine in (None, "ref"):
+        def task_fn(cfg):
+            cx, cy = data(cfg.n_clients)
+            return Task(p0, functools.partial(xent_loss, mlp_logits), functools.partial(accuracy, mlp_logits),
+                        cx, cy, {"x": xte, "y": yte}, device=dev, engine=engine)
+
+        for group in plan.groups:
+            prepare, args, *_ = campaign_mod._prepare_group(group, cfgs, spec, task_fn, with_acc=True, shard=False,
+                                                            cache=CompileCache())
+            runner = prepare(*args)
+            _build.reset_launches()
+            traj, final = runner.run()
+            torch.cuda.synchronize()
+            runs[engine, group.cell_idx] = (traj, final, dict(_build.launches))
+    for group in plan.groups:
+        (kt, kf, kl), (rt, rf, rl) = runs[None, group.cell_idx], runs["ref", group.cell_idx]
+        assert rl == {}
+        assert torch.equal(kf, rf) and set(kt) == set(rt)
+        for name in kt:
+            assert torch.equal(kt[name], rt[name]), (group.cell_idx, name)
+        names = {spec.cells[i].name for i in group.cell_idx}
+        e = len(group.cell_idx) * 2
+        if names == {"gauss", "flip"}:
+            assert kl == {"stoch_quant_pack": 2, "bit_aggregate": 2, "prox_sgd": 2 * steps}
+        elif names == {"ef"}:
+            assert kl == {"stoch_quant_ef": 2, "bit_aggregate": 2, "prox_sgd": 2 * steps}
+        elif names == {"M4", "M5"}:
+            assert group.fused and kl == {"stoch_quant_pack": 2, "prox_sgd": 2 * steps}
+        else:
+            assert kl == {"stoch_quant_pack": 2 * e, "prox_sgd": 2 * steps * e}
+
+
+def test_campaign_cache_keeps_no_client_planes_on_card(dev):
+    """Two identical campaigns through one preparation cache: the second
+    prepares nothing and leaves the card's allocated memory where the first
+    left it, and what the cache keeps (contexts, params, keys, data) is less
+    than one (E, M, d) plane of the group's runs: the runs' states are made
+    when a group runs and released with it."""
+    from repro_torch.models import accuracy, init_mlp, mlp_logits, xent_loss
+    from repro_torch.sim import CampaignSpec, CellSpec, Task, run_campaign
+    from repro_torch.sim.plan import CompileCache
+
+    gen = np.random.default_rng(0)
+    m, per, e = 10, 20, 4
+    cx = gen.standard_normal((m, per, 784)).astype(np.float32)
+    cy = gen.integers(0, 10, (m, per)).astype(np.int64)
+    test = {"x": gen.standard_normal((50, 784)).astype(np.float32), "y": gen.integers(0, 10, 50).astype(np.int64)}
+    p0 = init_mlp(prng.key(0), hidden=128)
+    d = 784 * 128 + 128 + 128 * 128 + 128 + 128 * 10 + 10
+
+    def task_fn(cfg):
+        return Task(p0, functools.partial(xent_loss, mlp_logits), functools.partial(accuracy, mlp_logits),
+                    cx, cy, test, device=dev)
+
+    spec = CampaignSpec(base=dict(n_clients=m, rounds=1, local_epochs=1, use_kernels=True),
+                        cells=(CellSpec("a"), CellSpec("lr", {"lr": 0.02})), seeds=(0, 1))
+    cache = CompileCache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    run_campaign(spec, task_fn, compile_cache=cache)
+    torch.cuda.synchronize()
+    after_first = torch.cuda.memory_allocated(dev)
+    run_campaign(spec, task_fn, compile_cache=cache)
+    torch.cuda.synchronize()
+    assert cache.lowerings == 1 and cache.hits == 1
+    assert torch.cuda.memory_allocated(dev) == after_first
+    assert after_first - before < e * m * d * 4

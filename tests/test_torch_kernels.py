@@ -223,7 +223,7 @@ def test_prox_sgd(n, shared_w0):
     mom = _rand((m, n), 3, 0.1)
     w0 = 0.9 * w[0] if shared_w0 else 0.9 * w
     eta, lam, mu = 0.01, 0.2, 0.5
-    tw, tm = ops.prox_sgd(*(torch.from_numpy(x) for x in (w, w0, g, mom)), eta, lam, mu)
+    tw, tm = ops.prox_sgd(*(torch.from_numpy(x) for x in (w, w0, g, mom)), ops.prox_coeffs(eta, lam, mu))
     f32 = np.float32
     gt = g + f32(lam) * (w - w0)
     nm = f32(mu) * mom + gt
@@ -300,14 +300,15 @@ def test_prox_sgd_in_place_equals_out_of_place(shared_w0):
     w0 = 0.9 * w[0] if shared_w0 else 0.9 * w
     eta, lam, mu = 0.01, 0.2, 0.5
     tw, tg, tm, tw0 = (torch.from_numpy(x.copy()) for x in (w, g, mom, w0))
-    want_w, want_m = ops.prox_sgd(tw, tw0, tg, tm, eta, lam, mu)
+    coeffs = ops.prox_coeffs(eta, lam, mu)
+    want_w, want_m = ops.prox_sgd(tw, tw0, tg, tm, coeffs)
     for prox in (ops.prox_sgd, prox_sgd_wrapper):
         w_io, m_io = tw.clone(), tm.clone()
-        got = prox(w_io, tw0, tg, m_io, eta, lam, mu, out=(w_io, m_io))
+        got = prox(w_io, tw0, tg, m_io, coeffs, out=(w_io, m_io))
         assert got[0] is w_io and got[1] is m_io
         assert torch.equal(w_io, want_w) and torch.equal(m_io, want_m)
     fresh = (torch.empty_like(tw), torch.empty_like(tw))
-    assert ops.prox_sgd(tw, tw0, tg, tm, eta, lam, mu, out=fresh, engine="ref")[0] is fresh[0]
+    assert ops.prox_sgd(tw, tw0, tg, tm, coeffs, out=fresh, engine="ref")[0] is fresh[0]
     assert torch.equal(fresh[0], want_w) and torch.equal(fresh[1], want_m)
     assert torch.equal(tw, torch.from_numpy(w)) and torch.equal(tm, torch.from_numpy(mom))
     jw, jm = jax.vmap(lambda *a: jops.prox_sgd(*a, eta, lam, mu, engine="ref"))(
@@ -342,7 +343,7 @@ def test_prox_sgd_out_rejects_other_aliases():
     for w0, out in bad:
         for prox in (ops.prox_sgd, prox_sgd_wrapper):
             with pytest.raises(ValueError):
-                prox(w, w0.contiguous(), g, mom, 0.01, 0.2, 0.5, out=out)
+                prox(w, w0.contiguous(), g, mom, ops.prox_coeffs(0.01, 0.2, 0.5), out=out)
 
 
 def test_wrappers_take_plain_version_on_cpu_tensors():
@@ -361,8 +362,9 @@ def test_wrappers_take_plain_version_on_cpu_tensors():
     packed = got[0]
     assert torch.equal(bit_aggregate_wrapper(packed, b), ref.bit_aggregate_ref(packed, b))
     w = delta[:, :1000].contiguous()
-    pw = prox_sgd_wrapper(w, w[0].contiguous(), w, w, 0.01, 0.2, 0.5)
-    rw = ref.prox_sgd_ref(w, w[0], w, w, 0.01, 0.2, 0.5)
+    coeffs = ops.prox_coeffs(0.01, 0.2, 0.5)
+    pw = prox_sgd_wrapper(w, w[0].contiguous(), w, w, coeffs)
+    rw = ref.prox_sgd_ref(w, w[0], w, w, coeffs)
     assert torch.equal(pw[0], rw[0]) and torch.equal(pw[1], rw[1])
     assert sum(_build.launches.values()) == 0
 
@@ -381,7 +383,8 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         bit_aggregate_wrapper(torch.zeros(2, 4, 1, dtype=torch.uint8), torch.zeros(31))
     with pytest.raises(ValueError):
-        prox_sgd_wrapper(torch.zeros(2, 5), torch.zeros(4), torch.zeros(2, 5), torch.zeros(2, 5), 0.1, 0.1, 0.1)
+        prox_sgd_wrapper(torch.zeros(2, 5), torch.zeros(4), torch.zeros(2, 5), torch.zeros(2, 5),
+                         ops.prox_coeffs(0.1, 0.1, 0.1))
 
 
 def test_build_dir_is_the_checkout_or_the_variable(monkeypatch, tmp_path):
