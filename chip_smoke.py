@@ -25,6 +25,9 @@ Phases (any failure raises and exits non-zero before the result line):
    kernel in its batched form, one launch for a group of E in {1, 3, 8}
    runs, each with its own range b, w0 row and coefficients (B4 also at
    ResNet-18's width with 3 rows a run, which its row groups do not divide);
+   and B1 through ``ops.quant_pack_u`` on top-k row sets (k = 11,828 and 99,
+   not multiples of 8, one b row a client), and the sparse compressor's
+   kernel wire against its plain one;
 4. main path: ``FLSimulation`` with probit_plus, dynamic b and the kernels,
    on the paper's MLP at its default width (hidden 128, d = 118,282) with
    100 clients, 3 rounds in each of four variants: (a) plain, (b) error
@@ -78,6 +81,7 @@ Phases (any failure raises and exits non-zero before the result line):
    11,172,042 and at M * d ~ 1.1e9 with 1,000 and 10,000 clients, beside
    PyTorch's fused SGD on the same tensors, and at both main shapes every
    candidate geometry of ``b4_candidates`` and the old out-of-place call;
+   B1 at the top-k wire's shape (M = 100 rows of k = 11,828 values);
    and the grid's plain-torch stages (FedAvg, Fed-GM's 16 Weiszfeld steps,
    the sign wire and its counts, the oracle range, the gaussian attack's
    draw) at the main path's shapes, each as device time (one call captured
@@ -98,6 +102,19 @@ Phases (any failure raises and exits non-zero before the result line):
    sequential runs'; first, whether a run's gradient among a group's rows
    equals its own (``campaign_model_rows``). It runs between phases 4d and
    5, and phase 5 also times each kernel's batched call at E = 8, M = 100;
+8. wires and trees (WIRES_TREES, after phase 7), on the main path's MLP
+   and cohort, 3 rounds: the 2- and 4-bit wires, the 4-bit wire under DP
+   (randomized response; the rr_gamma range printed), mixed widths and all
+   one bit (``client_bits``, without the kernels), top-k with and without
+   error feedback, and the count trees: a sum tree of 4 edges in chunks of
+   25 (equal to 4d's (g) in theta and b), median and trimmed merges and a
+   buffered root, each under a Byzantine edge, and the sum tree on the
+   4-bit wire. Each run has its own launch counts (B4 a local step of each
+   chunk, B1 once a chunk on the one-bit wire and once a round on the top-k
+   wire, never on the k-bit wire; B3 never) and equals its
+   ``engine="ref"`` rerun in every round; each prints its round times, its
+   wire bytes a row and its peak memory (the ``"phase": "wires_trees"``
+   lines);
 6. with ``--profile`` only: (a) on the MLP and on ``resnet18w64-m100``:
    the device busy share as nvidia-smi reads it over unprofiled rounds and
    as the union of the kernels' records of one round under
@@ -130,6 +147,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
 MAIN = dict(n_clients=100, per_client=100, hidden=128, rounds=3, local_epochs=2, batch_size=10)
+# The FLConfig fields every main-path run sets (make_sim), besides its variant's.
+MAIN_CFG = {"n_clients": MAIN["n_clients"], "rounds": MAIN["rounds"], "local_epochs": MAIN["local_epochs"],
+            "batch_size": MAIN["batch_size"], "use_kernels": True, "aggregator": "probit_plus", "b_mode": "dynamic"}
 VARIANTS = {
     "a": {},
     "b": {"error_feedback": True},
@@ -167,6 +187,29 @@ ASYNC_STREAM = {
 # a time: a cohort whose dense round would not fit in the card's memory.
 RESNET_STREAM = ("resnet18w64-m300-stream", "resnet18w64-m100",
                  {"n_clients": 300, "client_chunk": 50, "stateless_clients": True, "rounds": 2})
+# Phase 8: the k-bit, mixed-width and top-k wires and the count trees on the
+# main path's model and cohort: (k), (l) k-bit; (l-dp) the randomized-
+# response wire; (m) mixed widths and (m1) all one bit, both without the
+# kernels (the reference refuses client_bits with them); (n), (n-ef) top-k;
+# (o) a sum tree of 4 edges in chunks of 25, (o-med), (o-trim), (o-buf)
+# with a Byzantine edge, (o-k4) (o) on the 4-bit wire.
+TREE = {"tree_edges": 4, "client_chunk": 25}
+WIRES_TREES = {
+    "k": {"wire_bits": 2},
+    "l": {"wire_bits": 4},
+    "l-dp": {"wire_bits": 4, "dp_epsilon": 0.1},
+    "m": {"client_bits": (1,) * 50 + (2,) * 25 + (4,) * 25, "use_kernels": False},
+    "m1": {"client_bits": (1,) * 100, "use_kernels": False},
+    "n": {"topk_frac": 0.1},
+    "n-ef": {"topk_frac": 0.1, "error_feedback": True},
+    "o": TREE,
+    "o-med": {**TREE, "edge_merge": "median", "byz_edges": 1, "edge_attack": "edge_sign_flip"},
+    "o-trim": {**TREE, "edge_merge": "trimmed", "edge_trim": 1, "byz_edges": 1, "edge_attack": "edge_inflate"},
+    "o-buf": {**TREE, "edge_buffer": 2, "async_latency": 1.0, "staleness_decay": 0.5, "byz_edges": 1,
+              "edge_attack": "edge_replay"},
+    "o-k4": {**TREE, "wire_bits": 4},
+}
+TOPK_FRAC = 0.1
 KERNELS = {
     # name: (CUDA source, Pallas call it replaces)
     "stoch_quant_pack": ("src/repro_torch/kernels/csrc/stoch_quant.cu", "src/repro/kernels/stoch_quant.py:77"),
@@ -519,6 +562,41 @@ def check_batched(chk: Checker, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def check_topk_pack(chk: Checker, dev) -> None:
+    """Phase 3: B1 through ``ops.quant_pack_u`` on top-k row sets, one launch
+    for the cohort with one b row a client (E = M elements of one row
+    each), k not a multiple of 8: M = 100 at d = 118,282 (k = 11,828, the
+    main path's) and M = 7 at d = 997 (k = 99), each with tied magnitudes
+    across the k-th position, bit for bit against the plain version; and
+    the sparse compressor's kernel wire against its plain one (indices and
+    bytes)."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core import build_pipeline
+    from repro_torch.core.sparse import topk_indices
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    for m, d in ((100, 118_282), (7, 997)):
+        k = max(int(d * TOPK_FRAC), 1)
+        tag = f"top-k M={m} d={d} k={k}"
+        eff = 0.02 * torch.randn(m, d, generator=gen, device=dev)
+        eff[:, : d // 2] = torch.round(eff[:, : d // 2] * 100) / 100  # ties, zeros among them
+        b_vec = torch.full((d,), 0.01, device=dev)
+        idx = topk_indices(eff, k)
+        d_sel, b_sel = eff.gather(1, idx), b_vec[idx]
+        u = prng.uniform(prng.split(prng.key(3, dev), m), (k,))
+        got = ops.quant_pack_u(d_sel, b_sel, u, engine="cuda")
+        require(got.shape == (m, ops.padded_len(k) // 8), f"{tag}: shape {tuple(got.shape)}")
+        chk.same("stoch_quant_pack", got, ops.quant_pack_u(d_sel, b_sel, u, engine="ref"), tag)
+        wires = [build_pipeline("probit_plus", topk_frac=TOPK_FRAC, use_kernels=kern, engine=eng).compress_wire(
+            prng.key(5, dev), eff, torch.tensor(0.01, device=dev), torch.zeros_like(eff))[0]
+            for kern, eng in ((True, "cuda"), (False, None))]
+        chk.same("stoch_quant_pack", wires[0].packed, wires[1].packed, tag + " sparse wire vs plain compressor")
+        require(torch.equal(wires[0].indices, wires[1].indices), f"{tag}: indices differ")
+
+
 def _split_clients(x, y, n_clients: int):
     """Label-skew partition of a cohort (2 classes a client)."""
     import numpy as np
@@ -555,11 +633,7 @@ def _task(name: str = "mlp128-m100", dev=None, n_clients: int = MAIN["n_clients"
 def make_sim(dev, extra: dict, engine=None, task: str = "mlp128-m100"):
     from repro_torch.fl import FLConfig, FLSimulation
 
-    cfg = FLConfig(**{
-        "n_clients": MAIN["n_clients"], "rounds": MAIN["rounds"], "local_epochs": MAIN["local_epochs"],
-        "batch_size": MAIN["batch_size"], "use_kernels": True, "aggregator": "probit_plus", "b_mode": "dynamic",
-        **extra,
-    })
+    cfg = FLConfig(**{**MAIN_CFG, **extra})
     p0, cx, cy, test, loss_fn, acc_fn = _task(task, None if task == "mlp128-m100" else dev, cfg.n_clients)
     return FLSimulation(cfg, p0, loss_fn, acc_fn, cx, cy, test, device=dev, engine=engine)
 
@@ -733,6 +807,109 @@ def async_stream_runs(dev, main: dict, resnet_dense_peak_bytes: int) -> dict:
                       "loss": [r["loss"] for r in run["rounds"]], "b": [r["b"] for r in run["rounds"]],
                       "acc": run["acc"], "equal_rounds": extra["rounds"]}), flush=True)
     runs[name] = run
+    return runs
+
+
+def wires_trees_expected_launches(extra: dict) -> dict:
+    """One phase-8 run's launches. With the kernels: one prox step (B4) a
+    local step of each chunk (the whole cohort in a dense round); the
+    one-bit wire's pack kernel (B1) once a chunk, and the top-k wire's once
+    a round (``quant_pack_u``, the cohort's gathered values in one launch,
+    error feedback or not); no B1 on the k-bit wire and no vote count (B3)
+    anywhere: the reference has no kernel for the k-bit quantizer or the
+    k-bit, sparse and tree estimates. Without the kernels, none."""
+    rounds, n = MAIN["rounds"], MAIN["n_clients"]
+    steps = MAIN["local_epochs"] * MAIN["per_client"] // MAIN["batch_size"]
+    out = dict.fromkeys(KERNELS, 0)
+    if not extra.get("use_kernels", True):
+        return out
+    from repro_torch.fl.hierarchy import edge_slices
+
+    chunk = extra.get("client_chunk")
+    slices = edge_slices(n, extra.get("tree_edges") or 1)
+    chunks = sum(-(-n_e // (chunk or n_e)) for _, n_e in slices)
+    out["prox_sgd"] = rounds * chunks * steps
+    if extra.get("topk_frac", 1.0) < 1.0:
+        out["stoch_quant_pack"] = rounds
+    elif extra.get("wire_bits", 1) == 1:
+        out["stoch_quant_ef" if extra.get("error_feedback") else "stoch_quant_pack"] = rounds * chunks
+    return out
+
+
+def wire_row_bytes(cfg, d: int) -> float:
+    """Uplink bytes of a client's row as the run's wire carries it: the
+    top-k price (indices and codes), the mean over a mixed-width cohort, or
+    the compressor's padded row."""
+    from repro_torch.core.quantizer import padded_dim, wire_bytes
+
+    if cfg.topk_frac < 1.0:
+        return wire_bytes(d, topk_frac=cfg.topk_frac)
+    comp = cfg.pipeline().compressor
+    if cfg.client_bits:
+        d_pad = padded_dim(d, comp.chunk)
+        return sum(wire_bytes(d, k, d_pad=d_pad) for k in cfg.client_bits) / len(cfg.client_bits)
+    return comp.wire_bytes(d)
+
+
+def wires_trees_runs(dev, main: dict, stream: dict) -> dict:
+    """Phase 8: each WIRES_TREES variant through the kernels (where it has
+    any) and its engine="ref" rerun, with its launch counts, every round
+    equal to the rerun's (theta, loss, b), finite, b moving as the
+    controller moves it; (o) equal to phase 4d's (g) in theta and b, the
+    reference's zero-staleness claim (its loss sums edge by edge). (m1),
+    one group of one-bit clients, is (a)'s wire but the mixed-width merge's
+    ``sum_g w_g theta_g / sum_g w_g`` rounds twice: its first round's theta
+    is held within 2 ulps of (a)'s and the count of coordinates that differ
+    is printed. (l-dp) prints the randomized-response weight of each
+    round's range."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import rr_gamma
+    from repro_torch.fl import FLConfig
+
+    runs, t0 = {}, time.perf_counter()
+    for v, extra in WIRES_TREES.items():
+        tag = f"mlp128-m100/{v}"
+        run = run_sim(dev, v, extra)
+        ref = run_sim(dev, v, extra, engine="ref")
+        want = wires_trees_expected_launches(extra)
+        require(run["launches"] == want, f"{tag}: launches {run['launches']} != expected {want}")
+        check_against_ref(tag, run, ref, MAIN["rounds"])
+        check_main_path({tag: run}, FLConfig().b_init)
+        cfg = FLConfig(**{**MAIN_CFG, **extra})
+        line = {"phase": "wires_trees", "run": tag, "config": {k: (list(x) if isinstance(x, tuple) else x)
+                                                                for k, x in extra.items()},
+                "launches": run["launches"], "round_seconds": [r["seconds"] for r in run["rounds"]],
+                "round_seconds_ref": [r["seconds"] for r in ref["rounds"]],
+                "wire_row_bytes": wire_row_bytes(cfg, run["d"]), "peak_gb": run["peak_bytes"] / 1e9,
+                "loss": [r["loss"] for r in run["rounds"]], "b": [r["b"] for r in run["rounds"]],
+                **{k: [r[k] for r in run["rounds"]] for k in ("buf_fill", "mean_age") if k in run["rounds"][0]},
+                "acc": run["acc"], "equal_rounds": MAIN["rounds"]}
+        if v == "o":
+            g = stream["mlp128-m100/g"]["rounds"]
+            differ = [int((k["theta"] != r["theta"]).sum()) for k, r in zip(run["rounds"], g)]
+            require(not any(differ) and all(k["b"] == r["b"] for k, r in zip(run["rounds"], g)),
+                    f"{tag}: {differ} coordinates of theta differ from phase 4d's (g), or b does")
+            line["theta_coords_differing_from_g"] = differ
+        if v == "m1":
+            a = main["a"]["rounds"]
+            t_m1, t_a = run["rounds"][0]["theta"], a[0]["theta"]
+            ulps = ((t_m1 - t_a).abs() / torch.finfo(torch.float32).eps / t_a.abs().clamp(min=1e-30)).max().item()
+            require(ulps <= 4.0, f"{tag}: round 0 theta {ulps} ulps from (a)'s")
+            line["theta_coords_differing_from_a"] = [int((k["theta"] != r["theta"]).sum())
+                                                     for k, r in zip(run["rounds"], a)]
+            line["round0_max_rel_diff_from_a_in_eps"] = ulps
+        if v == "l-dp":
+            bs = [FLConfig().b_init] + [r["b"] for r in run["rounds"][:-1]]
+            gammas = [rr_gamma(cfg.dp_epsilon, cfg.l1_sensitivity, torch.tensor([b]), cfg.wire_bits).item() for b in bs]
+            require(all(0.0 < x < 1.0 for x in gammas), f"{tag}: rr_gamma {gammas}")
+            line["rr_gamma"] = [min(gammas), max(gammas)]
+        require(all(np.isfinite(r["loss"]) for r in run["rounds"]), f"{tag}: loss")
+        print(json.dumps(line), flush=True)
+        runs[tag] = run
+    print(json.dumps({"phase": "wires_trees_done", "seconds": time.perf_counter() - t0, "runs": len(runs)}),
+          flush=True)
     return runs
 
 
@@ -1454,6 +1631,37 @@ def kernel_times(dev, m: int, d: int, copy_gbs: float, elements: int = 1) -> dic
     return out
 
 
+def topk_pack_times(dev, copy_gbs: float, m: int = 100, d: int = 118_282) -> dict:
+    """Phase 5: B1 at the top-k wire's shape, as ``ops.quant_pack_u`` launches
+    it for the main path (M rows of k = int(0.1 d) = 11,828 gathered values,
+    padded to padded_len(k), one b row a client), against its plain
+    version and its byte bound: each row's values, uniforms and range read
+    once, its packed bytes written once."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import padded_len
+    from repro_torch.kernels.stoch_quant import stoch_quant_pack
+
+    gen = torch.Generator(device=dev).manual_seed(77)
+    k = int(d * TOPK_FRAC)
+    width = padded_len(k)
+    pad = width - k
+    delta = F.pad(0.01 * torch.randn(m, k, generator=gen, device=dev), (0, pad), value=-1.0)
+    b = F.pad(0.005 + 0.01 * torch.rand(m, k, generator=gen, device=dev), (0, pad), value=1.0)
+    u = F.pad(torch.rand(m, k, generator=gen, device=dev), (0, pad), value=1.0)
+    ms = timed_ms(lambda: stoch_quant_pack(delta, b, u))
+    plain_ms = timed_ms(lambda: ref.stoch_quant_compress_ref(delta, b, u), reps=10)
+    nbytes, ops_n = 12 * m * width + m * width // 8, 7 * m * width
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops_n / PEAK_F32_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    return {"shape": f"M={m} k={k} padded={width} (d={d}, topk_frac={TOPK_FRAC})", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
+            "gbs": nbytes / (ms * 1e-3) / 1e9, "share_of_bound": bound / ms,
+            "copy_bound_ms": nbytes / (copy_gbs * 1e9) * 1e3}
+
+
 def b4_work(m: int, d: int) -> tuple[int, int]:
     """(bytes, operations) of B4 on an ``(m, d)`` cohort with one shared w0
     row: w, grad and momentum read and w' and m' written once, w0 read once;
@@ -1474,11 +1682,12 @@ def fused_sgd(w, g, mom):
                              dampening=0.0, nesterov=False, maximize=False, is_first_step=False)
 
 
-def kernel_rows(runs: dict, chk: Checker, at_main: dict, at_resnet: dict, at_group: dict) -> list[dict]:
+def kernel_rows(runs: dict, chk: Checker, at_main: dict, at_resnet: dict, at_group: dict, at_topk: dict) -> list[dict]:
     """The per-kernel JSON rows: times at the main path's shapes, with the
     same at ResNet-18's and the batched call at E = 8 runs of the main
-    path's cohort beside them; ``launches`` is the sum over every run of
-    phases 4, 4b, 4c, 4d and 7 of each one's own count, by run beside it."""
+    path's cohort beside them, and B1 at the top-k wire's shape;
+    ``launches`` is the sum over every run of phases 4, 4b, 4c, 4d, 7 and 8
+    of each one's own count, by run beside it."""
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rows.append({
@@ -1487,6 +1696,7 @@ def kernel_rows(runs: dict, chk: Checker, at_main: dict, at_resnet: dict, at_gro
             "launches_by_variant": {v: run["launches"][name] for v, run in runs.items()},
             "max_abs_err": chk.max_err[name], "library_ms": None,
             **at_main[name], f"at_{RESNET_D}": at_resnet[name], "batched_E8_M100": at_group[name],
+            **({"at_topk_M100": at_topk} if name == "stoch_quant_pack" else {}),
         })
     return rows
 
@@ -1895,6 +2105,7 @@ def main() -> int:
     check_bit_aggregate(chk, dev)
     check_prox_sgd(chk, dev)
     check_batched(chk, dev)
+    check_topk_pack(chk, dev)
     torch.cuda.synchronize()
     print(json.dumps({"phase": "kernels_vs_plain", "checked": sorted(chk.count), "comparisons": chk.count,
                       "max_abs_err": chk.max_err, "seconds": time.perf_counter() - t0}), flush=True)
@@ -1932,6 +2143,7 @@ def main() -> int:
     vision = vision_runs(dev)
     async_stream = async_stream_runs(dev, runs, vision["resnet18w64-m100/a"]["peak_bytes"])
     campaigns = campaign_runs(dev, runs)
+    wires_trees = wires_trees_runs(dev, runs, async_stream)
 
     # Phase 5 times kernels, not allocations: under deterministic algorithms
     # every torch.empty is filled with NaN by a kernel of its own.
@@ -1940,10 +2152,13 @@ def main() -> int:
     at_main = kernel_times(dev, MAIN["n_clients"], 118_282, copy_gbs)
     at_resnet = kernel_times(dev, MAIN["n_clients"], RESNET_D, copy_gbs)
     at_group = kernel_times(dev, MAIN["n_clients"], 118_282, copy_gbs, elements=len(COHORT_SEEDS))
-    rows = kernel_rows({**runs, **grid, **vision, **async_stream, **campaigns}, chk, at_main, at_resnet, at_group)
+    at_topk = topk_pack_times(dev, copy_gbs)
+    rows = kernel_rows({**runs, **grid, **vision, **async_stream, **campaigns, **wires_trees}, chk, at_main, at_resnet,
+                       at_group, at_topk)
     print(json.dumps({"phase": "times", "card": card, "copy_gbs": copy_gbs,
                       "round_seconds_a": [r["seconds"] for r in runs["a"]["rounds"]],
-                      f"kernels_at_{RESNET_D}": at_resnet, "kernels_batched_E8_M100": at_group}), flush=True)
+                      f"kernels_at_{RESNET_D}": at_resnet, "kernels_batched_E8_M100": at_group,
+                      "stoch_quant_pack_at_topk_M100": at_topk}), flush=True)
     print(json.dumps(stage_times(dev)), flush=True)
     print(json.dumps(b3_sweep(dev, copy_gbs)), flush=True)
     print(json.dumps(b4_sweep(dev, copy_gbs)), flush=True)

@@ -46,7 +46,20 @@ give the unweighted estimate bit for bit; the jitted reference divides by
 its traced ``M^w`` (XLA keeps a division by a traced value), which can
 differ in the last bit.
 
-Not ported yet: the top-k, k-bit and heterogeneous wires.
+The k-bit wire (``wire_bits`` in {2, 4}, :class:`PackedWire` with
+``bits``) travels as ``bits`` one-bit planes, so its vote counts are the
+per-plane counts and PRoBit+ finalizes them with the L-level estimate
+:func:`kbit_estimate_from_counts`; under DP it carries L-level randomized
+response (``privacy.rr_gamma``) instead of the Theorem-3 margin, which
+applies at one bit only. Per-client widths (``client_bits``) make a
+:class:`HeteroWire` of contiguous equal-width groups, estimated group by
+group and merged with inverse-variance weights ``M_g (2**k_g - 1)**2``. The
+top-k wire (``topk_frac < 1``) is a :class:`SparseWire` of indices and
+packed codes (:mod:`repro_torch.core.sparse`); with ``use_kernels`` its
+gathered values are packed by the pack kernel (``ops.quant_pack_u``). The
+reference has no kernel for the k-bit and mixed-width wires, the sparse
+estimate or the L-level estimate: they are plain torch here as they are
+plain JAX there.
 """
 
 from __future__ import annotations
@@ -56,11 +69,17 @@ import dataclasses
 import numpy as np
 import torch
 
-from .privacy import DPConfig
+from .. import prng
+from .privacy import DPConfig, rr_gamma
 from .quantizer import (
     PACK_CHUNK,
+    WIRE_BITS,
+    _grid_step,
+    _unpack_lastdim,
+    pack_levels,
     packed_binarize_batch,
     packed_counts,
+    packed_quantize_batch,
     packed_sign_batch,
     packed_weighted_counts,
     padded_dim,
@@ -71,10 +90,14 @@ __all__ = [
     "recip32",
     "mean_rows",
     "ml_estimate_from_counts",
+    "kbit_estimate_from_counts",
+    "hetero_client_groups",
     "staleness_weights",
     "fedavg_aggregate",
     "geometric_median",
     "PackedWire",
+    "HeteroWire",
+    "SparseWire",
     "DenseWire",
     "ClientCompressor",
     "ServerAggregator",
@@ -108,8 +131,52 @@ def ml_estimate_from_counts(counts: torch.Tensor, m, b: torch.Tensor) -> torch.T
     ``M^w``); its reciprocal is then the device's correctly rounded f32
     ``1 / m``, which for ``m = f32(M)`` is ``recip32(M)``.
     """
-    recip = recip32(m) if isinstance(m, int) else torch.reciprocal(m)
-    return (2.0 * counts.float() - m) * recip * b
+    return (2.0 * counts.float() - m) * _recip(m) * b
+
+
+def _recip(m):
+    """The multiplier of a division by the cohort size ``m``: ``f32(1/m)``
+    for a number (what XLA folds the reference's division by a constant
+    into), the device's correctly rounded f32 reciprocal for a 0-dim tensor
+    (the weighted ``M^w``, for which ``f32(M)`` gives ``recip32(M)``)."""
+    return recip32(m) if isinstance(m, (int, np.integer)) else torch.reciprocal(m)
+
+
+def kbit_estimate_from_counts(counts: torch.Tensor, m, b: torch.Tensor, bits: int,
+                              gamma: torch.Tensor | None = None) -> torch.Tensor:
+    """Eq. 13 for the L-level grid, from the ``(bits, d)`` plane counts:
+    ``theta_i = -b_i + step_i * mean_level_i`` with ``mean_level = sum_p 2^p
+    N_p / M`` and ``step = 2b/(L-1)``, debiased by ``1/(1 - gamma)`` for the
+    randomized-response wire and clipped to ``[-b, b]``.
+
+    As the reference computes it under ``jit``: the division by M is a
+    multiply by its reciprocal (:func:`ml_estimate_from_counts`' rule, so
+    unit weights give the unweighted estimate bit for bit), ``-b + step *
+    mean`` one fused multiply-add, the gamma rescale a true division.
+    """
+    weights = (2.0 ** torch.arange(bits, dtype=torch.float32, device=counts.device)).unsqueeze(-1)
+    mean_level = (weights * counts.float()).sum(0) * _recip(m)
+    b = torch.broadcast_to(b, mean_level.shape).float()
+    theta = prng._fma(_grid_step(b, bits), mean_level, -b)
+    if gamma is not None:
+        theta = theta / torch.clamp(1.0 - gamma, min=1e-6)
+    return torch.clamp(theta, -b, b)
+
+
+def hetero_client_groups(client_bits) -> tuple[tuple[int, int, int], ...]:
+    """Run-length encode per-client widths into contiguous ``(start, stop,
+    bits)`` groups, the groups a mixed-width cohort compresses one by one
+    and the server merges; raises on a width not in ``WIRE_BITS``."""
+    bits_list = tuple(int(k) for k in client_bits)
+    for k in bits_list:
+        if k not in WIRE_BITS:
+            raise ValueError(f"per-client bit-widths must be in {WIRE_BITS}, got {k}")
+    groups, start = [], 0
+    for i in range(1, len(bits_list) + 1):
+        if i == len(bits_list) or bits_list[i] != bits_list[start]:
+            groups.append((start, i, bits_list[start]))
+            start = i
+    return tuple(groups)
 
 
 def staleness_weights(ages: torch.Tensor, decay: float, valid: torch.Tensor | None = None) -> torch.Tensor:
@@ -155,12 +222,14 @@ def geometric_median(
 
 @dataclasses.dataclass(frozen=True)
 class PackedWire:
-    """Canonical wire: (M, P) uint8 packed codes (P * 8 >= d) + range b (d,);
-    a group's wire has a leading E on both."""
+    """Canonical wire: (M, bits * P) uint8 packed codes (P * 8 >= d; ``bits``
+    planes, plane-major) + range b (d,); a group's wire has a leading E on
+    both."""
 
     packed: torch.Tensor
     b: torch.Tensor
     d: int
+    bits: int = 1
 
     @property
     def n_clients(self) -> int:
@@ -176,7 +245,58 @@ class PackedWire:
         return self.packed.shape[0] if self.packed.dim() == 3 else None
 
     def element(self, e: int) -> "PackedWire":
-        return PackedWire(packed=self.packed[e], b=self.b[e], d=self.d)
+        return PackedWire(packed=self.packed[e], b=self.b[e], d=self.d, bits=self.bits)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeteroWire:
+    """Per-client widths: one :class:`PackedWire` per contiguous group of
+    equal width (:func:`hetero_client_groups`), in cohort order."""
+
+    wires: tuple
+
+    @property
+    def n_clients(self) -> int:
+        return sum(w.n_clients for w in self.wires)
+
+    @property
+    def d(self) -> int:
+        return self.wires[0].d
+
+    @property
+    def wire_bytes(self) -> int:
+        return sum(w.wire_bytes for w in self.wires)
+
+    @property
+    def elements(self) -> int | None:
+        return self.wires[0].elements
+
+    def element(self, e: int) -> "HeteroWire":
+        return HeteroWire(wires=tuple(w.element(e) for w in self.wires))
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseWire:
+    """Top-k wire: indices (M, k) int32 + packed codes (M, ceil(k/8)) +
+    range b (d,)."""
+
+    indices: torch.Tensor
+    packed: torch.Tensor
+    b: torch.Tensor
+    d: int
+    k: int
+
+    @property
+    def elements(self) -> int | None:
+        return self.indices.shape[0] if self.indices.dim() == 3 else None
+
+    def element(self, e: int) -> "SparseWire":
+        return SparseWire(indices=self.indices[e], packed=self.packed[e], b=self.b[e], d=self.d, k=self.k)
+
+
+def _unpack_codes(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """(M, P) packed rows -> (M, n) int8 codes in {-1, +1}."""
+    return _unpack_lastdim(packed)[..., :n].to(torch.int8) * 2 - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,20 +316,47 @@ class DenseWire:
 @dataclasses.dataclass(frozen=True)
 class ClientCompressor:
     """Client half: ``mode`` is ``"pack_stochastic"`` (PRoBit+: error
-    feedback -> Eq.-5 binarize -> bit pack), ``"pack_sign"`` (sign codes)
-    or ``"dense"`` (identity).
+    feedback -> top-k -> Eq.-5 binarize or k-bit quantize -> bit pack),
+    ``"pack_sign"`` (sign codes) or ``"dense"`` (identity).
 
-    ``engine`` is passed to :mod:`repro_torch.kernels.ops` (None: resolve
-    from the tensors' device).
+    ``wire_bits`` is the width of every client's values (1, 2 or 4) and
+    ``client_bits`` one width a cohort row (a :class:`HeteroWire`; it
+    overrides ``wire_bits``); ``topk_frac < 1`` uploads the top-k
+    coordinates only (a :class:`SparseWire`). ``engine`` is passed to
+    :mod:`repro_torch.kernels.ops` (None: resolve from the tensors' device).
     """
 
     mode: str = "pack_stochastic"
     error_feedback: bool = False
+    topk_frac: float = 1.0
     dp: DPConfig = DPConfig(0.0)
     b_mode: str = "dynamic"
     use_kernels: bool = False
     chunk: int = PACK_CHUNK
     engine: str | None = None
+    wire_bits: int = 1
+    client_bits: tuple | None = None
+
+    def __post_init__(self):
+        if self.wire_bits not in WIRE_BITS:
+            raise ValueError(f"wire_bits must be one of {WIRE_BITS}, got {self.wire_bits}")
+        if self.wire_bits > 1:
+            if self.mode != "pack_stochastic":
+                raise ValueError(f"wire_bits > 1 requires the pack_stochastic wire (got mode={self.mode!r})")
+            if self.topk_frac < 1.0:
+                raise ValueError("wire_bits > 1 is not supported on the top-k wire")
+        if self.client_bits is not None:
+            object.__setattr__(self, "client_bits", tuple(int(k) for k in self.client_bits))
+            hetero_client_groups(self.client_bits)  # validates each entry
+            if self.mode != "pack_stochastic":
+                raise ValueError("per-client bit-widths require the pack_stochastic wire")
+            if self.use_kernels:
+                raise ValueError(
+                    "per-client bit-widths are not supported on the kernel wire (compress per-group without "
+                    "use_kernels)"
+                )
+            if self.topk_frac < 1.0:
+                raise ValueError("per-client bit-widths are not supported on the top-k wire")
 
     def wire_bytes(self, d: int) -> int | None:
         """Bytes per packed wire row for dimension ``d`` (None for dense)."""
@@ -218,20 +365,35 @@ class ClientCompressor:
         if self.use_kernels and self.mode == "pack_stochastic":
             from ..kernels.ops import padded_len
 
-            return wire_bytes(d, d_pad=padded_len(d))
-        return wire_bytes(d, d_pad=padded_dim(d, self.chunk))
+            return wire_bytes(d, self.wire_bits, d_pad=padded_len(d))
+        return wire_bytes(d, self.wire_bits, d_pad=padded_dim(d, self.chunk))
+
+    @property
+    def _range_dp(self) -> DPConfig:
+        """The DP config the range ``b`` answers to: the Theorem-3 margin
+        protects the one-bit wire; the k-bit wire earns its guarantee from
+        randomized response and keeps the honest range."""
+        return self.dp if self.wire_bits == 1 else DPConfig(0.0)
 
     def b_vector(self, d: int, b_scalar: torch.Tensor) -> torch.Tensor:
         """The public (d,) range of the packed wires outside oracle mode:
         ones for sign codes, else the controller's b plus the Theorem-3
-        margin when DP is on. The streaming round finalizes its counts with
-        it; oracle b maxes over the whole cohort and cannot stream."""
+        margin when DP is on at one bit. The streaming round finalizes its
+        counts with it; oracle b maxes over the whole cohort and cannot
+        stream."""
         if self.b_mode == "oracle":
             raise ValueError("oracle b depends on all updates and cannot stream")
         if self.mode == "pack_sign":
             return torch.ones(b_scalar.shape + (d,), device=b_scalar.device)
-        b_eff = b_scalar + self.dp.b_margin if self.dp.enabled else b_scalar
+        dp = self._range_dp
+        b_eff = b_scalar + dp.b_margin if dp.enabled else b_scalar
         return torch.broadcast_to(b_eff.float().unsqueeze(-1), b_eff.shape + (d,)).contiguous()
+
+    def _gamma(self, b_vec: torch.Tensor) -> torch.Tensor | None:
+        """Randomized-response weight of the k-bit DP wire (None otherwise)."""
+        if self.wire_bits > 1 and self.dp.enabled:
+            return rr_gamma(self.dp.epsilon, self.dp.l1_sensitivity, b_vec, self.wire_bits)
+        return None
 
     def compress(
         self,
@@ -244,7 +406,8 @@ class ClientCompressor:
     ):
         """(M, d) updates -> (wire, residuals'). Residuals pass through
         unchanged unless PRoBit+'s error feedback is on (never under DP).
-        A group: keys (E, 2), updates and residuals (E, M, d), b (E,)."""
+        A group (one-bit dense wires only): keys (E, 2), updates and
+        residuals (E, M, d), b (E,)."""
         d = deltas.shape[-1]
         if self.mode == "dense":
             return DenseWire(updates=deltas), residuals
@@ -252,14 +415,33 @@ class ClientCompressor:
             packed = packed_sign_batch(deltas, chunk=self.chunk)
             ones = torch.ones(deltas.shape[:-2] + (d,), device=deltas.device)
             return PackedWire(packed=packed, b=ones, d=d), residuals
+        if self.client_bits is not None:
+            return self._compress_hetero(key, deltas, b_scalar, residuals, row_offset)
         use_ef = self.error_feedback and not self.dp.enabled
         if self.b_mode == "oracle":
             from .bcontrol import oracle_b
 
             # the oracle ranges the error-feedback sum that is quantized
-            b_vec = oracle_b(deltas + residuals if use_ef else deltas, self.dp)
+            b_vec = oracle_b(deltas + residuals if use_ef else deltas, self._range_dp)
         else:
             b_vec = self.b_vector(d, b_scalar)
+        if self.topk_frac < 1.0:
+            return self._compress_topk(key, deltas + residuals if use_ef else deltas, b_vec, residuals, use_ef)
+        if self.wire_bits > 1:
+            eff = deltas + residuals if use_ef else deltas
+            gamma = self._gamma(b_vec)
+            if self.use_kernels:
+                from ..kernels import ops as kops
+
+                packed, res = kops.stoch_quant_compress_batch(
+                    key, eff, b_vec, row_offset=row_offset, chunk=self.chunk, want_residual=use_ef,
+                    engine=self.engine, bits=self.wire_bits, gamma=gamma,
+                )
+            else:
+                packed, res = packed_quantize_batch(key, eff, b_vec, bits=self.wire_bits, chunk=self.chunk,
+                                                    want_residual=use_ef, row_offset=row_offset, gamma=gamma)
+            wire = PackedWire(packed=packed, b=b_vec, d=d, bits=self.wire_bits)
+            return wire, (res if use_ef else residuals)
         if self.use_kernels:
             from ..kernels import ops as kops
 
@@ -274,6 +456,51 @@ class ClientCompressor:
                 key, eff, b_vec, chunk=self.chunk, want_residual=use_ef, row_offset=row_offset
             )
         return PackedWire(packed=packed, b=b_vec, d=d), (res if use_ef else residuals)
+
+    def _compress_hetero(self, key, deltas, b_scalar, residuals, row_offset):
+        """Each contiguous group of equal width through a homogeneous
+        compressor, its rows keyed by their cohort positions."""
+        if len(self.client_bits) != deltas.shape[0]:
+            raise ValueError(
+                f"client_bits has {len(self.client_bits)} entries for a {deltas.shape[0]}-client cohort"
+            )
+        wires, res_parts = [], []
+        for start, stop, gbits in hetero_client_groups(self.client_bits):
+            sub = dataclasses.replace(self, client_bits=None, wire_bits=gbits)
+            w, r = sub.compress(key, deltas[start:stop], b_scalar, residuals[start:stop], row_offset=row_offset + start)
+            wires.append(w)
+            res_parts.append(r)
+        return HeteroWire(wires=tuple(wires)), torch.cat(res_parts, dim=0)
+
+    def _compress_topk(self, key, eff, b_vec, residuals, use_ef):
+        """The top-k wire: client ``m`` (key ``split(key, M)[m]``) sends the
+        Eq.-5 bits of its ``k`` largest ``|eff|`` and their indices; with
+        ``use_kernels`` the gathered values are packed by the pack kernel
+        (one launch for the cohort). Under error feedback the unreported
+        coordinates carry their whole value forward."""
+        from .sparse import topk_binarize, topk_indices
+
+        m, d = eff.shape
+        k = max(int(d * self.topk_frac), 1)
+        keys = prng.split(key, m)
+        if self.use_kernels:
+            from ..kernels import ops as kops
+
+            idx = topk_indices(eff, k)
+            packed = kops.quant_pack_u(eff.gather(1, idx), b_vec[idx], prng.uniform(keys, (k,)),
+                                       engine=self.engine)[:, : (k + 7) // 8].contiguous()
+            idx, codes = idx.to(torch.int32), None
+        else:
+            idx, codes = topk_binarize(keys, eff, b_vec, k)
+            packed = pack_levels((codes > 0).to(torch.uint8), 1)
+        if use_ef:
+            if codes is None:
+                codes = _unpack_codes(packed, k)
+            sent = torch.zeros_like(eff)
+            sent[torch.arange(m, device=eff.device)[:, None], idx.long()] = codes.float()
+            # unreported coordinates carry their full delta forward
+            residuals = eff - sent * b_vec
+        return SparseWire(indices=idx, packed=packed, b=b_vec, d=d, k=k), residuals
 
 
 @dataclasses.dataclass(frozen=True)
@@ -345,6 +572,8 @@ class ServerAggregator:
                                 for e in range(wire.elements)])
         if isinstance(wire, DenseWire):
             return self.from_dense(wire.updates, weights)
+        if isinstance(wire, SparseWire):
+            raise TypeError(f"{type(self).__name__} cannot consume SparseWire")
         if weights is None:
             return self.finalize(packed_counts(wire.packed), wire.n_clients, wire.b)
         return self.finalize_weighted(packed_weighted_counts(wire.packed, weights), weights.float().sum(), wire.b)
@@ -354,19 +583,49 @@ class ServerAggregator:
 class ProBitPlusServer(ServerAggregator):
     """Eq.-13 ML estimate through ``ops.bit_aggregate``: the fused count
     kernel with ``use_kernels``, else its plain version; a group's
-    unweighted wire in one call."""
+    unweighted wire in one call.
+
+    ``wire_bits > 1`` finalizes the plane counts with the L-level estimate
+    :func:`kbit_estimate_from_counts` (the reference has no kernel for it);
+    ``dp`` mirrors the compressor's, so the server can debias the
+    randomized-response mix. A wire's own ``bits`` decides how it is
+    estimated. A :class:`HeteroWire` is estimated group by group and merged
+    with inverse-variance weights, a :class:`SparseWire` by
+    :func:`~repro_torch.core.sparse.sparse_aggregate`.
+    """
 
     use_kernels: bool = False
     engine: str | None = None
+    wire_bits: int = 1
+    dp: DPConfig = DPConfig(0.0)
 
     def from_counts(self, counts, m, b):
         return ml_estimate_from_counts(counts, m, b)
 
-    def aggregate(self, wire: PackedWire, weights: torch.Tensor | None = None) -> torch.Tensor:
+    def finalize(self, counts, m, b):
+        if self.wire_bits == 1:
+            return super().finalize(counts, m, b)
+        plane_counts = counts.reshape(self.wire_bits, -1)[:, : b.shape[-1]]
+        gamma = None
+        if self.dp.enabled:
+            gamma = rr_gamma(self.dp.epsilon, self.dp.l1_sensitivity, b, self.wire_bits)
+        return kbit_estimate_from_counts(plane_counts, m, b, self.wire_bits, gamma)
+
+    def aggregate(self, wire, weights: torch.Tensor | None = None) -> torch.Tensor:
         from ..kernels import ops as kops
 
-        if weights is not None:
-            # the count kernel has no weighted form; the plain weighted
+        if isinstance(wire, PackedWire) and wire.bits != self.wire_bits:
+            return dataclasses.replace(self, wire_bits=wire.bits).aggregate(wire, weights)
+        if isinstance(wire, HeteroWire):
+            return self._aggregate_hetero(wire, weights)
+        if isinstance(wire, SparseWire):
+            if weights is not None:
+                raise TypeError("weighted aggregation needs a dense PackedWire")
+            from .sparse import sparse_aggregate
+
+            return sparse_aggregate(wire.indices, _unpack_codes(wire.packed, wire.k), wire.b, wire.d)
+        if weights is not None or wire.bits > 1:
+            # the count kernel has no weighted or k-bit form; the plain
             # count reads the same packed wire, as in the reference
             return super().aggregate(wire, weights)
         # The kernel wire is padded_len(d)/8 bytes; a wire from the chunked
@@ -376,6 +635,22 @@ class ProBitPlusServer(ServerAggregator):
         packed = kops.realign_wire(wire.packed, kops.padded_len(wire.d) // 8)
         engine = self.engine if self.use_kernels else "ref"
         return kops.bit_aggregate(packed, wire.b, wire.d, engine=engine)
+
+    def _aggregate_hetero(self, wire: HeteroWire, weights):
+        """Each group's L-level estimate (plain, ``use_kernels`` off as in
+        the reference), merged as ``sum_g w_g theta_g / sum_g w_g`` with
+        ``w_g = M_g (2**k_g - 1)**2``: each step of the sum one fused
+        multiply-add and the division a multiply by ``f32(1/sum w_g)``, as
+        XLA compiles the reference's."""
+        num, den, off = torch.zeros(wire.d, device=wire.wires[0].b.device), 0, 0
+        for w in wire.wires:
+            srv = dataclasses.replace(self, wire_bits=w.bits, use_kernels=False)
+            wsel = None if weights is None else weights[off:off + w.n_clients]
+            gw = w.n_clients * ((1 << w.bits) - 1) ** 2
+            num = prng._fma(float(gw), srv.aggregate(w, wsel), num)
+            den += gw
+            off += w.n_clients
+        return num * recip32(den)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -475,11 +750,13 @@ class AggregatorPipeline:
         return self.server.aggregate(wire, weights)
 
 
-def _build_probit_plus(*, dp, b_mode, error_feedback, use_kernels, chunk, engine, **_):
+def _build_probit_plus(*, dp, b_mode, error_feedback, topk_frac, use_kernels, chunk, engine, wire_bits,
+                       client_bits, **_):
     return (
-        ClientCompressor(error_feedback=error_feedback, dp=dp, b_mode=b_mode,
-                         use_kernels=use_kernels, chunk=chunk, engine=engine),
-        ProBitPlusServer(use_kernels=use_kernels, engine=engine),
+        ClientCompressor(error_feedback=error_feedback, topk_frac=topk_frac, dp=dp, b_mode=b_mode,
+                         use_kernels=use_kernels, chunk=chunk, engine=engine, wire_bits=wire_bits,
+                         client_bits=client_bits),
+        ProBitPlusServer(use_kernels=use_kernels, engine=engine, wire_bits=wire_bits, dp=dp),
     )
 
 
@@ -505,19 +782,28 @@ def build_pipeline(
     dp: DPConfig = DPConfig(0.0),
     b_mode: str = "dynamic",
     error_feedback: bool = False,
+    topk_frac: float = 1.0,
     agg_step: float = 0.01,
     gm_iters: int = 16,
     use_kernels: bool = False,
     chunk: int = PACK_CHUNK,
     engine: str | None = None,
+    wire_bits: int = 1,
+    client_bits: tuple | None = None,
 ) -> AggregatorPipeline:
     """Resolve an aggregator name into a configured pipeline. Only PRoBit+
-    reads ``dp``, ``b_mode``, ``error_feedback`` and ``use_kernels``; the
-    sign and dense baselines ignore them, as in the reference."""
+    reads ``dp``, ``b_mode``, ``error_feedback``, ``topk_frac`` and
+    ``use_kernels``; the sign and dense baselines ignore them, as in the
+    reference, and refuse k-bit and per-client widths."""
     if name not in _PIPELINES:
         raise ValueError(f"unknown aggregator {name!r}; available: {available_aggregators()}")
+    if (wire_bits != 1 or client_bits is not None) and name != "probit_plus":
+        raise ValueError(
+            f"wire_bits > 1 / per-client bit-widths are only supported by the probit_plus wire, got {name!r}"
+        )
     compressor, server = _PIPELINES[name](
-        dp=dp, b_mode=b_mode, error_feedback=error_feedback, agg_step=agg_step, gm_iters=gm_iters,
-        use_kernels=use_kernels, chunk=chunk, engine=engine,
+        dp=dp, b_mode=b_mode, error_feedback=error_feedback, topk_frac=topk_frac, agg_step=agg_step,
+        gm_iters=gm_iters, use_kernels=use_kernels, chunk=chunk, engine=engine, wire_bits=wire_bits,
+        client_bits=client_bits,
     )
     return AggregatorPipeline(name=name, compressor=compressor, server=server)

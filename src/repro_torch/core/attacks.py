@@ -18,6 +18,14 @@ only the attacks that rewrite a row from that row alone
 is then drawn a row at a time, keyed by the row's cohort position) and
 flips wire rows by a mask (:func:`flip_wire_rows`). The ``straggler``
 timing attack acts in the asynchronous round's arrivals.
+
+A hierarchical tree round adds Byzantine *edge aggregators*
+(:data:`EDGE_ATTACK_IDS`, :func:`apply_edge_attack`): a compromised edge
+ships a forged count tensor to the root, the per-plane complement
+``mass - N`` (``edge_sign_flip``), every count at the full mass
+(``edge_inflate``) or the tensor the root last buffered for its slot
+(``edge_replay``). None changes the shipped mass, and every forged count
+stays within ``[0, mass]``.
 """
 
 from __future__ import annotations
@@ -47,6 +55,9 @@ __all__ = [
     "apply_attack_stream",
     "flip_wire",
     "flip_wire_rows",
+    "EDGE_ATTACK_IDS",
+    "edge_attack_id",
+    "apply_edge_attack",
 ]
 
 
@@ -227,3 +238,34 @@ def flip_wire_rows(wire, row_mask: torch.Tensor):
     if isinstance(wire, DenseWire):
         return DenseWire(updates=torch.where(mask, -wire.updates, wire.updates))
     return dataclasses.replace(wire, packed=torch.where(mask, torch.bitwise_not(wire.packed), wire.packed))
+
+
+# Edge attacks in the reference's order (its lax.switch branch order).
+EDGE_ATTACK_IDS: tuple[str, ...] = ("none", "edge_sign_flip", "edge_inflate", "edge_replay")
+
+
+def edge_attack_id(name: str) -> int:
+    """Integer id of an edge-aggregator attack."""
+    if name not in EDGE_ATTACK_IDS:
+        raise ValueError(f"unknown edge attack {name!r}; available: {EDGE_ATTACK_IDS}")
+    return EDGE_ATTACK_IDS.index(name)
+
+
+def apply_edge_attack(idx: int, counts: torch.Tensor, mass: torch.Tensor, prev_counts: torch.Tensor,
+                      prev_mass: torch.Tensor, prev_valid: torch.Tensor, byz_mask: torch.Tensor):
+    """Rewrite the Byzantine edges' shipped ``(E, 8P)`` f32 counts and
+    ``(E,)`` masses before the root merge; ``prev_*`` is what the root's
+    buffer held for each edge's slot before this round's deliveries, and
+    ``byz_mask`` (E,) marks the compromised edges. Honest edges pass
+    through untouched."""
+    name = EDGE_ATTACK_IDS[idx]
+    if name == "edge_sign_flip":
+        c_att, m_att = mass[:, None] - counts, mass
+    elif name == "edge_inflate":
+        c_att, m_att = torch.broadcast_to(mass[:, None], counts.shape), mass
+    elif name == "edge_replay":
+        c_att = torch.where(prev_valid[:, None], prev_counts, counts)
+        m_att = torch.where(prev_valid, prev_mass, mass)
+    else:
+        return counts, mass
+    return torch.where(byz_mask[:, None], c_att, counts), torch.where(byz_mask, m_att, mass)

@@ -18,18 +18,32 @@ are deterministically 0 and the two widths realign losslessly.
 Vote counts come two ways: :func:`packed_counts` (int32, exact) and
 :func:`packed_weighted_counts` (f32, each client's bits times its weight),
 which the buffered-asynchronous server and the streaming round's padded
-chunks use. The k-bit level grid and the 16-bit draws of the reference
-come with later slices of the port.
+chunks use.
+
+The k-bit wire (``bits`` in :data:`WIRE_BITS`) rounds a clipped delta
+stochastically onto the ``L = 2**k``-level grid ``v_l = -b + l * 2b/(L-1)``
+(:func:`quantize_levels`; Eq. 5 is L = 2) and sends the level index as
+``k`` one-bit planes, each packed like the one-bit wire, plane-major along
+the byte axis (:func:`pack_levels`), so the vote counts of a k-bit row are
+the per-plane counts. :func:`packed_quantize_batch` draws on the one-bit
+wire's counter-derived schedule and, with ``gamma``, mixes in L-level
+randomized response. The grid step ``2b/(L-1)`` is ``2b * f32(1/(L-1))``
+and the grid value ``-b + l * step`` one fused multiply-add, as the
+reference computes them under ``jit`` (XLA folds a division by a constant
+into its reciprocal and contracts the multiply-add). The 16-bit draws of
+the reference come with ROADMAP A12.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import prng
 
 __all__ = [
     "PACK_CHUNK",
+    "WIRE_BITS",
     "wire_bytes",
     "binarize_prob",
     "pack_bits",
@@ -39,7 +53,14 @@ __all__ = [
     "uniform_block_rows",
     "cohort_uniforms",
     "pad_rows",
+    "level_positions",
+    "level_probs",
+    "quantize_levels",
+    "dequantize_levels",
+    "pack_levels",
+    "unpack_levels",
     "packed_binarize_batch",
+    "packed_quantize_batch",
     "packed_sign_batch",
     "packed_counts",
     "packed_weighted_counts",
@@ -47,14 +68,24 @@ __all__ = [
 
 PACK_CHUNK = 8192  # coordinates per uniform-draw chunk (multiple of 8)
 
+# Per-value wire widths: 8/k divides a byte and the levels fit uint8.
+WIRE_BITS = (1, 2, 4)
 
-def wire_bytes(d: int, bits: int = 1, *, d_pad: int | None = None) -> int:
+
+def wire_bytes(d: int, bits: int = 1, *, topk_frac: float = 1.0, d_pad: int | None = None) -> int:
     """Uplink bytes of one client's packed wire row (``bits`` per value).
 
     ``d_pad`` is the padded coordinate count the producing wire emits
     (``padded_dim`` for the chunked packer, ``ops.padded_len`` for the
     kernel wire); ``None`` gives the unpadded ``ceil(d/8)`` floor.
+    ``topk_frac < 1`` prices the sparse wire: int32 indices and packed
+    codes of ``k = max(int(d * topk_frac), 1)`` coordinates.
     """
+    if bits not in WIRE_BITS:
+        raise ValueError(f"bits must be one of {WIRE_BITS}, got {bits}")
+    if topk_frac < 1.0:
+        k = max(int(d * topk_frac), 1)
+        return 4 * k + bits * ((k + 7) // 8)
     n = d if d_pad is None else d_pad
     return bits * ((n + 7) // 8)
 
@@ -182,6 +213,76 @@ def pad_rows(x: torch.Tensor, width: int, value: float) -> torch.Tensor:
     return out
 
 
+def _recip32(n: int) -> float:
+    """``f32(1 / n)`` as a Python float."""
+    return float(np.float32(1.0) / np.float32(n))
+
+
+def _grid_step(b: torch.Tensor, bits: int) -> torch.Tensor:
+    """The k-bit grid step ``2b/(L-1)``, as ``2b * f32(1/(L-1))``."""
+    return (2.0 * b) * _recip32((1 << bits) - 1)
+
+
+def level_positions(delta: torch.Tensor, b: torch.Tensor, bits: int) -> torch.Tensor:
+    """Grid position ``x in [0, L-1]`` of the clipped delta:
+    ``(clip(delta, -b, b) + b) / step``; a dead coordinate (``b <= 0``)
+    sits at the midpoint ``(L-1)/2``, so its dequantized mean is 0."""
+    levels = (1 << bits) - 1
+    delta = delta.float()
+    b = torch.broadcast_to(b, delta.shape).float()
+    delta = torch.clamp(delta, -b, b)
+    live = b > 0
+    safe_step = torch.where(live, _grid_step(b, bits), torch.ones_like(b))
+    x = (delta + b) / safe_step
+    return torch.where(live, x, torch.full_like(x, 0.5 * levels))
+
+
+def level_probs(delta: torch.Tensor, b: torch.Tensor, bits: int) -> torch.Tensor:
+    """Per-level emission probabilities ``(L,) + delta.shape``: the tent
+    ``max(0, 1 - |x - l|)`` of the grid position, at most two nonzero
+    entries a coordinate, summing to 1."""
+    x = level_positions(delta, b, bits)
+    lvls = torch.arange(1 << bits, dtype=torch.float32, device=x.device).reshape((-1,) + (1,) * x.dim())
+    return torch.clamp(1.0 - (x.unsqueeze(0) - lvls).abs(), 0.0, 1.0)
+
+
+def quantize_levels(u: torch.Tensor, delta: torch.Tensor, b: torch.Tensor, bits: int) -> torch.Tensor:
+    """Stochastic grid rounding, uniforms and deltas -> uint8 level indices:
+    ``low + 1[u < frac]`` of the grid position; unbiased in the uniforms."""
+    levels = (1 << bits) - 1
+    x = level_positions(delta, b, bits)
+    low = torch.clamp(torch.floor(x), 0.0, float(levels - 1))
+    return (low + (u < x - low)).to(torch.uint8)
+
+
+def dequantize_levels(levels: torch.Tensor, b: torch.Tensor, bits: int) -> torch.Tensor:
+    """Grid value of a level index, ``v_l = -b + l * step``, as one fused
+    multiply-add (:func:`repro_torch.prng._fma`, the same on the CPU and
+    the card)."""
+    b = b.float()
+    return prng._fma(levels.float(), _grid_step(b, bits), -b)
+
+
+def pack_levels(levels: torch.Tensor, bits: int) -> torch.Tensor:
+    """(..., n) uint8 levels -> (..., bits * ceil(n/8)) packed planes:
+    plane ``p`` (bit ``p`` of every level, packed like the one-bit wire)
+    after plane ``p - 1``; an ``n % 8`` tail pads each plane with 0 bits.
+    At ``bits = 1`` this is the one-bit wire's layout."""
+    if bits not in WIRE_BITS:
+        raise ValueError(f"bits must be one of {WIRE_BITS}, got {bits}")
+    lv = torch.nn.functional.pad(levels.to(torch.int32), (0, (-levels.shape[-1]) % 8))
+    return torch.cat([_pack_bool_lastdim(((lv >> p) & 1).bool()) for p in range(bits)], dim=-1)
+
+
+def unpack_levels(packed: torch.Tensor, n: int, bits: int) -> torch.Tensor:
+    """Inverse of :func:`pack_levels`: packed planes -> (..., n) uint8."""
+    planes = packed.reshape(packed.shape[:-1] + (bits, -1))
+    out = torch.zeros(packed.shape[:-1] + (8 * planes.shape[-1],), dtype=torch.int32, device=packed.device)
+    for p in range(bits):
+        out |= _unpack_lastdim(planes[..., p, :]).to(torch.int32) << p
+    return out[..., :n].to(torch.uint8)
+
+
 def packed_binarize_batch(
     key: torch.Tensor,
     deltas: torch.Tensor,
@@ -229,6 +330,65 @@ def packed_binarize_batch(
             res[r0:r1] = (deltas_p - torch.where(bits, b_blk, -b_blk))[:, :d]
     shape = deltas.shape[:-1]
     return packed.view(shape + (d_pad // 8,)), None if res is None else res.view(deltas.shape)
+
+
+def packed_quantize_batch(
+    key: torch.Tensor,
+    deltas: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    bits: int,
+    chunk: int = PACK_CHUNK,
+    want_residual: bool = False,
+    row_offset: int = 0,
+    gamma: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """k-bit quantize + plane pack: (M, d) f32 -> (M, bits * padded_dim(d)/8)
+    uint8; ``bits = 1`` without ``gamma`` is :func:`packed_binarize_batch`.
+
+    The rounding uniforms are the one-bit wire's: chunk ``j`` of client
+    ``m`` from ``kj = fold_in(fold_in(key, row_offset + m), j)``. ``gamma``
+    (a scalar or ``(d,)``) arms L-level randomized response: where the
+    uniform of ``fold_in(kj, 1)`` is below ``gamma`` the level is replaced
+    by ``randint(fold_in(kj, 2), 0, L)`` (the reference draws it as uint8,
+    the low byte of the same 32-bit word, which for a span dividing 256 is
+    the int32 draw). Pad coordinates get delta -1, b 1 and gamma 0, so
+    every plane of theirs is 0. With ``want_residual`` the error-feedback
+    residual ``delta - v(level)`` of the emitted level comes back too. The
+    rows are drawn :func:`uniform_block_rows` at a time.
+    """
+    if bits not in WIRE_BITS:
+        raise ValueError(f"bits must be one of {WIRE_BITS}, got {bits}")
+    if bits == 1 and gamma is None:
+        return packed_binarize_batch(key, deltas, b, chunk=chunk, want_residual=want_residual,
+                                     row_offset=row_offset)
+    m, d = deltas.shape
+    dev = deltas.device
+    d_pad = padded_dim(d, chunk)
+    b_full = pad_rows(torch.broadcast_to(torch.as_tensor(b, dtype=torch.float32, device=dev), (d,)).reshape(1, d),
+                      d_pad, 1.0)[0]
+    g_full = None
+    if gamma is not None:
+        g = torch.broadcast_to(torch.as_tensor(gamma, dtype=torch.float32, device=dev), (d,))
+        g_full = pad_rows(g.reshape(1, d), d_pad, 0.0)[0]
+    packed = torch.empty((m, bits * d_pad // 8), dtype=torch.uint8, device=dev)
+    res = torch.empty((m, d), dtype=torch.float32, device=dev) if want_residual else None
+    chunks = torch.arange(d_pad // chunk, dtype=torch.int64, device=dev)
+    block = uniform_block_rows(d_pad)
+    for r0 in range(0, m, block):
+        r1 = min(r0 + block, m)
+        rows = torch.arange(r0, r1, dtype=torch.int64, device=dev)
+        kj = prng.fold_in(prng.fold_in(key, row_offset + rows).unsqueeze(-2), chunks)  # (rows, chunks, 2)
+        deltas_p = pad_rows(deltas[r0:r1], d_pad, -1.0)
+        lvl = quantize_levels(prng.uniform(kj, (chunk,)).reshape(r1 - r0, d_pad), deltas_p, b_full, bits)
+        if g_full is not None:
+            gate = prng.uniform(prng.fold_in(kj, 1), (chunk,)).reshape(r1 - r0, d_pad)
+            rand = prng.randint(prng.fold_in(kj, 2), (chunk,), 0, 1 << bits).reshape(r1 - r0, d_pad)
+            lvl = torch.where(gate < g_full, rand.to(torch.uint8), lvl)
+        packed[r0:r1] = pack_levels(lvl, bits)
+        if want_residual:
+            res[r0:r1] = (deltas_p - dequantize_levels(lvl, b_full, bits))[:, :d]
+    return packed, res
 
 
 def packed_sign_batch(deltas: torch.Tensor, *, chunk: int = PACK_CHUNK) -> torch.Tensor:

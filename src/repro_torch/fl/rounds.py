@@ -52,8 +52,8 @@ and the batches: each kernel is launched once a step for the group.
 :func:`run_rounds` runs ``rounds`` rounds on ``FLSimulation``'s key
 schedule and returns the final state and each metric's trajectory; the
 campaign engine (:mod:`repro_torch.sim`) runs a synchronous dense group
-through it as one group, and an asynchronous or streamed group one run at
-a time.
+through it as one group, and every other group (asynchronous, streamed,
+tree, or on the k-bit, mixed-width or top-k wires) one run at a time.
 
 Each step runs under a ``torch.profiler.record_function`` range
 (``round.batches``, ``round.sample`` under partial participation,
@@ -63,7 +63,11 @@ one ``round.chunk`` range a chunk), so a profiler trace splits a
 round's device time by step; with no profiler active a range costs a few
 microseconds of host time.
 
-Not ported yet: the tree rounds (ROADMAP A10).
+The hierarchical tree round (:mod:`repro_torch.fl.hierarchy`,
+``tree_edges = E > 0``) runs this chunk loop over E contiguous slices of
+the cohort and merges the slices' count tensors at a root;
+:func:`round_fn` and :func:`init_run_state` pick it. Every round takes
+the k-bit, mixed-width and top-k wires wherever the config admits them.
 """
 
 from __future__ import annotations
@@ -276,14 +280,26 @@ def init_async_state(ctx: RoundContext, b_init=None) -> AsyncRoundState:
 
 
 def init_run_state(ctx: RoundContext, b_init=None) -> RoundState:
-    """The state the config calls for: asynchronous or synchronous."""
-    return init_async_state(ctx, b_init) if ctx.cfg.async_buffer else init_state(ctx, b_init)
+    """The state the config calls for: asynchronous, a buffered tree's
+    (:func:`repro_torch.fl.hierarchy.init_tree_state`) or synchronous."""
+    if ctx.cfg.async_buffer:
+        return init_async_state(ctx, b_init)
+    if ctx.cfg.tree_edges and ctx.cfg.edge_buffer:
+        from .hierarchy import init_tree_state
+
+        return init_tree_state(ctx, b_init)
+    return init_state(ctx, b_init)
 
 
 def round_fn(ctx: RoundContext) -> Callable:
-    """The round function of the config: asynchronous, streamed or dense."""
+    """The round function of the config: asynchronous, a tree's
+    (:func:`repro_torch.fl.hierarchy.tree_fl_round`), streamed or dense."""
     if ctx.cfg.async_buffer:
         return async_fl_round
+    if ctx.cfg.tree_edges:
+        from .hierarchy import tree_fl_round
+
+        return tree_fl_round
     if ctx.cfg.client_chunk:
         return stream_fl_round
     return fl_round
@@ -484,11 +500,16 @@ def fl_round(
         return _finish_round(ctx, state, w_new, loss_before, loss_after, res_new, theta, deltas_att, sel, mask)
 
 
-def _stream_chunks(ctx, params, kb, k_att, k_q, state, sel, n_byz, weighted, limit):
-    """The streaming round's chunk loop: every chunk of ``cfg.client_chunk``
-    cohort rows trains, attacks and compresses, and folds into the additive
-    carries, where cohort positions at or past ``limit`` weigh 0. Returns
-    them with the written-back planes (the state's own when stateless)."""
+def _stream_chunks(ctx, params, kb, k_att, k_q, state, sel, n_byz, weighted, limit, *, row0=0, planes=None):
+    """The streaming round's chunk loop over the cohort rows ``sel``, the
+    first of which is cohort position ``row0`` (a tree's edge passes its
+    slice of the cohort): every chunk of ``cfg.client_chunk`` rows trains,
+    attacks and compresses, keyed by cohort position, and folds into the
+    additive carries, where positions at or past ``limit`` weigh 0.
+    ``planes`` are the (w_locals, residuals) an earlier slice of the same
+    round wrote back; None starts from the state's own, copied before the
+    first write. Returns the carries with the written-back planes (the
+    state's own when stateless)."""
     cfg, d, dev = ctx.cfg, ctx.d, ctx.device
     C, n = cfg.client_chunk, sel.shape[0]
     server = ctx.pipeline.server
@@ -504,14 +525,17 @@ def _stream_chunks(ctx, params, kb, k_att, k_q, state, sel, n_byz, weighted, lim
         acc = torch.empty((n_pad, d), dtype=torch.float32, device=dev)
     zero = torch.zeros((), device=dev)
     vote, loss, wsum, dsum = zero, zero, zero, torch.zeros(d, device=dev)
-    w_locals, residuals = state.w_locals, state.residuals
-    if not cfg.stateless_clients:
-        w_locals = w_locals.clone()  # the incoming state stays as it was
+    if planes is not None:
+        w_locals, residuals = planes
+    else:
+        w_locals, residuals = state.w_locals, state.residuals
+        if not cfg.stateless_clients:
+            w_locals = w_locals.clone()  # the incoming state stays as it was
     for g0 in range(0, n_pad, C):
         with record_function("round.chunk"):
             k = min(C, n - g0)  # real rows of the chunk, then pad rows
             sel_c = sel_p[g0:g0 + C]
-            w_c = (torch.arange(C, device=dev) < min(k, limit - g0)).float()
+            w_c = (torch.arange(C, device=dev) < min(k, limit - row0 - g0)).float()
             with record_function("round.batches"):
                 batches = _gather_batches(ctx, kb, sel_c)
             if cfg.stateless_clients:
@@ -527,9 +551,10 @@ def _stream_chunks(ctx, params, kb, k_att, k_q, state, sel, n_byz, weighted, lim
                     use_kernel=cfg.use_kernels, engine=ctx.engine,
                 )
             with record_function("round.compress"):
-                deltas = apply_attack_stream(params.attack_id, k_att, w_new - state.w_global, n_byz, g0)
+                deltas = apply_attack_stream(params.attack_id, k_att, w_new - state.w_global, n_byz, row0 + g0)
                 wire, res_new = ctx.pipeline.compress_wire(
-                    k_q, deltas, state.b.b, res_c, flip_n=ctx.flip_n, flip_gate=params.flip_gate, row_offset=g0
+                    k_q, deltas, state.b.b, res_c, flip_n=ctx.flip_n, flip_gate=params.flip_gate,
+                    row_offset=row0 + g0,
                 )
                 if kind == "counts":
                     acc = server.accumulate_counts(acc, wire.packed, w_c if weighted else None)

@@ -3,10 +3,12 @@
 Counterpart of ``repro/fl/runtime.py``. :class:`FLConfig` keeps every field
 of the reference's config, so a config carries over unchanged, and rejects
 what the reference rejects with the same ``ValueError``; the fields of
-paths the port does not have yet raise ``NotImplementedError`` naming the
-ROADMAP item that ports them. :class:`FLSimulation` runs the round the
-config calls for (synchronous, streamed over ``client_chunk`` clients or
-buffered-asynchronous, :func:`~repro_torch.fl.rounds.round_fn`) with the
+paths the port does not have yet (``stream_shard`` and ``tree_shard``, the
+sharded rounds) raise ``NotImplementedError`` naming the ROADMAP item that
+ports them. :class:`FLSimulation` runs the round the config calls for
+(synchronous, streamed over ``client_chunk`` clients, buffered-asynchronous
+or a hierarchical tree, :func:`~repro_torch.fl.rounds.round_fn`) on any of
+the wires (one-bit, k-bit, mixed-width, top-k, dense) with the
 reference's key schedule (``key = PRNGKey(seed)``; each round
 ``key, kb, kr = split(key, 3)``; batches from ``kb``, the round from
 ``kr``), on the card unless ``device="cpu"`` is passed.
@@ -29,6 +31,7 @@ from ..core import (
     available_aggregators,
     build_pipeline,
     is_timing_attack,
+    is_wire_attack,
     parse_attack,
 )
 from . import rounds as _rounds
@@ -40,17 +43,12 @@ _B_MODES = ("dynamic", "fixed", "oracle")
 # Fields of paths not ported yet: (default, ROADMAP item that ports them).
 _UNPORTED = {
     "stream_shard": (False, "A14"),
-    "wire_bits": (1, "A8"),
-    "client_bits": (None, "A8"),
-    "topk_frac": (1.0, "A9"),
-    "tree_edges": (0, "A10"),
-    "edge_buffer": (0, "A10"),
-    "tree_shard": (False, "A10"),
-    "byz_edges": (0, "A10"),
-    "edge_attack": ("none", "A10"),
-    "edge_merge": ("sum", "A10"),
-    "edge_trim": (0, "A10"),
+    "tree_shard": (False, "A14"),
 }
+
+# Aggregators whose estimate streams as additive vote counts (a tree's edges
+# ship count tensors).
+_COUNT_STREAM_AGGREGATORS = ("probit_plus", "signsgd_mv", "rsa")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,7 +106,14 @@ class FLConfig:
             raise ValueError(f"participation must be in (0, 1], got {self.participation}")
         if self.b_mode not in _B_MODES:
             raise ValueError(f"unknown b_mode {self.b_mode!r}; available: {_B_MODES}")
+        if self.topk_frac < 1.0 and self.dp_epsilon > 0:
+            raise ValueError(
+                "topk_frac < 1 releases a data-dependent index set and breaks the (eps,0)-DP guarantee; use "
+                "dense PRoBit+ with DP."
+            )
         self._check_async_and_stream()
+        self._check_wires()
+        self._check_tree()
         for name, (default, item) in _UNPORTED.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(f"{name}={getattr(self, name)!r} is not ported yet (ROADMAP {item})")
@@ -182,6 +187,154 @@ class FLConfig:
                     "stateless_clients"
                 )
 
+    def _check_wires(self):
+        """The reference's checks of the k-bit and per-client widths."""
+        from ..core.quantizer import WIRE_BITS
+
+        if self.wire_bits not in WIRE_BITS:
+            raise ValueError(f"wire_bits must be one of {WIRE_BITS}, got {self.wire_bits}")
+        if self.wire_bits != 1:
+            if self.aggregator != "probit_plus":
+                raise ValueError(
+                    f"wire_bits={self.wire_bits} is only supported by the probit_plus wire, not "
+                    f"{self.aggregator!r} (the k-bit level protocol is PRoBit+'s count/MLE machinery)"
+                )
+            if self.topk_frac < 1.0:
+                raise ValueError(
+                    "wire_bits > 1 is not supported on the top-k wire (SparseWire packs one bit per surviving "
+                    "coordinate); set topk_frac=1.0"
+                )
+        if self.client_bits is None:
+            return
+        object.__setattr__(self, "client_bits", tuple(int(k) for k in self.client_bits))
+        for k in self.client_bits:
+            if k not in WIRE_BITS:
+                raise ValueError(f"client_bits entries must be in {WIRE_BITS}, got {k}")
+        if self.aggregator != "probit_plus":
+            raise ValueError(f"per-client bit-widths (client_bits) are only supported by probit_plus, not "
+                             f"{self.aggregator!r}")
+        if len(self.client_bits) != self.n_active:
+            raise ValueError(
+                f"client_bits needs one entry per cohort row: got {len(self.client_bits)} for a "
+                f"{self.n_active}-client cohort"
+            )
+        if self.use_kernels:
+            raise ValueError(
+                "client_bits is not supported on the kernel wire yet; unset use_kernels (homogeneous wire_bits "
+                "works with kernels)"
+            )
+        if self.topk_frac < 1.0:
+            raise ValueError("client_bits is not supported on the top-k wire; set topk_frac=1.0")
+        if self.client_chunk or self.stream_shard:
+            raise ValueError(
+                "client_bits emits a per-group HeteroWire and cannot stream through the flat count accumulator; "
+                "unset client_chunk/stream_shard"
+            )
+        if self.async_buffer:
+            raise ValueError(
+                "client_bits rows have heterogeneous wire widths and cannot share the fixed-width async buffer; "
+                "set async_buffer=0"
+            )
+        if self.byz_frac > 0 and is_wire_attack(self.attack):
+            raise ValueError(
+                f"wire attack {self.attack!r} is not supported on the heterogeneous wire yet; use a delta-level "
+                "attack or homogeneous wire_bits"
+            )
+
+    def _check_tree(self):
+        """The reference's checks of the hierarchical tree's fields."""
+        if self.tree_edges < 0:
+            raise ValueError(f"tree_edges must be >= 0, got {self.tree_edges}")
+        if self.edge_buffer < 0:
+            raise ValueError(f"edge_buffer must be >= 0, got {self.edge_buffer}")
+        if not self.tree_edges:
+            tree_only = {
+                "edge_buffer": (self.edge_buffer, 0),
+                "tree_shard": (self.tree_shard, False),
+                "byz_edges": (self.byz_edges, 0),
+                "edge_attack": (self.edge_attack, "none"),
+                "edge_merge": (self.edge_merge, "sum"),
+                "edge_trim": (self.edge_trim, 0),
+            }
+            for name, (val, default) in tree_only.items():
+                if val != default:
+                    raise ValueError(f"{name}={val!r} requires a hierarchical tree round (set tree_edges > 0)")
+            return
+        from ..core.attacks import EDGE_ATTACK_IDS
+        from .hierarchy import EDGE_MERGES
+
+        if self.aggregator not in _COUNT_STREAM_AGGREGATORS:
+            raise ValueError(
+                f"tree_edges requires a count-streaming aggregator (edges ship additive count tensors); "
+                f"{self.aggregator!r} is not in {_COUNT_STREAM_AGGREGATORS}"
+            )
+        if not self.client_chunk:
+            raise ValueError(
+                "tree_edges requires client_chunk > 0: each edge runs the chunked count-accumulation scan over "
+                "its slice"
+            )
+        if self.tree_edges > self.n_active:
+            raise ValueError(
+                f"tree_edges={self.tree_edges} exceeds the cohort ({self.n_active} clients); an edge needs at "
+                "least one client"
+            )
+        if self.async_buffer:
+            raise ValueError(
+                "tree_edges and async_buffer are exclusive: the tree buffers *edge count tensors* at the root "
+                "(edge_buffer), not client wire rows"
+            )
+        if self.stream_shard:
+            raise ValueError("tree_edges shards by edge (tree_shard), not by the flat client axis; unset "
+                             "stream_shard")
+        if self.edge_buffer > self.tree_edges:
+            raise ValueError(
+                f"edge_buffer={self.edge_buffer} exceeds tree_edges={self.tree_edges}; slots beyond one per edge "
+                "would never be written"
+            )
+        if self.edge_attack not in EDGE_ATTACK_IDS:
+            raise ValueError(f"unknown edge_attack {self.edge_attack!r}; available: {EDGE_ATTACK_IDS}")
+        if not 0 <= self.byz_edges <= self.tree_edges:
+            raise ValueError(
+                f"byz_edges must be in [0, tree_edges], got {self.byz_edges} with tree_edges={self.tree_edges}"
+            )
+        if self.byz_edges and self.edge_attack == "none":
+            raise ValueError(f"byz_edges > 0 needs an edge_attack from {EDGE_ATTACK_IDS[1:]}")
+        if self.edge_attack == "edge_replay" and not self.edge_buffer:
+            raise ValueError(
+                "edge_replay re-ships the root's buffered slot content and needs a buffered tree (set "
+                "edge_buffer > 0)"
+            )
+        if self.edge_merge not in EDGE_MERGES:
+            raise ValueError(f"unknown edge_merge {self.edge_merge!r}; available: {EDGE_MERGES}")
+        if self.edge_merge != "sum" and self.edge_buffer:
+            raise ValueError(
+                "robust edge merges (median/trimmed) operate on fresh edge tensors; staleness-weighted robust "
+                "merging is not supported (set edge_buffer=0)"
+            )
+        if self.edge_trim and self.edge_merge != "trimmed":
+            raise ValueError("edge_trim only applies to edge_merge='trimmed'")
+        if self.edge_merge == "trimmed" and 2 * self.edge_trim >= self.tree_edges:
+            raise ValueError(
+                f"edge_trim={self.edge_trim} trims away all {self.tree_edges} edges (need 2*edge_trim < "
+                "tree_edges)"
+            )
+        if self.tree_shard:
+            if not self.stateless_clients:
+                raise ValueError(
+                    "tree_shard requires stateless_clients: scattering per-client state back from device-local "
+                    "edge slices is not supported"
+                )
+            if self.participation < 1.0:
+                raise ValueError(
+                    "tree_shard requires participation == 1.0 (the static client-data shard layout cannot "
+                    "follow a resampled cohort)"
+                )
+            if self.n_active % self.tree_edges:
+                raise ValueError(
+                    f"tree_shard needs equal edge slices: tree_edges={self.tree_edges} does not divide the "
+                    f"{self.n_active}-client cohort"
+                )
+
     @property
     def n_active(self) -> int:
         return max(int(self.n_clients * self.participation), 1)
@@ -216,11 +369,14 @@ class FLConfig:
             dp=self.dp,
             b_mode=self.b_mode,
             error_feedback=self.error_feedback,
+            topk_frac=self.topk_frac,
             agg_step=self.agg_step,
             gm_iters=self.gm_iters,
             use_kernels=self.use_kernels,
             chunk=self.pack_chunk or PACK_CHUNK,
             engine=engine,
+            wire_bits=self.wire_bits,
+            client_bits=self.client_bits,
         )
 
 

@@ -6,7 +6,7 @@ CUDA sources at first use, never at import.
 """
 
 from . import ops
-from .ops import ENGINES, bit_aggregate, padded_len, prox_sgd, resolve_engine, stoch_quant_compress_batch
+from .ops import ENGINES, bit_aggregate, padded_len, prox_sgd, quant_pack_u, resolve_engine, stoch_quant_compress_batch
 
 __all__ = [
     "ops",
@@ -14,6 +14,7 @@ __all__ = [
     "resolve_engine",
     "padded_len",
     "stoch_quant_compress_batch",
+    "quant_pack_u",
     "bit_aggregate",
     "prox_sgd",
 ]

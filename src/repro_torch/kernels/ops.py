@@ -12,6 +12,13 @@ otherwise a CUDA tensor resolves to ``"cuda"`` and a CPU tensor to
 ``"ref"``. A kernel that fails to build or launch raises; nothing falls
 back to ``"ref"``.
 
+The reference has no kernel for the k-bit wire (``bits > 1``): there
+``stoch_quant_compress_batch`` quantizes with plain torch on every engine,
+as the reference routes it through plain JAX on every backend; that is the
+reference's structure, not a fallback. :func:`quant_pack_u` binarizes and
+packs values with uniforms the caller drew (the top-k wire's gathered
+values) through the pack kernel B1.
+
 Wire format: the kernel wire is ``padded_len(d)/8`` bytes a row
 (1024-coordinate rows, the reference's TPU tile, kept because it defines
 the wire). Pad coordinates carry delta = -1, b = 1, u = 1.0, so pad bits
@@ -26,7 +33,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ..core.quantizer import PACK_CHUNK, cohort_uniforms, packed_binarize_batch, pad_rows
+from ..core.quantizer import PACK_CHUNK, cohort_uniforms, packed_binarize_batch, packed_quantize_batch, pad_rows
 from . import ref
 
 __all__ = [
@@ -37,6 +44,7 @@ __all__ = [
     "realign_wire",
     "prox_coeffs",
     "stoch_quant_compress_batch",
+    "quant_pack_u",
     "bit_aggregate",
     "prox_sgd",
 ]
@@ -104,9 +112,18 @@ def stoch_quant_compress_batch(
     chunk: int = PACK_CHUNK,
     want_residual: bool = False,
     engine: str | None = None,
+    bits: int = 1,
+    gamma: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Eq.-5 compress of an (M, d) cohort onto the kernel wire, or of a
     group of E cohorts at once: keys (E, 2), deltas (E, M, d), b (E, d).
+
+    ``bits > 1`` (one cohort) emits the plane-major k-bit wire of
+    :func:`~repro_torch.core.quantizer.packed_quantize_batch` (with
+    randomized response when ``gamma`` is given), each plane realigned to
+    ``padded_len(d)/8`` bytes: (M, bits * padded_len(d)/8). The reference
+    has no kernel for it and quantizes with plain JAX on every backend; so
+    does the port, with plain torch on either engine.
 
     Client ``i`` of element ``e`` draws from ``fold_in(key[e], row_offset +
     i)`` on the ``client_uniforms`` chunk schedule, so both engines emit
@@ -123,6 +140,13 @@ def stoch_quant_compress_batch(
     with a leading E for a group.
     """
     engine = resolve_engine(engine, deltas.device)
+    if bits > 1 or gamma is not None:
+        eff = deltas if residual is None else deltas + residual
+        packed, res = packed_quantize_batch(key, eff, b, bits=bits, chunk=chunk, want_residual=want_residual,
+                                            row_offset=row_offset, gamma=gamma)
+        m, d = deltas.shape
+        planes = realign_wire(packed.view(m, bits, -1), padded_len(d) // 8)
+        return planes.reshape(m, -1), res
     single = key.dim() == 1
     keys, group, b_rows = _as_group(key, deltas, b)
     e, m, d = group.shape
@@ -154,6 +178,30 @@ def stoch_quant_compress_batch(
     if single:
         return packed[0], None if res is None else res[0]
     return packed, res
+
+
+def quant_pack_u(delta: torch.Tensor, b: torch.Tensor, uniforms: torch.Tensor, *,
+                 engine: str | None = None) -> torch.Tensor:
+    """Eq.-5 binarize + pack of values with the caller's uniforms (the top-k
+    wire's gathered values): ``delta``, ``b`` and ``uniforms`` (K,) give
+    (padded_len(K)/8,) uint8; (R, K) rows give (R, padded_len(K)/8), row
+    ``r`` ranged by its own row of ``b``, in one launch of the pack kernel
+    (B1 with E = R elements of one row each). Pad coordinates get delta
+    -1, b 1 and u 1.0, so the first ``ceil(K/8)`` bytes of a row are
+    ``pack_bits`` of its codes."""
+    engine = resolve_engine(engine, delta.device)
+    single = delta.dim() == 1
+    d2, b2, u2 = (t.reshape(-1, t.shape[-1]) for t in (delta, torch.broadcast_to(b, delta.shape), uniforms))
+    width = padded_len(d2.shape[-1])
+    d_p, b_p, u_p = pad_rows(d2, width, -1.0), pad_rows(b2, width, 1.0), pad_rows(u2, width, 1.0)
+    b_rows = b_p[0] if single else b_p
+    if engine == "ref":
+        packed = ref.stoch_quant_compress_ref(d_p, b_rows, u_p)[0]
+    else:
+        from .stoch_quant import stoch_quant_pack
+
+        packed = stoch_quant_pack(d_p, b_rows, u_p)
+    return packed[0] if single else packed
 
 
 def bit_aggregate(packed: torch.Tensor, b: torch.Tensor, n: int, *, engine: str | None = None) -> torch.Tensor:

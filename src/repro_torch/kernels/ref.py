@@ -6,7 +6,11 @@ can be held to it bit for bit on the card. The CPU path and the tests run
 these; on a CUDA tensor nothing on the main path calls them unless
 ``engine="ref"`` is passed explicitly.
 
-Each takes a group of E elements (a campaign group's (cell, seed) runs)
+``kbit_quant_compress_ref`` and ``kbit_aggregate_ref`` are the plain k-bit
+pair (the reference has no kernel for ``bits > 1``; these are what its
+``ref.py`` holds for that wire, not versions of a kernel of the port).
+
+Each kernel version takes a group of E elements (a campaign group's (cell, seed) runs)
 in one call: the rows of element ``e`` are rows ``e * R/E .. (e+1) * R/E - 1``
 of the ``R`` rows given, and each element has its own range ``b``, its own
 global model ``w0`` and its own step coefficients. E = 1 is the single
@@ -19,7 +23,8 @@ import torch
 
 from ..core.quantizer import _pack_bool_lastdim, _unpack_lastdim, binarize_prob
 
-__all__ = ["element_rows", "stoch_quant_compress_ref", "bit_aggregate_ref", "prox_sgd_ref"]
+__all__ = ["element_rows", "stoch_quant_compress_ref", "bit_aggregate_ref", "kbit_quant_compress_ref",
+           "kbit_aggregate_ref", "prox_sgd_ref"]
 
 
 def element_rows(rows: int, elements: int) -> int:
@@ -69,6 +74,42 @@ def bit_aggregate_ref(packed: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     counts = _unpack_lastdim(packed).sum(-2, dtype=torch.int32)[..., : b.shape[-1]]
     return ml_estimate_from_counts(counts, packed.shape[-2], b)
+
+
+def kbit_quant_compress_ref(
+    delta: torch.Tensor,
+    b: torch.Tensor,
+    uniforms: torch.Tensor,
+    *,
+    bits: int,
+    residual: torch.Tensor | None = None,
+    want_residual: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """k-bit sibling of :func:`stoch_quant_compress_ref`: EF-add, stochastic
+    rounding onto the ``2**bits``-level grid in [-b, b] and plane packing,
+    (..., N) -> (..., bits * N/8) uint8, with the next EF carry ``eff -
+    v(level)``. ``bits = 1`` gives the one-bit wire byte for byte."""
+    from ..core.quantizer import dequantize_levels, pack_levels, quantize_levels
+
+    eff = delta.float()
+    if residual is not None:
+        eff = eff + residual.float()
+    b = torch.broadcast_to(b, eff.shape).float()
+    levels = quantize_levels(uniforms, eff, b, bits)
+    packed = pack_levels(levels, bits)
+    if not want_residual:
+        return packed, None
+    return packed, eff - dequantize_levels(levels, b, bits)
+
+
+def kbit_aggregate_ref(packed: torch.Tensor, b: torch.Tensor, bits: int) -> torch.Tensor:
+    """Count each bit plane of an (M, bits * P) wire, then the L-level ML
+    estimate (:func:`~repro_torch.core.aggregation.kbit_estimate_from_counts`)
+    of the first ``N = len(b)`` coordinates."""
+    from ..core.aggregation import kbit_estimate_from_counts
+
+    plane_counts = _unpack_lastdim(packed).sum(0, dtype=torch.int32).reshape(bits, -1)[:, : b.shape[0]]
+    return kbit_estimate_from_counts(plane_counts, packed.shape[0], b, bits)
 
 
 def prox_sgd_ref(w, w0, grad, momentum, coeffs, *, out=None):

@@ -18,8 +18,9 @@ whole group. This module builds what that call needs:
 * **Data** (:class:`GroupData`): a fused group's client data, one row a
   cell; each run's batches come from its own cell's rows.
 
-Asynchronous and streamed groups are not :func:`batchable`: they run one
-run at a time through ``run_rounds`` (ROADMAP lists batching them as later
+Asynchronous, streamed and tree groups, and groups on the k-bit,
+mixed-width or top-k wires, are not :func:`batchable`: they run one run at
+a time through ``run_rounds`` (ROADMAP A11b lists batching them as later
 work).
 """
 
@@ -38,9 +39,11 @@ __all__ = ["batchable", "GroupData", "init_group_state", "device_params"]
 
 def batchable(cfg) -> bool:
     """Does a group of this config run as one group (the synchronous dense
-    round's group form)? Asynchronous and streamed ones run one run at a
-    time."""
-    return cfg.async_buffer == 0 and cfg.client_chunk == 0
+    round's group form, on the one-bit or dense wires)? Asynchronous,
+    streamed and tree groups and the k-bit, mixed-width and top-k wires run
+    one run at a time."""
+    return (cfg.async_buffer == 0 and cfg.client_chunk == 0 and cfg.wire_bits == 1 and cfg.client_bits is None
+            and cfg.topk_frac >= 1.0)
 
 
 @dataclasses.dataclass(frozen=True)

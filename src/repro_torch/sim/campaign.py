@@ -29,8 +29,9 @@ prepared runner:
 * a synchronous dense group runs all its E = cells x seeds runs at once
   through the round's group form (:func:`~repro_torch.fl.rounds.fl_round`
   with a leading E; its inputs from :mod:`repro_torch.sim.batched`): each
-  kernel is launched once a step for the whole group. Asynchronous and streamed
-  groups run one run at a time through
+  kernel is launched once a step for the whole group. Asynchronous,
+  streamed and tree groups, and groups on the k-bit, mixed-width or top-k
+  wires, run one run at a time through
   :func:`~repro_torch.fl.rounds.run_rounds`;
 * dispatch is **overlapped**: every group's rounds are queued on the device
   before the first group's results are read, and nothing inside a group's
@@ -297,6 +298,10 @@ def _peak_bytes_est(ctx, n_elems_per_dev: int) -> int:
     else:
         wire = rows * p_bytes
         acc = 8 * p_bytes * 4  # one int32/f32 vote count per padded bit
+        if cfg.tree_edges:
+            # the stacked per-edge count tensors at the root, and the
+            # bounded edge buffer when there is one
+            acc += (cfg.tree_edges + cfg.edge_buffer) * 8 * p_bytes * 4
     return n_elems_per_dev * (wire + acc)
 
 

@@ -421,6 +421,79 @@ def test_async_and_stream_rounds_on_kernels_equal_plain_versions(dev, kw, launch
             assert torch.equal(getattr(ks, f), getattr(ps, f)), f
 
 
+@pytest.mark.parametrize("m,k", [(7, 99), (100, 11_828)])
+def test_quant_pack_u_equals_plain_version(dev, m, k):
+    """B1 through ops.quant_pack_u on top-k row sets (k not a multiple of 8,
+    one b row a client, one launch) equals the plain version bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(k)
+    d_sel = 0.02 * torch.randn(m, k, generator=gen, device=dev)
+    b_sel = 0.005 + 0.02 * torch.rand(m, k, generator=gen, device=dev)
+    u = torch.rand(m, k, generator=gen, device=dev)
+    _build.reset_launches()
+    got = ops.quant_pack_u(d_sel, b_sel, u)
+    assert dict(_build.launches) == {"stoch_quant_pack": 1}
+    assert torch.equal(got, ops.quant_pack_u(d_sel, b_sel, u, engine="ref"))
+
+
+@pytest.mark.parametrize("kw,launches", [
+    # the k-bit wire (randomized response under DP): no pack or count kernel, B4 a local step
+    ({"wire_bits": 4, "dp_epsilon": 0.5}, {"prox_sgd": 8}),
+    # top-k: B1 once a round for the cohort's gathered values, error feedback or not
+    ({"topk_frac": 0.1, "error_feedback": True, "byz_frac": 0.34, "attack": "bit_flip"},
+     {"stoch_quant_pack": 2, "prox_sgd": 8}),
+    # trees of 6 clients: B1 (B2 with error feedback) once a chunk, B4 a local step of each chunk
+    ({"tree_edges": 2, "client_chunk": 2, "edge_merge": "median", "byz_edges": 1, "edge_attack": "edge_sign_flip"},
+     {"stoch_quant_pack": 8, "prox_sgd": 32}),
+    ({"tree_edges": 3, "client_chunk": 2, "edge_buffer": 2, "async_latency": 1.0, "staleness_decay": 0.5,
+      "byz_edges": 1, "edge_attack": "edge_replay", "error_feedback": True}, {"stoch_quant_ef": 6, "prox_sgd": 24}),
+    ({"tree_edges": 3, "client_chunk": 2, "wire_bits": 2, "edge_merge": "trimmed", "edge_trim": 1}, {"prox_sgd": 24}),
+], ids=["k4-dp", "topk-ef-bit_flip", "tree-median", "tree-buffered-ef", "tree-trimmed-k2"])
+def test_wires_and_trees_on_kernels_equal_plain_versions(dev, kw, launches):
+    """Two rounds of the k-bit, top-k and tree paths through the kernels
+    equal the engine='ref' rounds on the card (theta, loss, b, and a
+    buffered tree's buffer), with their own launch counts."""
+    from repro_torch.fl import FLConfig, FLSimulation
+    from repro_torch.models import accuracy, mlp_logits, xent_loss
+
+    p0, cx, cy, test = _mlp_task()
+    runs = []
+    for engine in (None, "ref"):
+        _build.reset_launches()
+        sim = FLSimulation(FLConfig(n_clients=6, rounds=2, local_epochs=2, use_kernels=True, **kw), p0,
+                           functools.partial(xent_loss, mlp_logits), functools.partial(accuracy, mlp_logits),
+                           cx, cy, test, device=dev, engine=engine)
+        rounds = [(m["theta"].clone(), m["loss"].item(), m["b"].item()) for _, m in sim.iter_rounds()]
+        runs.append((rounds, dict(_build.launches), sim.state))
+    (kern, kl, ks), (plain, pl, ps) = runs
+    assert pl == {} and kl == launches
+    for (t1, l1, b1), (t2, l2, b2) in zip(kern, plain):
+        assert torch.equal(t1, t2) and l1 == l2 and b1 == b2 and np.isfinite(l1)
+    for f in ("edge_counts", "edge_mass", "edge_age", "edge_valid"):
+        if hasattr(ks, f):
+            assert torch.equal(getattr(ks, f), getattr(ps, f)), f
+
+
+def test_sum_tree_equals_stream_round_on_card(dev):
+    """A sum tree of 3 edges equals the streamed round in chunks of 2 on the
+    card, through the kernels, in every plane and b (the reference's
+    zero-staleness claim), error feedback on."""
+    from repro_torch.fl import FLConfig, FLSimulation
+    from repro_torch.models import accuracy, mlp_logits, xent_loss
+
+    p0, cx, cy, test = _mlp_task()
+    states = []
+    for extra in ({}, {"tree_edges": 3}):
+        sim = FLSimulation(FLConfig(n_clients=6, rounds=2, local_epochs=2, use_kernels=True, client_chunk=2,
+                                    error_feedback=True, **extra), p0, functools.partial(xent_loss, mlp_logits),
+                           functools.partial(accuracy, mlp_logits), cx, cy, test, device=dev)
+        for _ in sim.iter_rounds():
+            pass
+        states.append(sim.state)
+    for f in ("w_global", "w_locals", "residuals"):
+        assert torch.equal(getattr(states[0], f), getattr(states[1], f)), f
+    assert torch.equal(states[0].b.b, states[1].b.b)
+
+
 @pytest.mark.parametrize("e", [1, 3, 8])
 def test_batched_kernels_equal_plain_versions(dev, e):
     """Each kernel over a group of E runs in one launch, each run with its

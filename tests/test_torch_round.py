@@ -10,6 +10,7 @@ aggregator, attack, b mode and participation, are in
 """
 
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -280,8 +281,24 @@ def test_flsimulation_needs_a_card_unless_told(monkeypatch):
     {"edge_trim": 1},
 ])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FLConfig(**kw)
+    """The options that raised NotImplementedError until the k-bit, top-k
+    and tree paths were ported (ROADMAP A8-A10): the port now does with
+    each what the reference's FLConfig does (the same ValueError message,
+    or acceptance), except stream_shard, which still raises
+    NotImplementedError naming ROADMAP A14 (so does a valid sharded tree,
+    tests/test_torch_tree.py::test_tree_shard_raises_naming_a14)."""
+    cfg = dict(n_clients=N_CLIENTS, **kw)
+    if "stream_shard" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+            FLConfig(**cfg)
+        return
+    try:
+        JConfig(**cfg)
+    except ValueError as err:
+        with pytest.raises(ValueError, match=re.escape(str(err))):
+            FLConfig(**cfg)
+    else:
+        FLConfig(**cfg)
 
 
 @pytest.mark.parametrize("kw", [{"client_chunk": 2}, {"async_buffer": 2}])
