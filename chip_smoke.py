@@ -115,6 +115,23 @@ Phases (any failure raises and exits non-zero before the result line):
    ``engine="ref"`` rerun in every round; each prints its round times, its
    wire bytes a row and its peak memory (the ``"phase": "wires_trees"``
    lines);
+9. lm (after phase 8): ``repro_torch.launch.train``'s set-up, batches and
+   step at qwen2-1.5b's published width (28 layers, d_model 1,536, vocab
+   151,936; 15 leaves, d = 1,777,088,000; random weights from the port's
+   Threefry) with the trainer's defaults (4 clients, 2 local steps of 2
+   sequences of 128 tokens): (p) PRoBit+ on the kernel wire for 3 rounds,
+   one B1 a (client, leaf) and one B3 a leaf each round (180 and 45), every
+   round equal to its ``engine="ref"`` step on the same inputs (new
+   parameters bit for bit, b and both losses exact), its wire ~1/32 of f32;
+   (p16) the 16-bit draws and (p-avg) FedAvg, one round each, launching
+   nothing. Each prints its round seconds, peak memory, wire bytes (packed,
+   ideal, int8, f32), init seconds, the busy share nvidia-smi reads over
+   its last round and, with 3 rounds, its second round's stream ms by
+   stage (forward and backward, local update, compress, estimate). Then (q): ``aggregate_pytree`` with error feedback on
+   the reduced qwen2 (B2 and B3 once a leaf a round), two rounds, equal to
+   ``stream_aggregate_pytree`` in chunks of 2 and to ``engine="ref"``
+   (the ``"phase": "lm"`` lines); phase 5 then times B1 and B3 at its
+   largest leaf (``kernels_at_lm_leaf``, ``at_lm_leaf`` in their rows);
 6. with ``--profile`` only: (a) on the MLP and on ``resnet18w64-m100``:
    the device busy share as nvidia-smi reads it over unprofiled rounds and
    as the union of the kernels' records of one round under
@@ -217,6 +234,32 @@ KERNELS = {
     "bit_aggregate": ("src/repro_torch/kernels/csrc/bit_aggregate.cu", "src/repro/kernels/bit_aggregate.py:89"),
     "prox_sgd": ("src/repro_torch/kernels/csrc/prox_sgd.cu", "src/repro/kernels/prox_sgd.py:51"),
 }
+
+
+# Phase 9: the federated LM round of repro_torch.launch.train at qwen2-1.5b's
+# published width (28 layers, d_model 1,536, vocab 151,936; 15 parameter
+# leaves, d = 1,777,088,000) with the trainer's defaults: 4 clients, 2 local
+# steps of 2 sequences of 128 tokens, at a learning rate of 1e-8: the
+# reference's init (fan_in = shape[-2], 1/sqrt(12) for the (1536, 12, 128)
+# attention projections) makes 28 layers' gradients reach 1e11-1e13, and
+# one SGD step at the trainer's 0.01 makes the next local loss NaN in the
+# reference and the port alike (ROADMAP C). (p) PRoBit+ on the kernel wire, each
+# round beside its engine="ref" rerun; (p16) the 16-bit draws, which stay
+# plain; (p-avg) the full-precision FedAvg baseline; both one round. Then
+# (q): aggregate_pytree with error feedback on the reduced qwen2 through B2
+# and B3, two rounds, against stream_aggregate_pytree and engine="ref".
+LM_ARCH = "qwen2-1.5b"
+LM_ARGS = ["--arch", LM_ARCH, "--clients", "4", "--local-steps", "2", "--per-batch", "2", "--seq", "128",
+           "--lr", "1e-8"]
+LM_VARIANTS = {
+    "p": ["--rounds", "3"],
+    "p16": ["--rounds", "1", "--rand-bits", "16"],
+    "p-avg": ["--rounds", "1", "--aggregator", "fedavg_fp32"],
+}
+LM_Q = {"clients": 4, "client_chunk": 2, "rounds": 2}
+# The largest leaf of qwen2-1.5b, blocks[0].ffn.w1 (28 x 1,536 x 8,960), at
+# which phase 5 times B1 (one client's row) and B3 (the round's 4 rows).
+LM_LEAF_D = 28 * 1_536 * 8_960
 
 
 def require(cond, msg: str) -> None:
@@ -1662,6 +1705,47 @@ def topk_pack_times(dev, copy_gbs: float, m: int = 100, d: int = 118_282) -> dic
             "copy_bound_ms": nbytes / (copy_gbs * 1e9) * 1e3}
 
 
+def lm_leaf_times(dev, copy_gbs: float, m: int = 4, d: int = LM_LEAF_D) -> dict:
+    """Phase 5: B1 and B3 at qwen2-1.5b's largest leaf as phase 9 launches
+    them: B1 on one client's row of d = 385,351,680 coordinates (delta, b
+    and u read once, the packed row written once), B3 on the round's M = 4
+    stored rows of that leaf (the rows and b read once, theta written
+    once), each against its plain version on the same inputs."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bit_aggregate import bit_aggregate
+    from repro_torch.kernels.ops import padded_len
+    from repro_torch.kernels.stoch_quant import stoch_quant_pack
+
+    gen = torch.Generator(device=dev).manual_seed(91)
+    width = padded_len(d)
+    require(width == d, f"the LM leaf {d} is not a whole number of kernel rows")
+    delta = 0.01 * torch.randn(1, width, generator=gen, device=dev)
+    b = torch.full((width,), 0.01, device=dev)
+    u = torch.rand(1, width, generator=gen, device=dev)
+    rows = torch.randint(0, 256, (m, width // 8), generator=gen, device=dev, dtype=torch.uint8)
+    out = {}
+    cases = {
+        "stoch_quant_pack": (lambda: stoch_quant_pack(delta, b, u), lambda: ref.stoch_quant_compress_ref(delta, b, u),
+                             12 * width + width // 8, 7 * width, f"M=1 d={d}"),
+        "bit_aggregate": (lambda: bit_aggregate(rows, b), lambda: ref.bit_aggregate_ref(rows, b),
+                          *b3_work(m, d), f"M={m} d={d} P={width // 8}"),
+    }
+    for name, (kern, plain, nbytes, ops_n, shape) in cases.items():
+        ms = timed_ms(kern, reps=10)
+        plain_ms = timed_ms(plain, reps=3, repeats=3)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops_n / PEAK_F32_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        out[name] = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
+                     "gbs": nbytes / (ms * 1e-3) / 1e9, "share_of_bound": bound / ms,
+                     "copy_bound_ms": nbytes / (copy_gbs * 1e9) * 1e3}
+    del delta, b, u, rows, cases
+    torch.cuda.empty_cache()
+    return out
+
+
 def b4_work(m: int, d: int) -> tuple[int, int]:
     """(bytes, operations) of B4 on an ``(m, d)`` cohort with one shared w0
     row: w, grad and momentum read and w' and m' written once, w0 read once;
@@ -1682,12 +1766,14 @@ def fused_sgd(w, g, mom):
                              dampening=0.0, nesterov=False, maximize=False, is_first_step=False)
 
 
-def kernel_rows(runs: dict, chk: Checker, at_main: dict, at_resnet: dict, at_group: dict, at_topk: dict) -> list[dict]:
+def kernel_rows(runs: dict, chk: Checker, at_main: dict, at_resnet: dict, at_group: dict, at_topk: dict,
+                at_lm: dict) -> list[dict]:
     """The per-kernel JSON rows: times at the main path's shapes, with the
     same at ResNet-18's and the batched call at E = 8 runs of the main
-    path's cohort beside them, and B1 at the top-k wire's shape;
-    ``launches`` is the sum over every run of phases 4, 4b, 4c, 4d, 7 and 8
-    of each one's own count, by run beside it."""
+    path's cohort beside them, B1 at the top-k wire's shape, and B1 and B3
+    at qwen2-1.5b's largest leaf; ``launches`` is the sum over every run of
+    phases 4, 4b, 4c, 4d, 7, 8 and 9 of each one's own count, by run beside
+    it."""
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rows.append({
@@ -1697,8 +1783,234 @@ def kernel_rows(runs: dict, chk: Checker, at_main: dict, at_resnet: dict, at_gro
             "max_abs_err": chk.max_err[name], "library_ms": None,
             **at_main[name], f"at_{RESNET_D}": at_resnet[name], "batched_E8_M100": at_group[name],
             **({"at_topk_M100": at_topk} if name == "stoch_quant_pack" else {}),
+            **({"at_lm_leaf": at_lm[name]} if name in at_lm else {}),
         })
     return rows
+
+
+def lm_expected_launches(n_leaves: int, clients: int, rounds: int, args) -> dict:
+    """One phase-9 run's launches: on the kernel wire (PRoBit+ at 32-bit
+    draws) one B1 a (client, leaf) and one B3 a leaf, each round; nothing
+    at 16-bit draws (the reference refuses them on the kernel wire) or
+    under FedAvg; never B2 (error feedback is off) or B4 (the LM's local
+    step is plain bf16 without momentum, as in the reference)."""
+    kernel_wire = args.aggregator == "probit_plus" and args.rand_bits == 32
+    return {"stoch_quant_pack": clients * n_leaves * rounds if kernel_wire else 0, "stoch_quant_ef": 0,
+            "bit_aggregate": n_leaves * rounds if kernel_wire else 0, "prox_sgd": 0}
+
+
+def lm_stage_ms(fn) -> dict:
+    """Stream ms of the LM round's stages while ``fn()`` runs one round,
+    unprofiled: CUDA events around each call of the model's forward and
+    backward (``fl_step._value_and_grad``), the local update
+    (``fl_step._local_step``), a client leaf's compression (B1 with its
+    Threefry uniforms, ``ClientCompressor.compress``) and a leaf's estimate
+    (B3, ``AggregatorPipeline.estimate``), summed by stage; ``other`` is the
+    rest of the round (the model difference, the new parameters, host
+    gaps). In a round whose device is busy throughout, a stage's stream ms
+    is its device time."""
+    import unittest.mock as mock
+
+    import torch
+
+    from repro_torch.core.aggregation import AggregatorPipeline, ClientCompressor
+    from repro_torch.launch import fl_step
+
+    spans = {k: [] for k in ("forward_backward", "local_update", "compress", "estimate")}
+
+    def around(f, name):
+        def wrapped(*args, **kwargs):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = f(*args, **kwargs)
+            b.record()
+            spans[name].append((a, b))
+            return out
+        return wrapped
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with mock.patch.object(fl_step, "_value_and_grad", around(fl_step._value_and_grad, "forward_backward")), \
+            mock.patch.object(fl_step, "_local_step", around(fl_step._local_step, "local_update")), \
+            mock.patch.object(ClientCompressor, "compress", around(ClientCompressor.compress, "compress")), \
+            mock.patch.object(AggregatorPipeline, "estimate", around(AggregatorPipeline.estimate, "estimate")):
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    out = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    out["round"] = start.elapsed_time(end)
+    out["other"] = out["round"] - sum(out[k] for k in spans)
+    return out
+
+
+def lm_run(dev, name: str, argv: list, with_ref: bool) -> dict:
+    """One phase-9 variant through ``repro_torch.launch.train``'s own set-up,
+    batches and step: each round's losses, b, seconds and peak memory, the
+    launches of the kernel steps (zeroed just before each, read just
+    after), the busy share nvidia-smi reads over the last round, and, with
+    ``with_ref``, each round against the ``engine="ref"`` step on the same
+    inputs (new parameters bit for bit, b and both losses exact; it must
+    launch nothing)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng, tree
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.launch.fl_step import make_fl_train_step
+
+    args = train.parse_args(LM_ARGS + argv)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run = train.setup(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree.leaves(run.params)
+    d, n_leaves, wire = sum(w.numel() for w in leaves), len(leaves), run.wire
+    del leaves
+    ref_step = make_fl_train_step(run.cfg, run.fl, engine="ref") if with_ref else None
+    params, b, key = run.params, torch.tensor(args.b_init, dtype=torch.float32, device=dev), prng.key(1, dev)
+    launches = {k: 0 for k in KERNELS}
+    recs, busy, stages = [], None, None
+    for r in range(args.rounds):
+        batch = train.round_batch(run, args, r)
+        key, kr = prng.split(key, 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        out = []
+
+        def step():
+            out.append(run.step(params, b, batch, kr))
+            torch.cuda.synchronize()
+
+        t1 = time.perf_counter()
+        if r == args.rounds - 1:
+            busy = smi_busy_share(step)
+        elif r == 1:
+            stages = lm_stage_ms(step)
+        else:
+            step()
+        sec = time.perf_counter() - t1
+        require(set(_build.launches) <= set(KERNELS), f"lm {name}: unknown kernel {dict(_build.launches)}")
+        for k in KERNELS:
+            launches[k] += _build.launches[k]
+        new, b_new, met = out.pop()
+        rec = {"loss_first": met["loss_first"].item(), "loss_last": met["loss_last"].item(), "b": b_new.item(),
+               "seconds": sec, "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        require(np.isfinite(rec["loss_first"]) and np.isfinite(rec["loss_last"]), f"lm {name} round {r}: {rec}")
+        moves = {np.float32(np.float32(b.item()) * np.float32(f)) for f in (1.01, 0.98)}
+        require(np.float32(rec["b"]) in moves, f"lm {name} round {r}: b {rec['b']} from {b.item()}")
+        require(met["wire_bytes"] == run.wire["wire_bytes"], f"lm {name}: wire bytes {met['wire_bytes']} vs {run.wire}")
+        if with_ref:
+            _build.reset_launches()
+            t1 = time.perf_counter()
+            r_new, r_b, r_met = ref_step(params, b, batch, kr)
+            torch.cuda.synchronize()
+            rec["seconds_ref"] = time.perf_counter() - t1
+            require(not any(_build.launches.values()), f"lm {name}: the engine='ref' step launched {_build.launches}")
+            differ = sum(int((x != y).sum()) for x, y in zip(tree.leaves(new), tree.leaves(r_new)))
+            require(differ == 0, f"lm {name} round {r}: {differ} parameters differ from the engine='ref' step")
+            require(r_b.item() == rec["b"], f"lm {name} round {r}: b {rec['b']} vs ref {r_b.item()}")
+            for k in ("loss_first", "loss_last"):
+                require(r_met[k].item() == rec[k], f"lm {name} round {r}: {k} {rec[k]} vs ref {r_met[k].item()}")
+            del r_new
+        moved = sum(int((x != y).sum()) for x, y in zip(tree.leaves(new), tree.leaves(params)))
+        require(moved > 0, f"lm {name} round {r}: no parameter moved")
+        rec["params_moved"] = moved
+        recs.append(rec)
+        params, b = new, b_new
+        del new
+    want = lm_expected_launches(n_leaves, args.clients, args.rounds, args)
+    require(launches == want, f"lm {name}: launches {launches} != expected {want}")
+    del params, run, ref_step
+    torch.cuda.empty_cache()
+    return {"rounds": recs, "launches": launches, "expected_launches": want, "d": d, "leaves": n_leaves,
+            "wire": wire, "init_seconds": init_s, "busy_last_round": busy, "stage_stream_ms_round1": stages,
+            "with_ref": with_ref}
+
+
+def lm_pytree_ef(dev) -> dict:
+    """Phase 9 (q): ``aggregate_pytree`` with error feedback over the reduced
+    qwen2's tree on the card, two rounds (the residuals carried): its B2 and
+    B3 launches, each round equal to ``stream_aggregate_pytree`` in chunks of
+    two clients (which launches B2 a chunk and counts with the plain int32
+    count) and to the ``engine="ref"`` pipeline, thetas and residuals bit for
+    bit."""
+    import torch
+
+    from repro_torch import configs, prng, tree
+    from repro_torch.core import build_pipeline
+    from repro_torch.fl import pytree_wire as pw
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_specs, init_params
+
+    m, chunk, rounds = LM_Q["clients"], LM_Q["client_chunk"], LM_Q["rounds"]
+    cfg = configs.reduced(configs.get_config(LM_ARCH))
+    params = init_params(build_specs(cfg), prng.key(0, dev))
+    n_leaves = len(tree.leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(19)
+    kern = build_pipeline("probit_plus", error_feedback=True, use_kernels=True)
+    ref = build_pipeline("probit_plus", error_feedback=True, use_kernels=True, engine="ref")
+    states = {k: pw.init_wire_state(params, m) for k in ("oneshot", "stream", "ref")}
+    b = torch.tensor(0.01, device=dev)
+    launches = {"oneshot": {k: 0 for k in KERNELS}, "stream": {k: 0 for k in KERNELS}}
+    t0 = time.perf_counter()
+    for r in range(rounds):
+        deltas = tree.tree_map(lambda w: 0.01 * torch.randn((m,) + tuple(w.shape), generator=gen, device=dev), params)
+        key = prng.fold_in(prng.key(7, dev), r)
+        _build.reset_launches()
+        t1, states["oneshot"] = pw.aggregate_pytree(kern, key, deltas, b, states["oneshot"])
+        torch.cuda.synchronize()
+        for k in KERNELS:
+            launches["oneshot"][k] += _build.launches[k]
+        _build.reset_launches()
+        t2, states["stream"] = pw.stream_aggregate_pytree(kern, key, deltas, b, states["stream"], client_chunk=chunk)
+        torch.cuda.synchronize()
+        for k in KERNELS:
+            launches["stream"][k] += _build.launches[k]
+        _build.reset_launches()
+        t3, states["ref"] = pw.aggregate_pytree(ref, key, deltas, b, states["ref"])
+        require(not any(_build.launches.values()), f"lm q: the engine='ref' pipeline launched {_build.launches}")
+        for other, st in ((t2, states["stream"]), (t3, states["ref"])):
+            require(all(torch.equal(x, y) for x, y in zip(tree.leaves(t1), tree.leaves(other))),
+                    f"lm q round {r}: theta differs between one-shot, streamed and ref")
+            require(all(torch.equal(x, y) for x, y in zip(tree.leaves(states["oneshot"].residuals),
+                                                          tree.leaves(st.residuals))),
+                    f"lm q round {r}: residuals differ between one-shot, streamed and ref")
+    zero = {k: 0 for k in KERNELS}
+    want = {"oneshot": {**zero, "stoch_quant_ef": n_leaves * rounds, "bit_aggregate": n_leaves * rounds},
+            "stream": {**zero, "stoch_quant_ef": n_leaves * rounds * (m // chunk)}}
+    require(launches == want, f"lm q: launches {launches} != expected {want}")
+    res_mass = max(float(x.abs().max()) for x in tree.leaves(states["oneshot"].residuals))
+    require(res_mass > 0, "lm q: error feedback carried no mass")
+    return {"phase": "lm", "run": "q", "arch": cfg.name, "d": sum(w.numel() for w in tree.leaves(params)),
+            "leaves": n_leaves, "clients": m, "client_chunk": chunk, "rounds": rounds, "launches": launches,
+            "expected_launches": want, "equal_rounds": rounds, "max_abs_residual": res_mass,
+            "seconds": time.perf_counter() - t0}
+
+
+def lm_runs(dev) -> dict:
+    """Phase 9: LM_VARIANTS, then (q); prints one ``"phase": "lm"`` line a
+    run. (p)'s wire must be ~1/32 of f32."""
+    runs, t0 = {}, time.perf_counter()
+    for name, argv in LM_VARIANTS.items():
+        run = lm_run(dev, name, argv, with_ref=name == "p")
+        line = {"phase": "lm", "run": f"{LM_ARCH}/{name}", "argv": LM_ARGS + argv, **run}
+        if name == "p":
+            ratio = run["wire"]["wire_bytes_f32"] / run["wire"]["wire_bytes"]
+            require(31.0 < ratio <= 32.0, f"lm p: packed wire is 1/{ratio} of f32")
+            line["f32_over_packed"] = ratio
+        print(json.dumps(line), flush=True)
+        runs[f"lm/{name}"] = run
+    q = lm_pytree_ef(dev)
+    print(json.dumps(q), flush=True)
+    runs["lm/q-oneshot"] = {"launches": q["launches"]["oneshot"]}
+    runs["lm/q-stream"] = {"launches": q["launches"]["stream"]}
+    print(json.dumps({"phase": "lm_done", "seconds": time.perf_counter() - t0}), flush=True)
+    return runs
 
 
 def graph_ms(fn) -> float:
@@ -2144,6 +2456,7 @@ def main() -> int:
     async_stream = async_stream_runs(dev, runs, vision["resnet18w64-m100/a"]["peak_bytes"])
     campaigns = campaign_runs(dev, runs)
     wires_trees = wires_trees_runs(dev, runs, async_stream)
+    lm = lm_runs(dev)
 
     # Phase 5 times kernels, not allocations: under deterministic algorithms
     # every torch.empty is filled with NaN by a kernel of its own.
@@ -2153,12 +2466,13 @@ def main() -> int:
     at_resnet = kernel_times(dev, MAIN["n_clients"], RESNET_D, copy_gbs)
     at_group = kernel_times(dev, MAIN["n_clients"], 118_282, copy_gbs, elements=len(COHORT_SEEDS))
     at_topk = topk_pack_times(dev, copy_gbs)
-    rows = kernel_rows({**runs, **grid, **vision, **async_stream, **campaigns, **wires_trees}, chk, at_main, at_resnet,
-                       at_group, at_topk)
+    at_lm = lm_leaf_times(dev, copy_gbs)
+    rows = kernel_rows({**runs, **grid, **vision, **async_stream, **campaigns, **wires_trees, **lm}, chk, at_main,
+                       at_resnet, at_group, at_topk, at_lm)
     print(json.dumps({"phase": "times", "card": card, "copy_gbs": copy_gbs,
                       "round_seconds_a": [r["seconds"] for r in runs["a"]["rounds"]],
                       f"kernels_at_{RESNET_D}": at_resnet, "kernels_batched_E8_M100": at_group,
-                      "stoch_quant_pack_at_topk_M100": at_topk}), flush=True)
+                      "stoch_quant_pack_at_topk_M100": at_topk, "kernels_at_lm_leaf": at_lm}), flush=True)
     print(json.dumps(stage_times(dev)), flush=True)
     print(json.dumps(b3_sweep(dev, copy_gbs)), flush=True)
     print(json.dumps(b4_sweep(dev, copy_gbs)), flush=True)

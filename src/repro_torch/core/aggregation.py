@@ -319,6 +319,8 @@ class ClientCompressor:
     feedback -> top-k -> Eq.-5 binarize or k-bit quantize -> bit pack),
     ``"pack_sign"`` (sign codes) or ``"dense"`` (identity).
 
+    ``rand_bits=16`` draws 16-bit words for the one-bit wire (the LM
+    trainer's option; not on the kernel or top-k wires).
     ``wire_bits`` is the width of every client's values (1, 2 or 4) and
     ``client_bits`` one width a cohort row (a :class:`HeteroWire`; it
     overrides ``wire_bits``); ``topk_frac < 1`` uploads the top-k
@@ -334,10 +336,20 @@ class ClientCompressor:
     use_kernels: bool = False
     chunk: int = PACK_CHUNK
     engine: str | None = None
+    # Quantizer draw width: 32 = f32 uniforms, 16 = 16-bit draws against a
+    # wider threshold (quantizer.threshold_u16). The kernel and top-k wires
+    # take 32 only, as in the reference.
+    rand_bits: int = 32
     wire_bits: int = 1
     client_bits: tuple | None = None
 
     def __post_init__(self):
+        if self.rand_bits not in (16, 32):
+            raise ValueError(f"rand_bits must be 16 or 32, got {self.rand_bits}")
+        if self.rand_bits == 16 and self.use_kernels:
+            raise ValueError("rand_bits=16 is not supported on the kernel wire")
+        if self.rand_bits == 16 and self.topk_frac < 1.0:
+            raise ValueError("rand_bits=16 is not supported on the top-k wire")
         if self.wire_bits not in WIRE_BITS:
             raise ValueError(f"wire_bits must be one of {WIRE_BITS}, got {self.wire_bits}")
         if self.wire_bits > 1:
@@ -345,6 +357,8 @@ class ClientCompressor:
                 raise ValueError(f"wire_bits > 1 requires the pack_stochastic wire (got mode={self.mode!r})")
             if self.topk_frac < 1.0:
                 raise ValueError("wire_bits > 1 is not supported on the top-k wire")
+            if self.rand_bits != 32:
+                raise ValueError("wire_bits > 1 requires rand_bits=32")
         if self.client_bits is not None:
             object.__setattr__(self, "client_bits", tuple(int(k) for k in self.client_bits))
             hetero_client_groups(self.client_bits)  # validates each entry
@@ -453,7 +467,8 @@ class ClientCompressor:
         else:
             eff = deltas + residuals if use_ef else deltas
             packed, res = packed_binarize_batch(
-                key, eff, b_vec, chunk=self.chunk, want_residual=use_ef, row_offset=row_offset
+                key, eff, b_vec, chunk=self.chunk, want_residual=use_ef, row_offset=row_offset,
+                rand_bits=self.rand_bits,
             )
         return PackedWire(packed=packed, b=b_vec, d=d), (res if use_ef else residuals)
 
@@ -750,12 +765,12 @@ class AggregatorPipeline:
         return self.server.aggregate(wire, weights)
 
 
-def _build_probit_plus(*, dp, b_mode, error_feedback, topk_frac, use_kernels, chunk, engine, wire_bits,
+def _build_probit_plus(*, dp, b_mode, error_feedback, topk_frac, use_kernels, chunk, engine, rand_bits, wire_bits,
                        client_bits, **_):
     return (
         ClientCompressor(error_feedback=error_feedback, topk_frac=topk_frac, dp=dp, b_mode=b_mode,
-                         use_kernels=use_kernels, chunk=chunk, engine=engine, wire_bits=wire_bits,
-                         client_bits=client_bits),
+                         use_kernels=use_kernels, chunk=chunk, engine=engine, rand_bits=rand_bits,
+                         wire_bits=wire_bits, client_bits=client_bits),
         ProBitPlusServer(use_kernels=use_kernels, engine=engine, wire_bits=wire_bits, dp=dp),
     )
 
@@ -788,13 +803,16 @@ def build_pipeline(
     use_kernels: bool = False,
     chunk: int = PACK_CHUNK,
     engine: str | None = None,
+    rand_bits: int = 32,
     wire_bits: int = 1,
     client_bits: tuple | None = None,
 ) -> AggregatorPipeline:
     """Resolve an aggregator name into a configured pipeline. Only PRoBit+
-    reads ``dp``, ``b_mode``, ``error_feedback``, ``topk_frac`` and
-    ``use_kernels``; the sign and dense baselines ignore them, as in the
-    reference, and refuse k-bit and per-client widths."""
+    reads ``dp``, ``b_mode``, ``error_feedback``, ``topk_frac``,
+    ``use_kernels`` and ``rand_bits``; the sign and dense baselines ignore
+    them, as in the reference, and refuse k-bit and per-client widths."""
+    if rand_bits not in (16, 32):
+        raise ValueError(f"rand_bits must be 16 or 32, got {rand_bits}")
     if name not in _PIPELINES:
         raise ValueError(f"unknown aggregator {name!r}; available: {available_aggregators()}")
     if (wire_bits != 1 or client_bits is not None) and name != "probit_plus":
@@ -803,7 +821,7 @@ def build_pipeline(
         )
     compressor, server = _PIPELINES[name](
         dp=dp, b_mode=b_mode, error_feedback=error_feedback, topk_frac=topk_frac, agg_step=agg_step,
-        gm_iters=gm_iters, use_kernels=use_kernels, chunk=chunk, engine=engine, wire_bits=wire_bits,
-        client_bits=client_bits,
+        gm_iters=gm_iters, use_kernels=use_kernels, chunk=chunk, engine=engine, rand_bits=rand_bits,
+        wire_bits=wire_bits, client_bits=client_bits,
     )
     return AggregatorPipeline(name=name, compressor=compressor, server=server)

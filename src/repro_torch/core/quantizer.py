@@ -30,8 +30,12 @@ wire's counter-derived schedule and, with ``gamma``, mixes in L-level
 randomized response. The grid step ``2b/(L-1)`` is ``2b * f32(1/(L-1))``
 and the grid value ``-b + l * step`` one fused multiply-add, as the
 reference computes them under ``jit`` (XLA folds a division by a constant
-into its reciprocal and contracts the multiply-add). The 16-bit draws of
-the reference come with ROADMAP A12.
+into its reciprocal and contracts the multiply-add).
+
+``rand_bits=16`` (the LM trainer's option, :func:`packed_binarize_batch`)
+compares the low 16 bits of each Threefry word with ``floor(p * 65536)``
+in a wider integer (:func:`threshold_u16`), so a certain vote stays
+certain.
 """
 
 from __future__ import annotations
@@ -50,7 +54,10 @@ __all__ = [
     "unpack_bits",
     "padded_dim",
     "client_uniforms",
+    "client_bits16",
+    "threshold_u16",
     "uniform_block_rows",
+    "draw_blocks",
     "cohort_uniforms",
     "pad_rows",
     "level_positions",
@@ -64,6 +71,7 @@ __all__ = [
     "packed_sign_batch",
     "packed_counts",
     "packed_weighted_counts",
+    "packed_residuals",
 ]
 
 PACK_CHUNK = 8192  # coordinates per uniform-draw chunk (multiple of 8)
@@ -141,19 +149,34 @@ def padded_dim(d: int, chunk: int = PACK_CHUNK) -> int:
     return ((d + chunk - 1) // chunk) * chunk
 
 
-def client_uniforms(client_key: torch.Tensor, n: int, chunk: int = PACK_CHUNK) -> torch.Tensor:
+def _chunk_keys(client_key: torch.Tensor, n: int, chunk: int, col0: int) -> torch.Tensor:
+    """The ``(..., n_chunks, 2)`` keys ``fold_in(client_key, j)`` of the
+    chunks ``j`` that cover columns ``col0 .. col0 + n`` (``col0`` a
+    multiple of ``chunk``)."""
+    j0 = col0 // chunk
+    j = torch.arange(j0, j0 + padded_dim(n, chunk) // chunk, dtype=torch.int64, device=client_key.device)
+    return prng.fold_in(client_key.unsqueeze(-2), j)
+
+
+def client_uniforms(client_key: torch.Tensor, n: int, chunk: int = PACK_CHUNK, *, col0: int = 0) -> torch.Tensor:
     """The ``(n,)`` quantizer uniforms of a client, counter-derived per chunk.
 
     Chunk ``j`` draws ``uniform(fold_in(client_key, j), (chunk,))``, the
     schedule of the reference's ``client_uniforms`` and
     ``packed_binarize_batch``. Keys ``(..., 2)`` give ``(..., n)``, one row
-    of uniforms per key.
+    of uniforms per key. ``col0`` (a multiple of ``chunk``) gives columns
+    ``col0 .. col0 + n`` of the row instead: a long row is drawn in blocks.
     """
-    n_chunks = padded_dim(n, chunk) // chunk
-    j = torch.arange(n_chunks, dtype=torch.int64, device=client_key.device)
-    chunk_keys = prng.fold_in(client_key.unsqueeze(-2), j)
-    u = prng.uniform(chunk_keys, (chunk,))
+    u = prng.uniform(_chunk_keys(client_key, n, chunk, col0), (chunk,))
     return u.reshape(client_key.shape[:-1] + (-1,))[..., :n]
+
+
+def client_bits16(client_key: torch.Tensor, n: int, chunk: int = PACK_CHUNK, *, col0: int = 0) -> torch.Tensor:
+    """The 16-bit draws of the ``rand_bits=16`` wire on the schedule of
+    :func:`client_uniforms`, as int64: the reference's uint16 draw is the
+    low 16 bits of the same 32-bit Threefry word."""
+    w = prng.bits(_chunk_keys(client_key, n, chunk, col0), (chunk,)) & 0xFFFF
+    return w.reshape(client_key.shape[:-1] + (-1,))[..., :n]
 
 
 UNIFORM_BLOCK_WORDS = 1 << 27  # Threefry words per draw block: 1 GiB per int64 temporary
@@ -166,10 +189,28 @@ def uniform_block_rows(n: int) -> int:
     return max(1, UNIFORM_BLOCK_WORDS // n)
 
 
-def _row_uniforms(keys: torch.Tensor, m: int, rows: torch.Tensor, n: int, chunk: int, row_offset: int):
-    """The uniforms of flat group rows ``rows``: row ``r`` is client
+def draw_blocks(rows: int, n_pad: int, chunk: int = PACK_CHUNK):
+    """``(r0, r1, c0, c1)`` blocks of a ``(rows, n_pad)`` draw that keep each
+    int64 temporary of the Threefry stream near ``UNIFORM_BLOCK_WORDS``:
+    :func:`uniform_block_rows` whole rows at a time, and a row wider than
+    the block (a transformer's stacked FFN leaf is one row of 385M) in
+    chunk-aligned column ranges. Every draw is a pure function of (key,
+    row, chunk), so the blocks change no bit."""
+    if n_pad <= UNIFORM_BLOCK_WORDS:
+        step = uniform_block_rows(n_pad)
+        for r0 in range(0, rows, step):
+            yield r0, min(r0 + step, rows), 0, n_pad
+        return
+    cols = max(chunk, UNIFORM_BLOCK_WORDS // chunk * chunk)
+    for r in range(rows):
+        for c0 in range(0, n_pad, cols):
+            yield r, r + 1, c0, min(c0 + cols, n_pad)
+
+
+def _row_keys(keys: torch.Tensor, m: int, rows: torch.Tensor, row_offset: int) -> torch.Tensor:
+    """The client keys of flat group rows ``rows``: row ``r`` is client
     ``row_offset + r % m`` of element ``r // m``, keyed by ``keys[r // m]``."""
-    return client_uniforms(prng.fold_in(keys[rows // m], row_offset + rows % m), n, chunk)
+    return prng.fold_in(keys[rows // m], row_offset + rows % m)
 
 
 def cohort_uniforms(
@@ -186,20 +227,17 @@ def cohort_uniforms(
     Keys ``(E, 2)`` give the ``(E * m, n)`` uniforms of a group of E such
     cohorts, element ``e``'s rows keyed by ``key[e]``.
 
-    Drawn :func:`uniform_block_rows` rows of the group at a time into
-    ``out[:, :n]``, which may be wider (its other columns are left as they
-    are). Each draw is a pure function of (key, row, chunk), so any block
-    size gives the same bits.
+    Drawn a block of :func:`draw_blocks` at a time into ``out[:, :n]``,
+    which may be wider (its other columns are left as they are).
     """
     keys = key.reshape(-1, 2)
     total = keys.shape[0] * m
     if out is None:
         out = torch.empty((total, n), dtype=torch.float32, device=key.device)
-    block = uniform_block_rows(padded_dim(n, chunk))
-    for r0 in range(0, total, block):
-        r1 = min(r0 + block, total)
+    for r0, r1, c0, c1 in draw_blocks(total, padded_dim(n, chunk), chunk):
+        c1 = min(c1, n)
         rows = torch.arange(r0, r1, dtype=torch.int64, device=key.device)
-        out[r0:r1, :n] = _row_uniforms(keys, m, rows, n, chunk, row_offset)
+        out[r0:r1, c0:c1] = client_uniforms(_row_keys(keys, m, rows, row_offset), c1 - c0, chunk, col0=c0)
     return out
 
 
@@ -283,6 +321,17 @@ def unpack_levels(packed: torch.Tensor, n: int, bits: int) -> torch.Tensor:
     return out[..., :n].to(torch.uint8)
 
 
+def threshold_u16(p: torch.Tensor) -> torch.Tensor:
+    """Eq.-5 probability -> the ``rand_bits=16`` wire's comparison threshold
+    ``floor(p * 65536)``, held in int64 (the reference's uint32 domain).
+
+    ``p = 1.0`` (``|delta| >= b``, a certain +1 vote) maps to 65536, above
+    every 16-bit draw, so a saturated vote stays certain; a uint16 cast
+    would wrap it to 0 and send a certain -1.
+    """
+    return (p.float() * 65536.0).to(torch.int64)
+
+
 def packed_binarize_batch(
     key: torch.Tensor,
     deltas: torch.Tensor,
@@ -291,6 +340,7 @@ def packed_binarize_batch(
     chunk: int = PACK_CHUNK,
     want_residual: bool = False,
     row_offset: int = 0,
+    rand_bits: int = 32,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Eq.-5 binarize + pack: (M, d) f32 -> (M, padded_dim(d)/8) uint8; or a
     group of E cohorts, keys (E, 2), deltas (E, M, d) and b (E, d) (or
@@ -299,13 +349,17 @@ def packed_binarize_batch(
     Client ``m``'s chunk ``j`` draws from
     ``fold_in(fold_in(key, row_offset + m), j)`` (its element's key in a
     group), exactly the reference's schedule, so the bytes equal the JAX
-    wire's. With ``want_residual`` the error-feedback residual
-    ``delta - c * b`` comes back with the deltas' shape. Pad coordinates get
-    delta = -1, b = 1, so their bit is 0. The rows are compressed
-    :func:`uniform_block_rows` at a time over the whole group, so the
-    uniforms and the binarize temporaries never span the whole (E * M,
-    padded_dim) group.
+    wire's. ``rand_bits=16`` compares a 16-bit draw (:func:`client_bits16`)
+    with :func:`threshold_u16` instead of an f32 uniform with ``p``: another
+    reproducible bit stream, with saturated votes still certain. With
+    ``want_residual`` the error-feedback residual ``delta - c * b`` comes
+    back with the deltas' shape. Pad coordinates get delta = -1, b = 1, so
+    their bit is 0. The group is compressed a block of :func:`draw_blocks`
+    at a time, so the draws and the binarize temporaries never span the
+    whole (E * M, padded_dim) group, nor a whole row of a very long leaf.
     """
+    if rand_bits not in (16, 32):
+        raise ValueError(f"rand_bits must be 16 or 32, got {rand_bits}")
     single = key.dim() == 1
     keys = key.reshape(-1, 2)
     e = keys.shape[0]
@@ -317,17 +371,19 @@ def packed_binarize_batch(
     b_full = torch.nn.functional.pad(b_rows, (0, d_pad - d), value=1.0)
     packed = torch.empty((e * m, d_pad // 8), dtype=torch.uint8, device=deltas.device)
     res = torch.empty((e * m, d), dtype=torch.float32, device=deltas.device) if want_residual else None
-    block = uniform_block_rows(d_pad)
-    for r0 in range(0, e * m, block):
-        r1 = min(r0 + block, e * m)
+    for r0, r1, c0, c1 in draw_blocks(e * m, d_pad, chunk):
         rows = torch.arange(r0, r1, dtype=torch.int64, device=deltas.device)
-        b_blk = b_full[0] if e == 1 else b_full[rows // m]
-        deltas_p = pad_rows(flat[r0:r1], d_pad, -1.0)
-        u = _row_uniforms(keys, m, rows, d_pad, chunk, row_offset)
-        bits = u < binarize_prob(deltas_p, b_blk)
-        packed[r0:r1] = _pack_bool_lastdim(bits)
-        if want_residual:
-            res[r0:r1] = (deltas_p - torch.where(bits, b_blk, -b_blk))[:, :d]
+        b_blk = (b_full[0] if e == 1 else b_full[rows // m])[..., c0:c1]
+        deltas_p = pad_rows(flat[r0:r1, c0:min(c1, d)], c1 - c0, -1.0)
+        p = binarize_prob(deltas_p, b_blk)
+        ck = _row_keys(keys, m, rows, row_offset)
+        if rand_bits == 16:
+            bits = client_bits16(ck, c1 - c0, chunk, col0=c0) < threshold_u16(p)
+        else:
+            bits = client_uniforms(ck, c1 - c0, chunk, col0=c0) < p
+        packed[r0:r1, c0 // 8 : c1 // 8] = _pack_bool_lastdim(bits)
+        if want_residual and c0 < d:
+            res[r0:r1, c0:min(c1, d)] = (deltas_p - torch.where(bits, b_blk, -b_blk))[:, : min(c1, d) - c0]
     shape = deltas.shape[:-1]
     return packed.view(shape + (d_pad // 8,)), None if res is None else res.view(deltas.shape)
 
@@ -411,6 +467,21 @@ def packed_counts(packed: torch.Tensor) -> torch.Tensor:
 
 
 WEIGHTED_BLOCK_WORDS = 1 << 26  # f32 words of one unpacked block of the weighted count: 256 MiB
+
+
+def packed_residuals(packed: torch.Tensor, deltas: torch.Tensor, b: torch.Tensor, *,
+                     chunk: int = PACK_CHUNK) -> torch.Tensor:
+    """The error-feedback residual ``delta - c * b`` recovered from a wire
+    whose codes an external compressor packed: (M, P) uint8 and (M, d)
+    deltas -> (M, d) f32. The wire is cut or zero-padded to
+    ``padded_dim(d)/8`` bytes first, as the reference pads it."""
+    m, d = deltas.shape
+    target = padded_dim(d, chunk) // 8
+    packed = packed[:, :target]
+    packed = torch.nn.functional.pad(packed, (0, target - packed.shape[1]))
+    bits = _unpack_lastdim(packed)[:, :d].bool()
+    b = torch.broadcast_to(torch.as_tensor(b, dtype=torch.float32, device=deltas.device), (d,))
+    return deltas.float() - torch.where(bits, b, -b)
 
 
 def packed_weighted_counts(packed: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

@@ -2,6 +2,6 @@
 ``repro/data`` (the port imports nothing of the JAX package)."""
 
 from .partition import partition_label_skew
-from .synthetic import make_classification, make_image_classification
+from .synthetic import make_classification, make_image_classification, make_lm_streams
 
-__all__ = ["make_classification", "make_image_classification", "partition_label_skew"]
+__all__ = ["make_classification", "make_image_classification", "make_lm_streams", "partition_label_skew"]

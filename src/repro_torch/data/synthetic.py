@@ -1,6 +1,7 @@
-"""Synthetic datasets standing in for FMNIST and CIFAR-10 (numpy copies of
-the reference's ``make_classification`` and ``make_image_classification``;
-the token streams come with their models).
+"""Synthetic datasets standing in for FMNIST, CIFAR-10 and LM corpora
+(numpy copies of the reference's ``make_classification``,
+``make_image_classification`` and ``make_lm_streams``, the same draws in
+the same order).
 
 The paper's experiments run on a *statistically equivalent* synthetic task:
 Gaussian class prototypes with controllable separation. The FL *protocol*
@@ -61,3 +62,26 @@ def make_image_classification(
     xtr, ytr = draw(n_train)
     xte, yte = draw(n_test)
     return (xtr, ytr), (xte, yte)
+
+
+def make_lm_streams(
+    seed: int,
+    n_clients: int,
+    vocab: int,
+    seq_len: int,
+    seqs_per_client: int,
+    alpha: float = 0.3,
+):
+    """Per-client token streams from client-specific bigram models whose
+    unigram marginals are Dirichlet(alpha)-skewed — the LM analogue of
+    label-skew partitioning. A list of (seqs_per_client, seq_len) int32
+    arrays, one a client."""
+    rng = np.random.default_rng(seed)
+    out = []
+    base = rng.dirichlet(np.full(min(vocab, 4096), 10.0))
+    for c in range(n_clients):
+        skew = rng.dirichlet(np.full(min(vocab, 4096), alpha))
+        p = 0.5 * base + 0.5 * skew
+        toks = rng.choice(len(p), size=(seqs_per_client, seq_len), p=p)
+        out.append(toks.astype(np.int32) % vocab)
+    return out

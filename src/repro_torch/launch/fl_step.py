@@ -1,0 +1,205 @@
+"""The federated LM round: every client trains a copy of the global model,
+compresses each leaf of its model difference onto the one-bit wire, and
+the server makes the Eq.-13 estimate of every leaf.
+
+Counterpart of ``repro/launch/fl_step.py`` on one device (one pod): the
+reference's client scan is a Python loop over the cohort here, client
+after client, so one client's local copy, gradients and wire temporaries
+are resident at a time. Its pod axis and sharding constraints come with
+the mesh (ROADMAP A14).
+
+Wire contract (per parameter leaf): client ``g`` compresses leaf ``l``
+with the shared ``ClientCompressor`` keyed ``fold_in(fold_in(round_key,
+l), g)`` (the :mod:`repro_torch.fl.pytree_wire` schedule), so the bits are
+the reference's. At ``rand_bits=32`` the pipeline takes the kernel wire
+(``use_kernels``; the engine resolves from the parameters' device): on the
+card each (client, leaf) is one launch of the pack kernel (B1), into a
+stored ``(M, padded_len(d_l)/8)`` row plane of the leaf, and after the
+cohort one launch of the count kernel (B3) a leaf makes its estimate. The
+reference instead folds each client's rows into int32 counts as it goes;
+the counts are integers and B3 multiplies by ``f32(1/M)`` as XLA folds
+``/M``, so the estimates are the same bits. Rows cost ``M * d / 8`` bytes
+against the counts' ``4 * d``: less up to M = 32 clients; a cohort whose
+rows alone exceed the card's free memory is refused before the round
+starts. ``rand_bits=16`` draws 16-bit words
+(:func:`~repro_torch.core.quantizer.threshold_u16`), which the reference
+refuses on the kernel wire: it stays plain on every device.
+``fedavg_fp32`` uploads the f32 model differences.
+
+The local step is the reference's: ``w - lr * (g + lam * (w - w0))`` with
+f32 inside, rounded to the parameters' dtype (bf16), no momentum; it is
+plain torch here as it is plain JAX there (it is not the prox-SGD kernel
+B4, which keeps f32 weights and momentum). The step and the model
+difference follow what XLA makes of the reference's bf16 arithmetic on
+the CPU (ROADMAP C, "bf16 differences that are widened at once").
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .. import prng
+from ..core import build_pipeline
+from ..core.aggregation import PackedWire, mean_rows, recip32
+from ..core.bcontrol import BControlConfig, BState, update_b_from_vote
+from ..fl.pytree_wire import leaf_key
+from ..models import train_loss
+from ..models.config import ModelConfig
+from ..tree import leaves, unflatten
+
+__all__ = ["DistFLConfig", "bcontrol_config", "update_b_dist", "make_fl_train_step"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DistFLConfig:
+    clients_per_round: int = 16  # total across pods; must be divisible by n_pods
+    local_steps: int = 1
+    lr: float = 0.01
+    lam: float = 0.2
+    b_up: float = 1.01
+    b_down: float = 0.98
+    # aggregator: "probit_plus" (paper, 1-bit votes) or "fedavg_fp32"
+    # (full-precision baseline, what the paper's 32x claim compares against)
+    aggregator: str = "probit_plus"
+    # quantizer randomness width: 32 (f32 uniforms, the kernel wire) or 16
+    rand_bits: int = 32
+
+    def __post_init__(self):
+        if self.aggregator not in ("probit_plus", "fedavg_fp32"):
+            raise ValueError(f"aggregator must be probit_plus or fedavg_fp32, got {self.aggregator!r}")
+        if self.rand_bits not in (16, 32):
+            raise ValueError(f"rand_bits must be 16 or 32, got {self.rand_bits}")
+
+
+def bcontrol_config(fl: DistFLConfig) -> BControlConfig:
+    """The b-controller config this step shares with ``fl/rounds.py``."""
+    return BControlConfig(mode="dynamic", up=fl.b_up, down=fl.b_down)
+
+
+def update_b_dist(b: torch.Tensor, vote: torch.Tensor, fl: DistFLConfig) -> torch.Tensor:
+    """One controller step from the summed loss-bit vote, through the
+    function the simulation rounds call (a tie contracts by ``down``)."""
+    return update_b_from_vote(BState(b=b, prev_vote=torch.zeros_like(b)), vote, bcontrol_config(fl)).b
+
+
+def _value_and_grad(params_leaves: list, like, batch: dict, cfg: ModelConfig):
+    """``train_loss`` and its gradient with respect to every leaf (zeros
+    for a leaf the loss does not read, as ``jax.grad`` gives)."""
+    req = [w.detach().requires_grad_(True) for w in params_leaves]
+    loss = train_loss(unflatten(like, req), batch, cfg)
+    grads = torch.autograd.grad(loss, req, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(w) if g is None else g for w, g in zip(req, grads)]
+
+
+# Flat elements of a leaf the local step updates at a time (its fused
+# multiply-adds run in f64: 128 MiB a temporary).
+UPDATE_BLOCK = 1 << 24
+
+
+def _local_step(local: list, grads: list, w0: list, fl: DistFLConfig) -> list:
+    """``(w - lr * (g + lam * (w - w0))).astype(w.dtype)`` as XLA compiles
+    the reference's step on the CPU: ``w - w0`` in f32 (XLA drops the bf16
+    rounding of a difference that is widened at once), both multiply-adds
+    fused (``fma(-lr, fma(lam, w - w0, g), w)``), rounded to the
+    parameters' dtype once at the end. A leaf is updated
+    :data:`UPDATE_BLOCK` elements at a time."""
+    lam, neg_lr = prng._r32(fl.lam), -prng._r32(fl.lr)
+    out = []
+    with torch.no_grad():
+        for i, (w, w_0) in enumerate(zip(local, w0)):
+            g, grads[i] = grads[i].reshape(-1), None  # free each gradient once used
+            new = torch.empty_like(w)
+            wf, w0f, nf = w.reshape(-1), w_0.reshape(-1), new.view(-1)
+            for i0 in range(0, wf.numel(), UPDATE_BLOCK):
+                sl = slice(i0, i0 + UPDATE_BLOCK)
+                wb = wf[sl].float()
+                step = prng._fma(lam, wb - w0f[sl].float(), g[sl].float())
+                nf[sl] = prng._fma(neg_lr, step, wb).to(w.dtype)
+            out.append(new)
+    return out
+
+
+def make_fl_train_step(cfg: ModelConfig, fl: DistFLConfig, *, engine: str | None = None):
+    """Returns ``train_step(params, b, batch, key) -> (params, b, metrics)``.
+
+    ``params`` is the model's tree of tensors, ``b`` a 0-dim f32 tensor,
+    ``key`` a ``(2,)`` Threefry key; batch leaves are ``(m_seq, n_pods,
+    local_steps, per_batch, ...)`` with ``n_pods = 1`` (the pod axis comes
+    with ROADMAP A14). ``engine`` is passed to the wire's kernels (None:
+    resolve from the parameters' device; ``"ref"`` forces the plain
+    versions). Metrics: ``loss_first``, ``loss_last``, ``b`` and the
+    round's uplink ``wire_bytes`` (as shipped) beside
+    ``wire_bytes_int8`` / ``wire_bytes_f32``. The step's pipeline is
+    ``train_step.pipeline``.
+    """
+    probit = fl.aggregator == "probit_plus"
+    pipeline = build_pipeline("probit_plus", rand_bits=fl.rand_bits, use_kernels=fl.rand_bits == 32, engine=engine)
+    compressor = pipeline.compressor
+
+    def train_step(params, b, batch, key):
+        first = leaves(batch)[0]
+        m_seq, n_pods = first.shape[0], first.shape[1]
+        if n_pods != 1:
+            raise NotImplementedError("more than one pod needs the mesh; ROADMAP A14")
+        p_leaves = leaves(params)
+        dims = [w.numel() for w in p_leaves]
+        dev = p_leaves[0].device
+        row_bytes = [compressor.wire_bytes(d) for d in dims]
+        if probit and dev.type == "cuda" and m_seq * sum(row_bytes) > torch.cuda.mem_get_info(dev)[0]:
+            raise MemoryError(f"{m_seq} clients' wire rows need {m_seq * sum(row_bytes) / 1e9:.2f} GB, more than "
+                              f"the card has free ({torch.cuda.mem_get_info(dev)[0] / 1e9:.2f} GB)")
+        if probit:
+            rows = [torch.empty((m_seq, p), dtype=torch.uint8, device=dev) for p in row_bytes]
+        else:
+            acc = [torch.zeros(w.shape, dtype=torch.float32, device=dev) for w in p_leaves]
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        keys = [leaf_key(key, i) for i in range(len(p_leaves))]
+        votes, loss0, loss1 = 0, [], []
+        for g in range(m_seq):
+            local, losses = p_leaves, []
+            for s in range(fl.local_steps):
+                sb = {k: v[g, 0, s] for k, v in batch.items()}
+                loss, grads = _value_and_grad(local, params, sb, cfg)
+                losses.append(loss)
+                local = _local_step(local, grads, p_leaves, fl)
+            with torch.no_grad():
+                for i, (w_l, w, d) in enumerate(zip(local, p_leaves, dims)):
+                    # the difference in f32, as XLA computes the widened bf16 one
+                    delta = (w_l.float() - w.float()).reshape(1, d)
+                    if probit:
+                        wire, _ = compressor.compress(keys[i], delta, b, zero, row_offset=g)
+                        rows[i][g] = wire.packed[0]
+                    else:
+                        acc[i] += delta.view(w.shape)
+                    del delta
+            del local
+            loss0.append(losses[0])
+            loss1.append(losses[-1])
+            votes += 1 if bool(losses[-1] < losses[0]) else -1
+        with torch.no_grad():
+            if probit:
+                new_leaves = []
+                for i, (w, d) in enumerate(zip(p_leaves, dims)):
+                    wire = PackedWire(packed=rows[i], b=compressor.b_vector(d, b), d=d)
+                    theta = pipeline.estimate(wire)
+                    rows[i] = None
+                    new_leaves.append((w.float() + theta.view(w.shape)).to(w.dtype))
+                wire_row_bytes = sum(row_bytes)
+            else:
+                new_leaves = [(w.float() + a * recip32(m_seq)).to(w.dtype) for w, a in zip(p_leaves, acc)]
+                wire_row_bytes = 4 * sum(dims)
+        b_new = update_b_dist(b, torch.tensor(float(votes), device=dev), fl)
+        metrics = {
+            "loss_first": mean_rows(torch.stack(loss0)),
+            "loss_last": mean_rows(torch.stack(loss1)),
+            "b": b_new,
+            "wire_bytes": m_seq * wire_row_bytes,
+            "wire_bytes_int8": m_seq * sum(dims),
+            "wire_bytes_f32": m_seq * 4 * sum(dims),
+        }
+        return unflatten(params, new_leaves), b_new, metrics
+
+    train_step.pipeline = pipeline
+    return train_step

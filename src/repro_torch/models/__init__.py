@@ -1,5 +1,11 @@
-"""Models of the port: the paper's MLP, CNN and ResNet."""
+"""Models of the port: the paper's MLP, CNN and ResNet, and the model zoo's
+dense attention family (``repro/models``' names as far as they are ported;
+decode and caches come with ROADMAP A13, the sharding helpers with A14)."""
 
+from .config import SHAPES, ModelConfig, ShapeConfig
+from .inputs import batch_structure, sample_batch
+from .model import backbone, build_specs, prefill, train_loss
+from .spec import LeafSpec, count_params, init_params
 from .vision import (
     MODELS,
     accuracy,
@@ -17,4 +23,8 @@ __all__ = [
     "init_cnn", "cnn_logits",
     "init_resnet", "resnet_logits",
     "MODELS", "xent_loss", "accuracy",
+    "ModelConfig", "ShapeConfig", "SHAPES", "LeafSpec",
+    "init_params", "count_params",
+    "build_specs", "train_loss", "prefill", "backbone",
+    "sample_batch", "batch_structure",
 ]

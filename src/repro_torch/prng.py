@@ -17,7 +17,8 @@ Mapping to ``jax.random`` (jax 0.9, partitionable threefry):
 * ``fold_in(k, d)``    == threefry(k, (0, d))
 * ``split(k, n)[i]``   == ``fold_in(k, i)``
 * ``bits(k, shape)``   == 32-bit ``random_bits``: ``x0 ^ x1`` of threefry over
-  the (hi, lo) words of each element's flat index
+  the (hi, lo) words of each element's flat index; a 16-bit draw is its low
+  16 bits (``convert_element_type`` of the same word)
 * ``uniform(k, shape)`` == f32 ``uniform``: ``((bits >> 9) | 0x3F800000)``
   viewed as f32, minus 1
 * ``randint``          == ``jax/_src/random.py: _randint`` for int32
@@ -85,15 +86,17 @@ def split(k: torch.Tensor, n: int = 2) -> torch.Tensor:
     return fold_in(k.unsqueeze(-2), idx)
 
 
-def bits(k: torch.Tensor, shape) -> torch.Tensor:
+def bits(k: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
     """32-bit random words (values in ``[0, 2**32)`` held in int64).
 
     Keys ``(..., 2)`` give ``(...,) + shape``: each key draws its own
-    ``shape``-sized block, counted from flat index 0.
+    ``shape``-sized block, counted from flat index ``offset`` (0: the whole
+    draw; a later offset continues the same stream, so a long draw can be
+    made a block at a time with the same bits).
     """
     shape = tuple(shape)
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=k.device)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=k.device)
     batch = k.shape[:-1]
     k0 = k[..., 0].reshape(batch + (1,))
     k1 = k[..., 1].reshape(batch + (1,))
@@ -101,9 +104,10 @@ def bits(k: torch.Tensor, shape) -> torch.Tensor:
     return (x0 ^ x1).reshape(batch + shape)
 
 
-def uniform(k: torch.Tensor, shape) -> torch.Tensor:
-    """f32 uniforms in ``[0, 1)``, bit-exact with ``jax.random.uniform``."""
-    mant = (bits(k, shape) >> 9) | 0x3F800000
+def uniform(k: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
+    """f32 uniforms in ``[0, 1)``, bit-exact with ``jax.random.uniform``
+    (``offset`` as in :func:`bits`)."""
+    mant = (bits(k, shape, offset) >> 9) | 0x3F800000
     return mant.to(torch.int32).view(torch.float32) - 1.0
 
 
@@ -220,13 +224,13 @@ def _erf_inv(x: torch.Tensor) -> torch.Tensor:
     return p * x
 
 
-def normal(k: torch.Tensor, shape, scale: float = 1.0) -> torch.Tensor:
+def normal(k: torch.Tensor, shape, scale: float = 1.0, offset: int = 0) -> torch.Tensor:
     """f32 ``scale * N(0, 1)`` draws, bit-exact with ``jax.random.normal``
     on the CPU: ``erf_inv(u) * f32(sqrt(2) * scale)``, ``u`` uniform on
     ``[nextafter(-1, 0), 1)`` (``2 * uniform + lo`` is exact). Under ``jit``
     XLA folds a constant ``scale`` into the ``sqrt(2)`` factor, and so does
-    this. Batched keys as in :func:`uniform`."""
-    u = torch.clamp(uniform(k, shape) * 2.0 + _LO, min=_LO)
+    this. Batched keys and ``offset`` as in :func:`uniform`."""
+    u = torch.clamp(uniform(k, shape, offset) * 2.0 + _LO, min=_LO)
     return _erf_inv(u) * _r32(_SQRT2 * _r32(scale))
 
 

@@ -645,3 +645,84 @@ def test_campaign_cache_keeps_no_client_planes_on_card(dev):
     assert cache.lowerings == 1 and cache.hits == 1
     assert torch.cuda.memory_allocated(dev) == after_first
     assert after_first - before < e * m * d * 4
+
+
+def test_lm_leaf_wire_on_card_equals_plain_versions(dev):
+    """B1 on one client's row of qwen2-1.5b's largest leaf (blocks[0].ffn.w1,
+    385,351,680 coordinates, drawn in column blocks of the long row) and B3
+    on the round's 4 stored rows, each against its plain version on the
+    card."""
+    from repro_torch.fl.pytree_wire import leaf_key
+
+    d, m = 28 * 1_536 * 8_960, 4
+    gen = torch.Generator(device=dev).manual_seed(12)
+    key = leaf_key(prng.key(1, dev), 0)
+    b = torch.tensor(0.01, device=dev)
+    rows = torch.empty((m, ops.padded_len(d) // 8), dtype=torch.uint8, device=dev)
+    for g in range(m):
+        delta = 0.01 * torch.randn(1, d, generator=gen, device=dev)
+        kp, _ = ops.stoch_quant_compress_batch(key, delta, b, row_offset=g, engine="cuda")
+        rp, _ = ops.stoch_quant_compress_batch(key, delta, b, row_offset=g, engine="ref")
+        assert torch.equal(kp, rp)
+        rows[g] = kp[0]
+        del delta, rp
+    b_vec = torch.full((d,), 0.01, device=dev)
+    got = ops.bit_aggregate(rows, b_vec, d, engine="cuda")
+    assert torch.equal(got, ops.bit_aggregate(rows, b_vec, d, engine="ref"))
+    assert bool((got.abs() <= 0.01).all())
+
+
+@pytest.mark.parametrize("rand_bits,aggregator,launches", [
+    (32, "probit_plus", {"stoch_quant_pack": 2 * 3 * 15, "bit_aggregate": 2 * 15}),
+    (16, "probit_plus", {}),
+    (32, "fedavg_fp32", {}),
+])
+def test_lm_round_on_kernels_equals_round_on_plain_versions(dev, rand_bits, aggregator, launches):
+    """The federated LM round on the reduced qwen2 through the trainer's own
+    set-up and step, two rounds of 3 clients: its launches (B1 a client and
+    leaf, B3 a leaf, on the kernel wire only) and every round's parameters,
+    b and losses equal to the engine="ref" step's."""
+    from repro_torch import tree
+    from repro_torch.launch import train
+    from repro_torch.launch.fl_step import make_fl_train_step
+
+    args = train.parse_args(["--arch", "qwen2-1.5b", "--reduced", "--clients", "3", "--seq", "32", "--rounds", "2",
+                             "--rand-bits", str(rand_bits), "--aggregator", aggregator])
+    run = train.setup(args)
+    ref_step = make_fl_train_step(run.cfg, run.fl, engine="ref")
+    params, b, key = run.params, torch.tensor(0.01, device=dev), prng.key(1, dev)
+    got = {}
+    for r in range(args.rounds):
+        batch = train.round_batch(run, args, r)
+        key, kr = prng.split(key, 2)
+        _build.reset_launches()
+        new, b_new, met = run.step(params, b, batch, kr)
+        torch.cuda.synchronize()
+        for k, v in _build.launches.items():
+            got[k] = got.get(k, 0) + v
+        _build.reset_launches()
+        r_new, r_b, r_met = ref_step(params, b, batch, kr)
+        assert not any(_build.launches.values())
+        for x, y in zip(tree.leaves(new), tree.leaves(r_new)):
+            assert torch.equal(x, y)
+        assert b_new.item() == r_b.item()
+        assert met["loss_first"].item() == r_met["loss_first"].item()
+        assert met["loss_last"].item() == r_met["loss_last"].item()
+        params, b = new, b_new
+    assert {k: v for k, v in got.items() if v} == launches
+
+
+def test_lm_round_refuses_a_cohort_whose_rows_exceed_free_memory(dev):
+    """A cohort whose stored wire rows alone exceed the card's free memory
+    is refused before the round starts: one leaf of 2^30 weights packs to
+    128 MiB a client, and the cohort is larger than the card can hold."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.fl_step import DistFLConfig, make_fl_train_step
+
+    d = 1 << 30
+    m = torch.cuda.mem_get_info(dev)[0] // (d // 8) + 1
+    step = make_fl_train_step(get_config("qwen2-1.5b"), DistFLConfig(clients_per_round=m))
+    params = {"w": torch.zeros(d, dtype=torch.bfloat16, device=dev)}
+    batch = {"x": torch.zeros(1, 1, 1, 1, 2, device=dev).expand(m, 1, 1, 1, 2)}
+    with pytest.raises(MemoryError, match="wire rows"):
+        step(params, torch.tensor(0.01, device=dev), batch, prng.key(1, dev))
