@@ -130,8 +130,18 @@ Phases (any failure raises and exits non-zero before the result line):
    stage (forward and backward, local update, compress, estimate). Then (q): ``aggregate_pytree`` with error feedback on
    the reduced qwen2 (B2 and B3 once a leaf a round), two rounds, equal to
    ``stream_aggregate_pytree`` in chunks of 2 and to ``engine="ref"``
-   (the ``"phase": "lm"`` lines); phase 5 then times B1 and B3 at its
-   largest leaf (``kernels_at_lm_leaf``, ``at_lm_leaf`` in their rows);
+   (the ``"phase": "lm"`` lines). Then the MoE and xLSTM families, each
+   two rounds of PRoBit+ on the kernel wire beside their ``engine="ref"``
+   steps, with the same clients and local steps: (r) Qwen3-30B-A3B at its
+   published widths (d_model 2,048, 128 experts, top-8, expert width 768,
+   vocab 151,936) cut to 4 of its 48 layers (13 leaves, d =
+   3,114,813,440; B1 104, B3 26), and (s) xLSTM-350M whole (24 layers,
+   92 leaves, d = 518,855,848) at 512 tokens a sequence, so the mLSTM
+   carries its state across two chunks of 256 (B1 736, B3 184); phase 5
+   then times B1 and B3 at qwen2-1.5b's largest leaf and at the MoE's,
+   ``blocks[0].ffn.w1`` of (r) (``kernels_at_lm_leaf``,
+   ``kernels_at_lm_moe_leaf``; ``at_lm_leaf`` and ``at_lm_moe_leaf`` in
+   their rows);
 6. with ``--profile`` only: (a) on the MLP and on ``resnet18w64-m100``:
    the device busy share as nvidia-smi reads it over unprofiled rounds and
    as the union of the kernels' records of one round under
@@ -249,17 +259,31 @@ KERNELS = {
 # (q): aggregate_pytree with error feedback on the reduced qwen2 through B2
 # and B3, two rounds, against stream_aggregate_pytree and engine="ref".
 LM_ARCH = "qwen2-1.5b"
-LM_ARGS = ["--arch", LM_ARCH, "--clients", "4", "--local-steps", "2", "--per-batch", "2", "--seq", "128",
-           "--lr", "1e-8"]
+LM_COMMON = ["--clients", "4", "--local-steps", "2", "--per-batch", "2", "--seq", "128", "--lr", "1e-8"]
+LM_ARGS = ["--arch", LM_ARCH] + LM_COMMON
 LM_VARIANTS = {
     "p": ["--rounds", "3"],
     "p16": ["--rounds", "1", "--rand-bits", "16"],
     "p-avg": ["--rounds", "1", "--aggregator", "fedavg_fp32"],
 }
 LM_Q = {"clients": 4, "client_chunk": 2, "rounds": 2}
-# The largest leaf of qwen2-1.5b, blocks[0].ffn.w1 (28 x 1,536 x 8,960), at
-# which phase 5 times B1 (one client's row) and B3 (the round's 4 rows).
-LM_LEAF_D = 28 * 1_536 * 8_960
+# (r) and (s): the MoE FFN and the xLSTM mixers (ROADMAP A12b, A12d) in the
+# same round, with LM_COMMON's clients, local steps and learning rate. The
+# run's name, the config, its cut (dataclasses.replace of the published
+# config; the trainer has no depth flag) and the trainer's extra flags.
+# Qwen3-30B-A3B whole is 30,532,110,336 parameters (61.1 GB in bf16); the
+# round holds the parameters, a local copy, the next copy and the
+# gradients, so it is cut to 4 of its 48 layers at its published widths.
+# xLSTM-350M runs whole, at 512 tokens a sequence: two mLSTM chunks of 256.
+LM_FAMILIES = {
+    "r": ("qwen3-moe-30b-a3b-l4-m4", "qwen3-moe-30b-a3b", {"n_layers": 4}, ["--rounds", "2"],
+          {"d": 3_114_813_440, "leaves": 13}),
+    "s": ("xlstm-350m-m4", "xlstm-350m", {}, ["--rounds", "2", "--seq", "512"], {"d": 518_855_848, "leaves": 92}),
+}
+# The largest leaves at which phase 5 times B1 (one client's row) and B3
+# (the round's 4 rows): qwen2-1.5b's blocks[0].ffn.w1 (28 x 1,536 x 8,960)
+# and (r)'s blocks[0].ffn.w1 (4 x 128 x 2,048 x 768).
+LM_LEAVES = {"at_lm_leaf": 28 * 1_536 * 8_960, "at_lm_moe_leaf": 4 * 128 * 2_048 * 768}
 
 
 def require(cond, msg: str) -> None:
@@ -1705,12 +1729,12 @@ def topk_pack_times(dev, copy_gbs: float, m: int = 100, d: int = 118_282) -> dic
             "copy_bound_ms": nbytes / (copy_gbs * 1e9) * 1e3}
 
 
-def lm_leaf_times(dev, copy_gbs: float, m: int = 4, d: int = LM_LEAF_D) -> dict:
-    """Phase 5: B1 and B3 at qwen2-1.5b's largest leaf as phase 9 launches
-    them: B1 on one client's row of d = 385,351,680 coordinates (delta, b
-    and u read once, the packed row written once), B3 on the round's M = 4
-    stored rows of that leaf (the rows and b read once, theta written
-    once), each against its plain version on the same inputs."""
+def lm_leaf_times(dev, copy_gbs: float, d: int, m: int = 4) -> dict:
+    """Phase 5: B1 and B3 at an LM leaf of d coordinates as phase 9
+    launches them: B1 on one client's row (delta, b and u read once, the
+    packed row written once), B3 on the round's M = 4 stored rows of that
+    leaf (the rows and b read once, theta written once), each against its
+    plain version on the same inputs."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1771,9 +1795,9 @@ def kernel_rows(runs: dict, chk: Checker, at_main: dict, at_resnet: dict, at_gro
     """The per-kernel JSON rows: times at the main path's shapes, with the
     same at ResNet-18's and the batched call at E = 8 runs of the main
     path's cohort beside them, B1 at the top-k wire's shape, and B1 and B3
-    at qwen2-1.5b's largest leaf; ``launches`` is the sum over every run of
-    phases 4, 4b, 4c, 4d, 7, 8 and 9 of each one's own count, by run beside
-    it."""
+    at the largest leaves of qwen2-1.5b and of the MoE (``at_lm``, by
+    LM_LEAVES' keys); ``launches`` is the sum over every run of phases 4,
+    4b, 4c, 4d, 7, 8 and 9 of each one's own count, by run beside it."""
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rows.append({
@@ -1783,7 +1807,7 @@ def kernel_rows(runs: dict, chk: Checker, at_main: dict, at_resnet: dict, at_gro
             "max_abs_err": chk.max_err[name], "library_ms": None,
             **at_main[name], f"at_{RESNET_D}": at_resnet[name], "batched_E8_M100": at_group[name],
             **({"at_topk_M100": at_topk} if name == "stoch_quant_pack" else {}),
-            **({"at_lm_leaf": at_lm[name]} if name in at_lm else {}),
+            **{where: times[name] for where, times in at_lm.items() if name in times},
         })
     return rows
 
@@ -1844,27 +1868,32 @@ def lm_stage_ms(fn) -> dict:
     return out
 
 
-def lm_run(dev, name: str, argv: list, with_ref: bool) -> dict:
+def lm_run(dev, name: str, argv: list, with_ref: bool, cut: dict | None = None) -> dict:
     """One phase-9 variant through ``repro_torch.launch.train``'s own set-up,
-    batches and step: each round's losses, b, seconds and peak memory, the
-    launches of the kernel steps (zeroed just before each, read just
-    after), the busy share nvidia-smi reads over the last round, and, with
-    ``with_ref``, each round against the ``engine="ref"`` step on the same
-    inputs (new parameters bit for bit, b and both losses exact; it must
-    launch nothing)."""
+    batches and step (``argv`` the trainer's flags; ``cut`` replaces fields
+    of the ``--arch`` config, as the trainer has no depth flag): each
+    round's losses, b, seconds and peak memory, the launches of the kernel
+    steps (zeroed just before each, read just after), the stream ms by
+    stage of the next-to-last round, the busy share nvidia-smi reads over
+    the last round, and, with ``with_ref``, each round against the
+    ``engine="ref"`` step on the same inputs (new parameters bit for bit,
+    b and both losses exact; it must launch nothing)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
-    from repro_torch import prng, tree
+    from repro_torch import configs, prng, tree
     from repro_torch.kernels import _build
     from repro_torch.launch import train
     from repro_torch.launch.fl_step import make_fl_train_step
 
-    args = train.parse_args(LM_ARGS + argv)
+    args = train.parse_args(argv)
+    cfg = dataclasses.replace(configs.get_config(args.arch), **cut) if cut else None
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    run = train.setup(args)
+    run = train.setup(args, cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     leaves = tree.leaves(run.params)
@@ -1889,7 +1918,7 @@ def lm_run(dev, name: str, argv: list, with_ref: bool) -> dict:
         t1 = time.perf_counter()
         if r == args.rounds - 1:
             busy = smi_busy_share(step)
-        elif r == 1:
+        elif r == args.rounds - 2:
             stages = lm_stage_ms(step)
         else:
             step()
@@ -1928,8 +1957,8 @@ def lm_run(dev, name: str, argv: list, with_ref: bool) -> dict:
     del params, run, ref_step
     torch.cuda.empty_cache()
     return {"rounds": recs, "launches": launches, "expected_launches": want, "d": d, "leaves": n_leaves,
-            "wire": wire, "init_seconds": init_s, "busy_last_round": busy, "stage_stream_ms_round1": stages,
-            "with_ref": with_ref}
+            "wire": wire, "init_seconds": init_s, "busy_last_round": busy,
+            "stage_stream_ms_next_to_last_round": stages, "with_ref": with_ref}
 
 
 def lm_pytree_ef(dev) -> dict:
@@ -1993,22 +2022,31 @@ def lm_pytree_ef(dev) -> dict:
 
 
 def lm_runs(dev) -> dict:
-    """Phase 9: LM_VARIANTS, then (q); prints one ``"phase": "lm"`` line a
-    run. (p)'s wire must be ~1/32 of f32."""
+    """Phase 9: LM_VARIANTS, (q), then LM_FAMILIES; prints one ``"phase":
+    "lm"`` line a run. The wire of every run on the kernel wire must be
+    ~1/32 of f32."""
     runs, t0 = {}, time.perf_counter()
-    for name, argv in LM_VARIANTS.items():
-        run = lm_run(dev, name, argv, with_ref=name == "p")
-        line = {"phase": "lm", "run": f"{LM_ARCH}/{name}", "argv": LM_ARGS + argv, **run}
-        if name == "p":
+
+    def one(name, label, argv, with_ref, cut=None, want=None):
+        run = lm_run(dev, name, argv, with_ref=with_ref, cut=cut)
+        line = {"phase": "lm", "run": label, "argv": argv, **({"cut": cut} if cut else {}), **run}
+        if with_ref:
             ratio = run["wire"]["wire_bytes_f32"] / run["wire"]["wire_bytes"]
-            require(31.0 < ratio <= 32.0, f"lm p: packed wire is 1/{ratio} of f32")
+            require(31.0 < ratio <= 32.0, f"lm {name}: packed wire is 1/{ratio} of f32")
             line["f32_over_packed"] = ratio
+        if want:
+            require({k: run[k] for k in want} == want, f"lm {name}: d and leaves {run['d']}, {run['leaves']} != {want}")
         print(json.dumps(line), flush=True)
         runs[f"lm/{name}"] = run
+
+    for name, argv in LM_VARIANTS.items():
+        one(name, f"{LM_ARCH}/{name}", LM_ARGS + argv, with_ref=name == "p")
     q = lm_pytree_ef(dev)
     print(json.dumps(q), flush=True)
     runs["lm/q-oneshot"] = {"launches": q["launches"]["oneshot"]}
     runs["lm/q-stream"] = {"launches": q["launches"]["stream"]}
+    for name, (label, arch, cut, extra, want) in LM_FAMILIES.items():
+        one(name, f"{label}/{name}", ["--arch", arch] + LM_COMMON + extra, with_ref=True, cut=cut, want=want)
     print(json.dumps({"phase": "lm_done", "seconds": time.perf_counter() - t0}), flush=True)
     return runs
 
@@ -2466,13 +2504,14 @@ def main() -> int:
     at_resnet = kernel_times(dev, MAIN["n_clients"], RESNET_D, copy_gbs)
     at_group = kernel_times(dev, MAIN["n_clients"], 118_282, copy_gbs, elements=len(COHORT_SEEDS))
     at_topk = topk_pack_times(dev, copy_gbs)
-    at_lm = lm_leaf_times(dev, copy_gbs)
+    at_lm = {where: lm_leaf_times(dev, copy_gbs, d) for where, d in LM_LEAVES.items()}
     rows = kernel_rows({**runs, **grid, **vision, **async_stream, **campaigns, **wires_trees, **lm}, chk, at_main,
                        at_resnet, at_group, at_topk, at_lm)
     print(json.dumps({"phase": "times", "card": card, "copy_gbs": copy_gbs,
                       "round_seconds_a": [r["seconds"] for r in runs["a"]["rounds"]],
                       f"kernels_at_{RESNET_D}": at_resnet, "kernels_batched_E8_M100": at_group,
-                      "stoch_quant_pack_at_topk_M100": at_topk, "kernels_at_lm_leaf": at_lm}), flush=True)
+                      "stoch_quant_pack_at_topk_M100": at_topk,
+                      **{f"kernels_{where}": times for where, times in at_lm.items()}}), flush=True)
     print(json.dumps(stage_times(dev)), flush=True)
     print(json.dumps(b3_sweep(dev, copy_gbs)), flush=True)
     print(json.dumps(b4_sweep(dev, copy_gbs)), flush=True)

@@ -19,7 +19,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .tree import leaves_with_path, tree_map, unflatten
+from .tree import leaves, leaves_with_path, tree_map, unflatten
 
 __all__ = ["ravel_params", "params_from_jax", "lm_params_from_numpy"]
 
@@ -56,9 +56,18 @@ def params_from_jax(tree, device=None) -> torch.Tensor:
     return ravel_params(tree, device)[0]
 
 
-def lm_params_from_numpy(tree, device=None, dtype=torch.bfloat16):
+def lm_params_from_numpy(tree, device=None, dtype=torch.bfloat16, specs=None):
     """A JAX parameter tree, passed as numpy arrays, as the port's tree of
-    tensors of ``dtype`` on ``device``. A bf16 tree arrives widened to f32
-    (a lossless widening: numpy has no bf16 without ``ml_dtypes``), and the
+    tensors on ``device``: each leaf of ``dtype``, or, given the model's
+    ``specs`` (``models.build_specs``), of its spec's dtype (the MoE
+    router is f32 in a bf16 tree). A bf16 tree arrives widened to f32 (a
+    lossless widening: numpy has no bf16 without ``ml_dtypes``), and the
     cast back rounds to nearest even, as JAX's does, so it is exact."""
-    return tree_map(lambda a: torch.from_numpy(np.asarray(a, np.float32).copy()).to(device=device, dtype=dtype), tree)
+
+    def carry(a, leaf_dtype):
+        return torch.from_numpy(np.asarray(a, np.float32).copy()).to(device=device, dtype=leaf_dtype)
+
+    if specs is None:
+        return tree_map(lambda a: carry(a, dtype), tree)
+    spec_dtypes = [s.dtype for s in leaves(specs, is_leaf=lambda s: hasattr(s, "logical"))]
+    return unflatten(tree, [carry(a, t) for a, t in zip(leaves(tree), spec_dtypes, strict=True)])

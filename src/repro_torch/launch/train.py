@@ -1,7 +1,7 @@
 """End-to-end federated LM training entry point.
 
-Runs real training of an ``--arch`` of the dense attention family on
-synthetic LM data through the federated round of :mod:`.fl_step`, on the
+Runs real training of an ``--arch`` (the dense attention, MoE and xLSTM
+families) on synthetic LM data through the federated round of :mod:`.fl_step`, on the
 card by default (``--device cuda``, which raises when there is none) and
 on the CPU when asked (``--device cpu``, with ``--reduced`` for the
 family-preserving small variant). Counterpart of
@@ -89,16 +89,19 @@ def _device(name: str) -> torch.device:
     return dev
 
 
-def setup(args: argparse.Namespace) -> LMRun:
+def setup(args: argparse.Namespace, cfg: ModelConfig | None = None) -> LMRun:
     """The run of ``args``: parameters from ``init_params`` at key 0 on the
     device, the step, the exact per-round uplink report and
-    ``make_lm_streams(0, ...)``."""
+    ``make_lm_streams(0, ...)``. ``cfg``, when given, replaces the
+    ``--arch`` / ``--reduced`` config (a caller's own cut, e.g. fewer
+    layers at the published widths)."""
     if args.production_mesh:
         raise NotImplementedError("--production-mesh needs the multi-pod mesh; ROADMAP A14")
     dev = _device(args.device)
-    cfg = configs.get_config(args.arch)
-    if args.reduced:
-        cfg = configs.reduced(cfg)
+    if cfg is None:
+        cfg = configs.get_config(args.arch)
+        if args.reduced:
+            cfg = configs.reduced(cfg)
     params = init_params(build_specs(cfg), prng.key(0, dev))
     fl = DistFLConfig(clients_per_round=args.clients, local_steps=args.local_steps, lr=args.lr, lam=args.lam,
                       aggregator=args.aggregator, rand_bits=args.rand_bits)

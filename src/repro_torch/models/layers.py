@@ -10,7 +10,8 @@ with ``torch.einsum``. The dtypes follow the reference: projections in the
 parameters' dtype (bf16 by default), attention logits, softmax and norms
 in f32, the LM head's product rounded to the parameters' dtype and then
 widened to f32. Decode attention and its caches come with serving
-(ROADMAP A13).
+(ROADMAP A13). :func:`causal_conv1d` is the xLSTM mixer's (and, with
+ROADMAP A12c, Mamba's) depthwise convolution.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ __all__ = [
     "embed_tokens",
     "lm_logits",
     "softmax_xent",
+    "causal_conv1d",
 ]
 
 NEG_INF = -1e30
@@ -239,3 +241,16 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor 
         m = mask.float()
         return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
     return nll.mean()
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    """Depthwise causal conv. x: (B, S, C); w: (K, C). The reference's
+    Python ``sum`` of K shifted products in its order; in bf16 each product
+    and partial sum rounds, where XLA may keep the fused chain in f32
+    (ROADMAP C)."""
+    k = w.shape[0]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = sum(xp[:, i : i + x.shape[1], :] * w[i][None, None, :] for i in range(k))
+    if b is not None:
+        out = out + b[None, None, :]
+    return out

@@ -1,15 +1,17 @@
-"""Model assembly for the dense attention family: spec tree, backbone,
-loss and prefill logits.
+"""Model assembly: spec tree, backbone, loss and prefill logits.
 
 Counterpart of ``repro/models/model.py``. A model is ``reps`` repetitions
 of a pattern unit; the parameters of each pattern position are stacked
 over ``reps`` (leading axis), and :func:`backbone` loops over the reps,
 indexing the stacked leaves, where the reference scans. The port builds
-the dense attention family (``qwen2-1.5b``, ``qwen1.5-4b``,
-``minitron-8b``, ``starcoder2-3b`` and their reduced variants); every other
-mixer, FFN or input frontend raises ``NotImplementedError`` naming the
-ROADMAP item that brings it. The reference's remat and indexed-parameter
-context managers are mesh memory levers and come with ROADMAP A14.
+the attention mixer with the dense or MoE FFN (``qwen2-1.5b``,
+``qwen1.5-4b``, ``minitron-8b``, ``starcoder2-3b``, ``qwen3-moe-30b-a3b``,
+``llama4-scout-17b-a16e``) and the mLSTM and sLSTM mixers without an FFN
+(``xlstm-350m``), full size and reduced. The Mamba mixer and the audio and
+vision frontends raise ``NotImplementedError`` naming the ROADMAP item
+that brings them. The reference's remat and indexed-parameter context
+managers are mesh memory levers and come with ROADMAP A14; decode
+(``serve_step`` and the caches) with A13.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Any
 
 import torch
 
-from . import layers
+from . import layers, moe, xlstm
 from .config import ModelConfig
 from .spec import stack_specs
 
@@ -28,12 +30,11 @@ Params = Any
 
 # What the port cannot build yet, by the ROADMAP item that brings it.
 _UNPORTED = {
-    "moe": "ROADMAP A12b (models/moe.py)",
-    "mamba": "ROADMAP A12c (models/ssm.py)",
-    "mlstm": "ROADMAP A12d (models/xlstm.py)",
-    "slstm": "ROADMAP A12d (models/xlstm.py)",
+    "mamba": "ROADMAP A12c (models/ssm.py and the hybrid pattern, after the mesh of A14)",
     "frontend": "ROADMAP A12e (the audio and vision frontends)",
 }
+
+_MIXER_SPECS = {"attn": layers.attn_specs, "mlstm": xlstm.mlstm_specs, "slstm": xlstm.slstm_specs}
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -42,22 +43,21 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: the {cfg.frontend} frontend / encoder-only head is not ported yet; {_UNPORTED['frontend']}"
         )
     for pos in range(cfg.unit):
-        mix, ffn = cfg.mixer_at(pos), cfg.ffn_at(pos)
-        if mix != "attn":
+        mix = cfg.mixer_at(pos)
+        if mix not in _MIXER_SPECS:
             raise NotImplementedError(f"{cfg.name}: the {mix} mixer is not ported yet; {_UNPORTED[mix]}")
-        if ffn == "moe":
-            raise NotImplementedError(f"{cfg.name}: the MoE FFN is not ported yet; {_UNPORTED['moe']}")
 
 
 def build_specs(cfg: ModelConfig) -> dict:
-    """Full parameter LeafSpec tree of a dense attention architecture."""
+    """Full parameter LeafSpec tree of an architecture."""
     _check_supported(cfg)
     blocks = []
     for pos in range(cfg.unit):
-        unit: dict = {"norm1": layers.norm_specs(cfg), "mixer": layers.attn_specs(cfg)}
-        if cfg.ffn_at(pos) == "dense":
+        unit: dict = {"norm1": layers.norm_specs(cfg), "mixer": _MIXER_SPECS[cfg.mixer_at(pos)](cfg)}
+        f = cfg.ffn_at(pos)
+        if f != "none":
             unit["norm2"] = layers.norm_specs(cfg)
-            unit["ffn"] = layers.ffn_specs(cfg)
+            unit["ffn"] = layers.ffn_specs(cfg) if f == "dense" else moe.moe_specs(cfg)
         blocks.append(stack_specs(unit, cfg.reps))
     return {
         "embed": layers.embed_specs(cfg),
@@ -74,11 +74,19 @@ def _index(tree, r: int):
 
 
 def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, pos: int) -> torch.Tensor:
+    mix = cfg.mixer_at(pos)
     h = layers.apply_norm(p["norm1"], x, cfg.norm_eps)
-    x = x + layers.attention_block(p["mixer"], h, cfg, positions)
-    if cfg.ffn_at(pos) != "none":
+    if mix == "attn":
+        h = layers.attention_block(p["mixer"], h, cfg, positions)
+    elif mix == "mlstm":
+        h = xlstm.mlstm_block(p["mixer"], h, cfg)
+    else:
+        h = xlstm.slstm_block(p["mixer"], h, cfg)
+    x = x + h
+    f = cfg.ffn_at(pos)
+    if f != "none":
         h = layers.apply_norm(p["norm2"], x, cfg.norm_eps)
-        x = x + layers.ffn_block(p["ffn"], h, cfg)
+        x = x + (layers.ffn_block(p["ffn"], h, cfg) if f == "dense" else moe.moe_block(p["ffn"], h, cfg))
     return x
 
 

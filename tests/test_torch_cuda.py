@@ -712,6 +712,59 @@ def test_lm_round_on_kernels_equals_round_on_plain_versions(dev, rand_bits, aggr
     assert {k: v for k, v in got.items() if v} == launches
 
 
+@pytest.fixture
+def deterministic(monkeypatch):
+    """Deterministic algorithms for the test (the MoE's and the mLSTM's
+    backward scatter-add), as ``chip_smoke.py`` runs."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(before)
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "xlstm-350m"])
+def test_lm_new_family_round_on_kernels_equals_round_on_plain_versions(dev, deterministic, arch):
+    """The federated LM round on the reduced llama4-scout (MoE top-1 with the
+    shared expert, the f32 router) and the reduced xLSTM (an mLSTM and an
+    sLSTM block, the mLSTM over two chunks of 256 at seq 512) through the
+    trainer's own set-up and step, two rounds of 3 clients: B1 a client and
+    leaf, B3 a leaf, and every round's parameters (the router still f32), b
+    and losses equal to the engine="ref" step's."""
+    from repro_torch import tree
+    from repro_torch.launch import train
+    from repro_torch.launch.fl_step import make_fl_train_step
+
+    seq = "512" if arch == "xlstm-350m" else "32"
+    args = train.parse_args(["--arch", arch, "--reduced", "--clients", "3", "--seq", seq, "--rounds", "2",
+                             "--per-batch", "1"])
+    run = train.setup(args)
+    n_leaves = len(tree.leaves(run.params))
+    ref_step = make_fl_train_step(run.cfg, run.fl, engine="ref")
+    params, b, key = run.params, torch.tensor(0.01, device=dev), prng.key(1, dev)
+    got = {}
+    for r in range(args.rounds):
+        batch = train.round_batch(run, args, r)
+        key, kr = prng.split(key, 2)
+        _build.reset_launches()
+        new, b_new, met = run.step(params, b, batch, kr)
+        torch.cuda.synchronize()
+        for k, v in _build.launches.items():
+            got[k] = got.get(k, 0) + v
+        _build.reset_launches()
+        r_new, r_b, r_met = ref_step(params, b, batch, kr)
+        assert not any(_build.launches.values())
+        for x, y, w in zip(tree.leaves(new), tree.leaves(r_new), tree.leaves(params)):
+            assert x.dtype == w.dtype and torch.equal(x, y)
+        assert b_new.item() == r_b.item()
+        assert met["loss_first"].item() == r_met["loss_first"].item()
+        assert met["loss_last"].item() == r_met["loss_last"].item()
+        params, b = new, b_new
+    assert {k: v for k, v in got.items() if v} == {"stoch_quant_pack": 3 * n_leaves * 2, "bit_aggregate": n_leaves * 2}
+    routers = [w for p, w in tree.leaves_with_path(params) if p[-1] == "router"]
+    assert len(routers) == (arch != "xlstm-350m") and all(w.dtype == torch.float32 for w in routers)
+
+
 def test_lm_round_refuses_a_cohort_whose_rows_exceed_free_memory(dev):
     """A cohort whose stored wire rows alone exceed the card's free memory
     is refused before the round starts: one leaf of 2^30 weights packs to

@@ -35,6 +35,7 @@ from repro_torch.core.bcontrol import BState, update_b
 from repro_torch.core.quantizer import threshold_u16, unpack_bits
 from repro_torch.data import make_lm_streams
 from repro_torch.fl.pytree_wire import pytree_wire_bytes
+from repro_torch.kernels import ops
 from repro_torch.launch import fl_step as tfs
 from repro_torch.launch import train
 from repro_torch.models import build_specs as tbs
@@ -55,7 +56,12 @@ def micro(configs, n_layers=1):
 
 
 def to_torch(jp, dtype=torch.bfloat16):
-    return tree.tree_map(lambda a: torch.from_numpy(np.array(a, np.float32)).to(dtype), jp)
+    """The reference's tree as the port's, every leaf of ``dtype``, or each
+    in its own dtype (f32 or bf16) when ``dtype`` is None."""
+    def one(a):
+        t = dtype or (torch.float32 if a.dtype == jnp.float32 else torch.bfloat16)
+        return torch.from_numpy(np.array(a, np.float32)).to(t)
+    return tree.tree_map(one, jp)
 
 
 def test_threshold_u16_keeps_saturated_votes_certain():
@@ -178,12 +184,13 @@ M, L, PB, S = 4, 2, 2, 16
 def run_rounds(jcfg, tcfg, aggregator, rand_bits, dtype, rounds=2):
     """``rounds`` rounds of both steps from the same state on the same
     batches; each round starts both from the reference's state. Yields each
-    round's (reference, port) results."""
+    round's (reference, port) results. ``dtype`` None keeps each leaf's
+    spec dtype (bf16, the MoE router f32)."""
     streams = make_lm_streams(0, M, jcfg.vocab, S + 1, L * PB * rounds)
-    jt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
+    jt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, None: None}[dtype]
     with set_mesh(make_host_mesh()):
         specs = jbs(jcfg)
-        jp = jax.tree.map(lambda a: a.astype(jt), jip(specs, jax.random.PRNGKey(0)))
+        jp = jax.tree.map(lambda a: a.astype(jt or a.dtype), jip(specs, jax.random.PRNGKey(0)))
         jfl = jfs.DistFLConfig(clients_per_round=M, local_steps=L, aggregator=aggregator, rand_bits=rand_bits)
         jstep = jax.jit(jfs.make_fl_train_step(jcfg, jfl, param_pspecs(specs)))
         tstep = tfs.make_fl_train_step(tcfg, tfs.DistFLConfig(clients_per_round=M, local_steps=L,
@@ -258,11 +265,94 @@ def test_train_main_runs_on_cpu(tmp_path, capsys):
     assert train.main(one_round + ["--aggregator", "fedavg_fp32"]) == 0
     with pytest.raises(NotImplementedError, match="A14"):
         train.main(argv + ["--production-mesh"])
-    with pytest.raises(NotImplementedError, match="A12b"):
-        train.main(["--arch", "qwen3-moe-30b-a3b", "--reduced", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="A12c"):
+        train.main(["--arch", "jamba-1.5-large-398b", "--reduced", "--device", "cpu"])
+    for arch in ("hubert-xlarge", "pixtral-12b"):
+        with pytest.raises(NotImplementedError, match="A12e"):
+            train.main(["--arch", arch, "--reduced", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--arch", "qwen2-1.5b", "--reduced"])
+
+
+def micro_family(configs, arch):
+    """A narrow two-layer member of the MoE or xLSTM family (its reduced
+    config at d_model 32)."""
+    small = dict(name=arch + "-micro", d_model=32, n_heads=2, n_kv_heads=1, d_head=16, vocab=64)
+    if arch == "qwen3-moe-30b-a3b":
+        small.update(moe_d_ff=32)
+    return dataclasses.replace(configs.reduced(configs.get_config(arch)), **small)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "xlstm-350m"])
+def test_new_family_rounds_exact_at_f32_parameters(arch):
+    """Two PRoBit+ rounds of a micro MoE (4 experts, top-2, capacity drops
+    at 2 x 16 tokens: 8 slots an expert for ~16 routed) and a micro xLSTM
+    (an mLSTM and an sLSTM block) with f32 parameters: the new parameters
+    and b equal the jitted reference's bit for bit, the losses within rtol
+    1e-6, the wire bytes one kernel-wire row a leaf."""
+    for (jp, jb, jm), (tp, tb, tm) in run_rounds(micro_family(jc, arch), micro_family(tc, arch), "probit_plus", 32,
+                                                 torch.float32):
+        for a, c in zip(jax.tree.leaves(jp), tree.leaves(tp)):
+            np.testing.assert_array_equal(c.numpy(), np.asarray(a))
+        assert float(tb) == float(jb)
+        for k in ("loss_first", "loss_last"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-6)
+        # one kernel-wire row a leaf: padded to whole 1024-coordinate rows
+        # (the reference's chunked packer pads its small leaves further)
+        assert tm["wire_bytes"] == M * sum(ops.padded_len(c.numel()) // 8 for c in tree.leaves(tp))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "xlstm-350m"])
+def test_new_family_rounds_in_their_own_dtypes(arch):
+    """The same in the trainer's dtypes (bf16, the MoE router f32): the
+    router stays f32 through the local step, the wire and the new
+    parameters; the bars of test_real_loss_rounds_bf16 (losses rtol 1e-3, b
+    exact, at most 0.5% of the parameters differing, each by at most 2 **
+    -7 relative or 2b)."""
+    for (jp, jb, jm), (tp, tb, tm) in run_rounds(micro_family(jc, arch), micro_family(tc, arch), "probit_plus", 32,
+                                                 None):
+        for a, c in zip(jax.tree.leaves(jp), tree.leaves(tp)):
+            assert c.dtype == (torch.float32 if a.dtype == jnp.float32 else torch.bfloat16)
+        got = np.concatenate([c.float().numpy().ravel() for c in tree.leaves(tp)])
+        want = np.concatenate([np.asarray(a, np.float32).ravel() for a in jax.tree.leaves(jp)])
+        diff = got != want
+        assert diff.mean() <= 0.005
+        assert np.all(np.abs(got - want)[diff] <= np.maximum(2.0**-7 * np.abs(want[diff]), 2.0 * float(jb)))
+        assert float(tb) == float(jb)
+        for k in ("loss_first", "loss_last"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-3)
+    if arch == "qwen3-moe-30b-a3b":
+        assert sum(a.dtype == jnp.float32 for a in jax.tree.leaves(jp)) == 1
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "xlstm-350m"])
+def test_train_main_runs_new_families_on_cpu(tmp_path, capsys, arch):
+    """The trainer takes the MoE and xLSTM families (reduced, on the CPU):
+    finite losses, the packed wire 1/32 of f32, a checkpoint that loads
+    back with the MoE router f32."""
+    out = tmp_path / "run.json"
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--rounds", "1", "--clients", "2", "--seq", "16",
+            "--per-batch", "1", "--local-steps", "1", "--smoke", "--json-out", str(out), "--ckpt-dir", str(tmp_path)]
+    assert train.main(argv) == 0
+    assert "SMOKE OK" in capsys.readouterr().out
+    rep = json.loads(out.read_text())
+    assert rep["wire"]["wire_bytes_f32"] / rep["wire"]["wire_bytes_ideal"] == pytest.approx(32, rel=1e-3)
+    like = tip(tbs(tc.reduced(tc.get_config(arch))), prng.key(9))
+    back = load_checkpoint(str(tmp_path), 1, like)
+    routers = [c for p, c in tree.leaves_with_path(back) if p[-1] == "router"]
+    assert all(c.dtype == torch.float32 for c in routers) and len(routers) == (arch != "xlstm-350m")
+
+
+def test_setup_takes_a_callers_config():
+    """``train.setup(args, cfg)`` runs a caller's cut of a config (fewer
+    layers at the same widths) through the trainer's own set-up."""
+    args = train.parse_args(["--arch", "qwen3-moe-30b-a3b", "--device", "cpu", "--clients", "2", "--seq", "8"])
+    cut = dataclasses.replace(micro_family(tc, "qwen3-moe-30b-a3b"), n_layers=1)
+    run = train.setup(args, cut)
+    assert run.cfg is cut and len(run.params["blocks"]) == 1
+    assert run.params["blocks"][0]["ffn"]["w1"].shape == (1, 4, 32, 32)
+    assert run.wire["wire_bytes"] == pytree_wire_bytes(run.step.pipeline, run.params, 2)["wire_bytes"]
 
 
 def test_train_batches_are_the_references():
