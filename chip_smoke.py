@@ -126,8 +126,9 @@ Phases (any failure raises and exits non-zero before the result line):
    (p16) the 16-bit draws and (p-avg) FedAvg, one round each, launching
    nothing. Each prints its round seconds, peak memory, wire bytes (packed,
    ideal, int8, f32), init seconds, the busy share nvidia-smi reads over
-   its last round and, with 3 rounds, its second round's stream ms by
-   stage (forward and backward, local update, compress, estimate). Then (q): ``aggregate_pytree`` with error feedback on
+   its last round and its next-to-last round's stream ms by stage (the
+   only round's in a one-round run: forward and backward, local update,
+   compress, estimate). Then (q): ``aggregate_pytree`` with error feedback on
    the reduced qwen2 (B2 and B3 once a leaf a round), two rounds, equal to
    ``stream_aggregate_pytree`` in chunks of 2 and to ``engine="ref"``
    (the ``"phase": "lm"`` lines). Then the MoE and xLSTM families, each
@@ -137,9 +138,22 @@ Phases (any failure raises and exits non-zero before the result line):
    vocab 151,936) cut to 4 of its 48 layers (13 leaves, d =
    3,114,813,440; B1 104, B3 26), and (s) xLSTM-350M whole (24 layers,
    92 leaves, d = 518,855,848) at 512 tokens a sequence, so the mLSTM
-   carries its state across two chunks of 256 (B1 736, B3 184); phase 5
-   then times B1 and B3 at qwen2-1.5b's largest leaf and at the MoE's,
-   ``blocks[0].ffn.w1`` of (r) (``kernels_at_lm_leaf``,
+   carries its state across two chunks of 256 (B1 736, B3 184). Then the
+   Mamba hybrid and the frontends (ROADMAP A12c, A12e), the same way: (t)
+   HuBERT-XLarge whole (48 layers, non-causal, layernorm, tanh-GELU, the
+   encoder-only head; 15 leaves, d = 945,258,240) on the trainer's stub of
+   128 frames, all masked, 2 rounds (B1 120, B3 30); (u) Pixtral-12B at its
+   published widths (d_model 5,120, 32/8 heads of 128, d_ff 14,336, vocab
+   131,072) cut to 2 of its 40 layers (13 leaves, d = 1,913,676,800 with
+   the projector), 1,024 stub patches before 1,024 tokens, 1 round (B1 52,
+   B3 13); (v) Jamba-1.5-Large at its published widths (d_model 8,192,
+   Mamba d_in 16,384, d_state 16, dt_rank 512; NoPE attention, 64/8
+   heads; d_ff 24,576) cut to the pattern (mamba, attn), 2 of its 72 layers
+   and 2 of its 16 experts, top-2 kept (27 leaves, d = 3,457,064,960), at
+   512 tokens, so the Mamba scan carries its state across two chunks of
+   256, 1 round (B1 108, B3 27). Phase 5 then times B1 and B3 at
+   qwen2-1.5b's largest leaf and at the MoE's, ``blocks[0].ffn.w1`` of (r)
+   (``kernels_at_lm_leaf``,
    ``kernels_at_lm_moe_leaf``; ``at_lm_leaf`` and ``at_lm_moe_leaf`` in
    their rows);
 6. with ``--profile`` only: (a) on the MLP and on ``resnet18w64-m100``:
@@ -275,10 +289,24 @@ LM_Q = {"clients": 4, "client_chunk": 2, "rounds": 2}
 # round holds the parameters, a local copy, the next copy and the
 # gradients, so it is cut to 4 of its 48 layers at its published widths.
 # xLSTM-350M runs whole, at 512 tokens a sequence: two mLSTM chunks of 256.
+# (t), (u) and (v): the frontends and the Mamba hybrid (ROADMAP A12e,
+# A12c). HuBERT-XLarge runs whole on the trainer's stub frames. Pixtral-12B
+# (12.27e9 parameters whole) keeps 2 of its 40 layers and its 1,024 stub
+# patches; its 1,024 tokens make 2,048 positions, whole chunks of the
+# attention's 512 and 1,024 (the reference's rule). Jamba-1.5-Large's MoE
+# layer alone is 16 x 3 x 8,192 x 24,576 = 9.66e9 parameters, so it keeps
+# the reduced config's pattern (mamba, attn), 2 of its 72 layers and 2 of
+# its 16 experts (top-2), at 512 tokens: two Mamba chunks of 256.
 LM_FAMILIES = {
     "r": ("qwen3-moe-30b-a3b-l4-m4", "qwen3-moe-30b-a3b", {"n_layers": 4}, ["--rounds", "2"],
           {"d": 3_114_813_440, "leaves": 13}),
     "s": ("xlstm-350m-m4", "xlstm-350m", {}, ["--rounds", "2", "--seq", "512"], {"d": 518_855_848, "leaves": 92}),
+    "t": ("hubert-xlarge-m4", "hubert-xlarge", {}, ["--rounds", "2"], {"d": 945_258_240, "leaves": 15}),
+    "u": ("pixtral-12b-l2-m4", "pixtral-12b", {"n_layers": 2}, ["--rounds", "1", "--seq", "1024"],
+          {"d": 1_913_676_800, "leaves": 13}),
+    "v": ("jamba-1.5-large-398b-l2-m4", "jamba-1.5-large-398b",
+          {"pattern": ("mamba", "attn"), "n_layers": 2, "n_experts": 2}, ["--rounds", "1", "--seq", "512"],
+          {"d": 3_457_064_960, "leaves": 27}),
 }
 # The largest leaves at which phase 5 times B1 (one client's row) and B3
 # (the round's 4 rows): qwen2-1.5b's blocks[0].ffn.w1 (28 x 1,536 x 8,960)
@@ -1874,8 +1902,9 @@ def lm_run(dev, name: str, argv: list, with_ref: bool, cut: dict | None = None) 
     of the ``--arch`` config, as the trainer has no depth flag): each
     round's losses, b, seconds and peak memory, the launches of the kernel
     steps (zeroed just before each, read just after), the stream ms by
-    stage of the next-to-last round, the busy share nvidia-smi reads over
-    the last round, and, with ``with_ref``, each round against the
+    stage of the next-to-last round (of the only round of a one-round run),
+    the busy share nvidia-smi reads over the last round, and, with
+    ``with_ref``, each round against the
     ``engine="ref"`` step on the same inputs (new parameters bit for bit,
     b and both losses exact; it must launch nothing)."""
     import dataclasses
@@ -1915,13 +1944,16 @@ def lm_run(dev, name: str, argv: list, with_ref: bool, cut: dict | None = None) 
             out.append(run.step(params, b, batch, kr))
             torch.cuda.synchronize()
 
+        def staged():
+            nonlocal stages
+            stages = lm_stage_ms(step)
+
+        run_round = staged if r == max(args.rounds - 2, 0) else step
         t1 = time.perf_counter()
         if r == args.rounds - 1:
-            busy = smi_busy_share(step)
-        elif r == args.rounds - 2:
-            stages = lm_stage_ms(step)
+            busy = smi_busy_share(run_round)
         else:
-            step()
+            run_round()
         sec = time.perf_counter() - t1
         require(set(_build.launches) <= set(KERNELS), f"lm {name}: unknown kernel {dict(_build.launches)}")
         for k in KERNELS:

@@ -1,7 +1,7 @@
 """End-to-end federated LM training entry point.
 
-Runs real training of an ``--arch`` (the dense attention, MoE and xLSTM
-families) on synthetic LM data through the federated round of :mod:`.fl_step`, on the
+Runs real training of an ``--arch`` (any of the registry's ten) on
+synthetic LM data through the federated round of :mod:`.fl_step`, on the
 card by default (``--device cuda``, which raises when there is none) and
 on the CPU when asked (``--device cpu``, with ``--reduced`` for the
 family-preserving small variant). Counterpart of
@@ -116,14 +116,26 @@ def setup(args: argparse.Namespace, cfg: ModelConfig | None = None) -> LMRun:
 
 def round_batch(run: LMRun, args: argparse.Namespace, r: int) -> dict:
     """Round ``r``'s batch, leaves ``(clients, 1, local_steps, per_batch,
-    seq)``: each client's next ``local_steps * per_batch`` sequences, tokens
+    ...)``: each client's next ``local_steps * per_batch`` sequences, tokens
     ``s[:-1]`` and labels ``s[1:]`` (the loss shifts them once more, as the
-    reference's does)."""
+    reference's does). The frontends get the reference's stubs: a vision
+    model's ``frontend_tokens`` patches of ``0.02`` before the tokens; an
+    audio model ``seq`` frames of ``0.02``, all masked, labelled
+    ``s[:-1] % vocab``."""
     n = args.local_steps * args.per_batch
     toks = np.stack([s[r * n : (r + 1) * n].reshape(args.local_steps, args.per_batch, args.seq + 1)
                      for s in run.streams])[:, None]
     t = torch.from_numpy(toks).to(run.device)
-    return {"tokens": t[..., :-1], "labels": t[..., 1:]}
+    batch = {"tokens": t[..., :-1], "labels": t[..., 1:]}
+    cfg, lead = run.cfg, t.shape[:4]
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.full(lead + (cfg.frontend_tokens, cfg.d_model), 0.02, dtype=torch.bfloat16,
+                                      device=run.device)
+    elif cfg.frontend == "audio":
+        feats = torch.full(lead + (args.seq, cfg.d_model), 0.02, dtype=torch.bfloat16, device=run.device)
+        batch = {"feats": feats, "labels": batch["tokens"] % cfg.vocab,
+                 "mask": torch.ones(lead + (args.seq,), dtype=torch.bool, device=run.device)}
+    return batch
 
 
 def main(argv=None) -> int:

@@ -1,9 +1,9 @@
 """Models of the port: the paper's MLP, CNN and ResNet, and the model zoo's
-dense attention, MoE and xLSTM families (``repro/models``' names as far as
-they are ported; decode and caches come with ROADMAP A13, the sharding
-helpers with A14, Mamba with A12c)."""
+dense attention, MoE, xLSTM, Mamba-hybrid, audio and vision families
+(``repro/models``' names as far as they are ported; decode and caches come
+with ROADMAP A13, the sharding helpers with A14)."""
 
-from . import layers, moe, xlstm
+from . import layers, moe, ssm, xlstm
 
 from .config import SHAPES, ModelConfig, ShapeConfig
 from .inputs import batch_structure, sample_batch
@@ -30,5 +30,5 @@ __all__ = [
     "init_params", "count_params",
     "build_specs", "train_loss", "prefill", "backbone",
     "sample_batch", "batch_structure",
-    "layers", "moe", "xlstm",
+    "layers", "moe", "ssm", "xlstm",
 ]

@@ -10,8 +10,8 @@ with ``torch.einsum``. The dtypes follow the reference: projections in the
 parameters' dtype (bf16 by default), attention logits, softmax and norms
 in f32, the LM head's product rounded to the parameters' dtype and then
 widened to f32. Decode attention and its caches come with serving
-(ROADMAP A13). :func:`causal_conv1d` is the xLSTM mixer's (and, with
-ROADMAP A12c, Mamba's) depthwise convolution.
+(ROADMAP A13). :func:`causal_conv1d` is the xLSTM and Mamba mixers'
+depthwise convolution.
 """
 
 from __future__ import annotations

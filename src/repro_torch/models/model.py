@@ -4,14 +4,16 @@ Counterpart of ``repro/models/model.py``. A model is ``reps`` repetitions
 of a pattern unit; the parameters of each pattern position are stacked
 over ``reps`` (leading axis), and :func:`backbone` loops over the reps,
 indexing the stacked leaves, where the reference scans. The port builds
-the attention mixer with the dense or MoE FFN (``qwen2-1.5b``,
-``qwen1.5-4b``, ``minitron-8b``, ``starcoder2-3b``, ``qwen3-moe-30b-a3b``,
-``llama4-scout-17b-a16e``) and the mLSTM and sLSTM mixers without an FFN
-(``xlstm-350m``), full size and reduced. The Mamba mixer and the audio and
-vision frontends raise ``NotImplementedError`` naming the ROADMAP item
-that brings them. The reference's remat and indexed-parameter context
-managers are mesh memory levers and come with ROADMAP A14; decode
-(``serve_step`` and the caches) with A13.
+every architecture of the registry, full size and reduced: the attention
+mixer with the dense or MoE FFN, the mLSTM and sLSTM mixers, the Mamba
+mixer in Jamba's hybrid pattern, the encoder-only head over the audio
+frontend (``hubert-xlarge``: the mask token on the masked frames, a
+classifier, the loss over the masked frames) and the vision frontend
+(``pixtral-12b``: projected patches before the token embeddings). Both
+frontends are the reference's stubs: the batch carries the frame or patch
+embeddings. The reference's remat and indexed-parameter context managers
+are mesh memory levers and come with ROADMAP A14; decode (``serve_step``
+and the caches) with A13.
 """
 
 from __future__ import annotations
@@ -20,37 +22,24 @@ from typing import Any
 
 import torch
 
-from . import layers, moe, xlstm
+from . import layers, moe, ssm, xlstm
 from .config import ModelConfig
-from .spec import stack_specs
+from .spec import LeafSpec, stack_specs
 
 __all__ = ["build_specs", "backbone", "train_loss", "prefill"]
 
 Params = Any
 
-# What the port cannot build yet, by the ROADMAP item that brings it.
-_UNPORTED = {
-    "mamba": "ROADMAP A12c (models/ssm.py and the hybrid pattern, after the mesh of A14)",
-    "frontend": "ROADMAP A12e (the audio and vision frontends)",
+_MIXER_SPECS = {
+    "attn": layers.attn_specs,
+    "mamba": ssm.mamba_specs,
+    "mlstm": xlstm.mlstm_specs,
+    "slstm": xlstm.slstm_specs,
 }
-
-_MIXER_SPECS = {"attn": layers.attn_specs, "mlstm": xlstm.mlstm_specs, "slstm": xlstm.slstm_specs}
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.encoder_only or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend / encoder-only head is not ported yet; {_UNPORTED['frontend']}"
-        )
-    for pos in range(cfg.unit):
-        mix = cfg.mixer_at(pos)
-        if mix not in _MIXER_SPECS:
-            raise NotImplementedError(f"{cfg.name}: the {mix} mixer is not ported yet; {_UNPORTED[mix]}")
 
 
 def build_specs(cfg: ModelConfig) -> dict:
     """Full parameter LeafSpec tree of an architecture."""
-    _check_supported(cfg)
     blocks = []
     for pos in range(cfg.unit):
         unit: dict = {"norm1": layers.norm_specs(cfg), "mixer": _MIXER_SPECS[cfg.mixer_at(pos)](cfg)}
@@ -59,11 +48,19 @@ def build_specs(cfg: ModelConfig) -> dict:
             unit["norm2"] = layers.norm_specs(cfg)
             unit["ffn"] = layers.ffn_specs(cfg) if f == "dense" else moe.moe_specs(cfg)
         blocks.append(stack_specs(unit, cfg.reps))
-    return {
+    tree: dict = {
         "embed": layers.embed_specs(cfg),
         "blocks": blocks,
         "final_norm": layers.norm_specs(cfg),
     }
+    if cfg.encoder_only:
+        tree["classifier"] = LeafSpec((cfg.d_model, cfg.vocab), (None, "vocab"))
+        tree["mask_token"] = LeafSpec((cfg.d_model,), (None,), scale=0.02)
+        del tree["embed"]["head"]
+    if cfg.frontend == "vision":
+        # the learned projector of the (stubbed) patch embeddings
+        tree["projector"] = LeafSpec((cfg.d_model, cfg.d_model), (None, None))
+    return tree
 
 
 def _index(tree, r: int):
@@ -78,6 +75,8 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Te
     h = layers.apply_norm(p["norm1"], x, cfg.norm_eps)
     if mix == "attn":
         h = layers.attention_block(p["mixer"], h, cfg, positions)
+    elif mix == "mamba":
+        h = ssm.mamba_block(p["mixer"], h, cfg)
     elif mix == "mlstm":
         h = xlstm.mlstm_block(p["mixer"], h, cfg)
     else:
@@ -91,7 +90,6 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Te
 
 
 def backbone(params: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
-    _check_supported(cfg)
     for r in range(cfg.reps):
         for pos, stacked in enumerate(params["blocks"]):
             x = _apply_layer(_index(stacked, r), x, cfg, positions, pos)
@@ -99,29 +97,58 @@ def backbone(params: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch
 
 
 def _embed_inputs(params: Params, batch: dict, cfg: ModelConfig):
-    """Returns (x (B, S, d), positions (B, S), labels)."""
-    _check_supported(cfg)
+    """Returns (x (B, S, d), positions (B, S), loss labels, loss mask); the
+    mask is None for plain token input."""
+    if cfg.frontend == "audio":
+        feats, mask = batch["feats"], batch["mask"]
+        x = torch.where(mask[..., None], params["mask_token"].to(feats.dtype), feats)
+        b, s, _ = x.shape
+        return x, torch.arange(s, device=x.device).expand(b, s), batch.get("labels"), mask
+    if cfg.frontend == "vision":
+        # a bf16 patch of an f32 projector is widened first, as JAX promotes it
+        proj = params["projector"]
+        dt = torch.promote_types(batch["patches"].dtype, proj.dtype)
+        patches = torch.einsum("bpd,de->bpe", batch["patches"].to(dt), proj.to(dt))
+        tok_emb = layers.embed_tokens(params["embed"], batch["tokens"])
+        x = torch.cat([patches.to(tok_emb.dtype), tok_emb], dim=1)
+        b, s, _ = x.shape
+        npatch = patches.shape[1]
+        mask = torch.ones((b, s), dtype=torch.bool, device=x.device)
+        mask[:, :npatch] = False
+        labels = batch.get("labels")
+        if labels is not None:
+            # labels padded over the patch prefix (the mask leaves them out)
+            labels = torch.cat([torch.zeros((b, npatch), dtype=labels.dtype, device=labels.device), labels], dim=1)
+        return x, torch.arange(s, device=x.device).expand(b, s), labels, mask
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = layers.embed_tokens(params["embed"], tokens)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
-    return x, positions, batch.get("labels")
+    return x, torch.arange(s, device=tokens.device).expand(b, s), batch.get("labels"), None
+
+
+def _classifier_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bsd,dv->bsv", x, params["classifier"]).float()
 
 
 def train_loss(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Next-token loss: the labels rolled left by one, the last position
-    masked out (the reference's rule, applied to whatever labels the batch
-    carries)."""
-    x, positions, labels = _embed_inputs(params, batch, cfg)
+    """The encoder-only head's loss over the masked frames, with the labels
+    as given; else the next-token loss: the labels rolled left by one and
+    the last position masked out, with the frontend's mask (the reference's
+    rule, applied to whatever labels the batch carries)."""
+    x, positions, labels, mask = _embed_inputs(params, batch, cfg)
     x = backbone(params, x, cfg, positions)
+    if cfg.encoder_only:
+        return layers.softmax_xent(_classifier_logits(params, x), labels, mask)
     logits = layers.lm_logits(params["embed"], x)
     shifted = torch.roll(labels, -1, dims=1)
-    mask = torch.ones_like(labels, dtype=torch.bool)
+    mask = torch.ones_like(labels, dtype=torch.bool) if mask is None else mask.clone()
     mask[:, -1] = False  # last position has no next token
     return layers.softmax_xent(logits, shifted, mask)
 
 
 def prefill(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    x, positions, _ = _embed_inputs(params, batch, cfg)
+    x, positions, _, _ = _embed_inputs(params, batch, cfg)
     x = backbone(params, x, cfg, positions)
+    if cfg.encoder_only:
+        return _classifier_logits(params, x)
     return layers.lm_logits(params["embed"], x)

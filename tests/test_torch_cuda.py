@@ -723,19 +723,24 @@ def deterministic(monkeypatch):
     torch.use_deterministic_algorithms(before)
 
 
-@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "xlstm-350m"])
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "xlstm-350m", "jamba-1.5-large-398b", "hubert-xlarge",
+                                  "pixtral-12b"])
 def test_lm_new_family_round_on_kernels_equals_round_on_plain_versions(dev, deterministic, arch):
     """The federated LM round on the reduced llama4-scout (MoE top-1 with the
-    shared expert, the f32 router) and the reduced xLSTM (an mLSTM and an
-    sLSTM block, the mLSTM over two chunks of 256 at seq 512) through the
-    trainer's own set-up and step, two rounds of 3 clients: B1 a client and
-    leaf, B3 a leaf, and every round's parameters (the router still f32), b
-    and losses equal to the engine="ref" step's."""
+    shared expert, the f32 router), the reduced xLSTM (an mLSTM and an
+    sLSTM block, the mLSTM over two chunks of 256 at seq 512), the reduced
+    jamba (a Mamba position scanning two chunks of 256 at seq 512, an
+    attention position with the MoE FFN), the reduced hubert (the audio
+    stub, the encoder-only head) and the reduced pixtral (16 stub patches
+    before 32 tokens) through the trainer's own set-up, batches and step,
+    two rounds of 3 clients: B1 a client and leaf, B3 a leaf, and every
+    round's parameters (the routers still f32), b and losses equal to the
+    engine="ref" step's."""
     from repro_torch import tree
     from repro_torch.launch import train
     from repro_torch.launch.fl_step import make_fl_train_step
 
-    seq = "512" if arch == "xlstm-350m" else "32"
+    seq = "512" if arch in ("xlstm-350m", "jamba-1.5-large-398b") else "32"
     args = train.parse_args(["--arch", arch, "--reduced", "--clients", "3", "--seq", seq, "--rounds", "2",
                              "--per-batch", "1"])
     run = train.setup(args)
@@ -762,7 +767,8 @@ def test_lm_new_family_round_on_kernels_equals_round_on_plain_versions(dev, dete
         params, b = new, b_new
     assert {k: v for k, v in got.items() if v} == {"stoch_quant_pack": 3 * n_leaves * 2, "bit_aggregate": n_leaves * 2}
     routers = [w for p, w in tree.leaves_with_path(params) if p[-1] == "router"]
-    assert len(routers) == (arch != "xlstm-350m") and all(w.dtype == torch.float32 for w in routers)
+    assert len(routers) == (arch in ("llama4-scout-17b-a16e", "jamba-1.5-large-398b"))
+    assert all(w.dtype == torch.float32 for w in routers)
 
 
 def test_lm_round_refuses_a_cohort_whose_rows_exceed_free_memory(dev):
