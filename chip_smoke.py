@@ -119,8 +119,9 @@ Phases (any failure raises and exits non-zero before the result line):
    step at qwen2-1.5b's published width (28 layers, d_model 1,536, vocab
    151,936; 15 leaves, d = 1,777,088,000; random weights from the port's
    Threefry) with the trainer's defaults (4 clients, 2 local steps of 2
-   sequences of 128 tokens): (p) PRoBit+ on the kernel wire for 3 rounds,
-   one B1 a (client, leaf) and one B3 a leaf each round (180 and 45), every
+   sequences of 128 tokens): (p) PRoBit+ on the kernel wire for 2 rounds
+   (3 before phase 10 was added: the 1,000 s ceiling), one B1 a (client,
+   leaf) and one B3 a leaf each round (120 and 30), every
    round equal to its ``engine="ref"`` step on the same inputs (new
    parameters bit for bit, b and both losses exact), its wire ~1/32 of f32;
    (p16) the 16-bit draws and (p-avg) FedAvg, one round each, launching
@@ -156,6 +157,28 @@ Phases (any failure raises and exits non-zero before the result line):
    (``kernels_at_lm_leaf``,
    ``kernels_at_lm_moe_leaf``; ``at_lm_leaf`` and ``at_lm_moe_leaf`` in
    their rows);
+10. serve (ROADMAP A13, the ``"phase": "serve"`` lines): the final
+   parameters of phase 9's (p) qwen2-1.5b (whole), (s) xLSTM-350M (whole)
+   and (v) Jamba-1.5-Large (2 layers) runs, each served through
+   ``repro_torch.serving.ServingEngine`` right after its run, before the
+   next one starts (no model is made again, no peak rises above phase
+   9's): a static batch of 8, a cache of 512, 32 new tokens, greedy;
+   qwen2 12 prompts of 16-128 tokens (two waves) and a sampled wave at
+   T = 0.8, seed 0, repeated bit for bit; xLSTM and Jamba one wave of 8
+   prompts of 16-64. Each prints its tokens a second, ms a step, peak
+   memory, nvidia-smi's busy share (over the traffic, run again until 3 s
+   have passed; every rerun must give the same tokens), cache bytes and
+   set-up seconds beside the card's name and power limit, and must
+   launch no kernel. Over 128 positions of 8 drawn sequences the whole
+   model's decode logits must be finite and, at position 0, within
+   SERVE_BARS of prefill's (the agreement at later positions is printed:
+   the reference's init makes decode and prefill part with depth, ROADMAP
+   C); each kind of layer alone, at the published widths, must give every
+   prompt's first token as prefill's argmax at its last position (where
+   prefill's top two are within one bf16 step, a token within one step of
+   its top), decode logits within SERVE_BARS of prefill's at every position and (attention)
+   a ring of 64 slots equal to the full cache within them while the
+   history fits it, finite after;
 6. with ``--profile`` only: (a) on the MLP and on ``resnet18w64-m100``:
    the device busy share as nvidia-smi reads it over unprofiled rounds and
    as the union of the kernels' records of one round under
@@ -171,6 +194,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
 import os
 import pathlib
 import statistics
@@ -276,7 +300,7 @@ LM_ARCH = "qwen2-1.5b"
 LM_COMMON = ["--clients", "4", "--local-steps", "2", "--per-batch", "2", "--seq", "128", "--lr", "1e-8"]
 LM_ARGS = ["--arch", LM_ARCH] + LM_COMMON
 LM_VARIANTS = {
-    "p": ["--rounds", "3"],
+    "p": ["--rounds", "2"],
     "p16": ["--rounds", "1", "--rand-bits", "16"],
     "p-avg": ["--rounds", "1", "--aggregator", "fedavg_fp32"],
 }
@@ -308,6 +332,27 @@ LM_FAMILIES = {
           {"pattern": ("mamba", "attn"), "n_layers": 2, "n_experts": 2}, ["--rounds", "1", "--seq", "512"],
           {"d": 3_457_064_960, "leaves": 27}),
 }
+# Phase 10: serving (ROADMAP A13) of the parameters that phase 9's (p), (s)
+# and (v) end with, each served as soon as its run ends, before the next
+# run starts: the run's name -> (prompts, their lengths' range, a sampled
+# wave, a ring run). Every engine has SERVE_CFG's static batch of 8, cache of
+# 512 and 32 new tokens; prompts and their lengths are drawn from the port's
+# Threefry (SERVE_SEED). The checks run over SERVE_CHECK positions: decode
+# against prefill, and a ring of SERVE_RING slots against the full cache.
+SERVE = {
+    "p": {"prompts": 12, "lens": (16, 128), "sampled": True, "ring": True},
+    "s": {"prompts": 8, "lens": (16, 64), "sampled": False, "ring": False},
+    "v": {"prompts": 8, "lens": (16, 64), "sampled": False, "ring": True},
+}
+SERVE_CFG = {"batch_size": 8, "max_len": 512, "max_new_tokens": 32}
+SERVE_T, SERVE_SEED, SERVE_CHECK, SERVE_RING = 0.8, 11, 128, 64
+# Decode against prefill (and the ring against the full cache) at bf16, for
+# each kind of layer alone: the largest logit difference at most [0] of the
+# largest |logit| of the run, the mean at most [1] of it; the bf16 bars of
+# the prefill tests at that scale (0.5 and 0.02 on logits up to ~5; with a
+# Mamba mixer, whose state sums the bf16 in_proj's one-step differences,
+# 2.0 and 0.03).
+SERVE_BARS = {"dense": (0.1, 0.004), "mamba": (0.4, 0.006)}
 # The largest leaves at which phase 5 times B1 (one client's row) and B3
 # (the round's 4 rows): qwen2-1.5b's blocks[0].ffn.w1 (28 x 1,536 x 8,960)
 # and (r)'s blocks[0].ffn.w1 (4 x 128 x 2,048 x 768).
@@ -1896,7 +1941,7 @@ def lm_stage_ms(fn) -> dict:
     return out
 
 
-def lm_run(dev, name: str, argv: list, with_ref: bool, cut: dict | None = None) -> dict:
+def lm_run(dev, name: str, argv: list, with_ref: bool, cut: dict | None = None, keep: bool = False) -> dict:
     """One phase-9 variant through ``repro_torch.launch.train``'s own set-up,
     batches and step (``argv`` the trainer's flags; ``cut`` replaces fields
     of the ``--arch`` config, as the trainer has no depth flag): each
@@ -1906,7 +1951,9 @@ def lm_run(dev, name: str, argv: list, with_ref: bool, cut: dict | None = None) 
     the busy share nvidia-smi reads over the last round, and, with
     ``with_ref``, each round against the
     ``engine="ref"`` step on the same inputs (new parameters bit for bit,
-    b and both losses exact; it must launch nothing)."""
+    b and both losses exact; it must launch nothing). With ``keep`` the
+    result also holds the config and the final parameters (``"served"``),
+    for phase 10."""
     import dataclasses
 
     import numpy as np
@@ -1986,11 +2033,13 @@ def lm_run(dev, name: str, argv: list, with_ref: bool, cut: dict | None = None) 
         del new
     want = lm_expected_launches(n_leaves, args.clients, args.rounds, args)
     require(launches == want, f"lm {name}: launches {launches} != expected {want}")
+    served = (run.cfg, params) if keep else None
     del params, run, ref_step
     torch.cuda.empty_cache()
     return {"rounds": recs, "launches": launches, "expected_launches": want, "d": d, "leaves": n_leaves,
             "wire": wire, "init_seconds": init_s, "busy_last_round": busy,
-            "stage_stream_ms_next_to_last_round": stages, "with_ref": with_ref}
+            "stage_stream_ms_next_to_last_round": stages, "with_ref": with_ref,
+            **({"served": served} if keep else {})}
 
 
 def lm_pytree_ef(dev) -> dict:
@@ -2056,11 +2105,15 @@ def lm_pytree_ef(dev) -> dict:
 def lm_runs(dev) -> dict:
     """Phase 9: LM_VARIANTS, (q), then LM_FAMILIES; prints one ``"phase":
     "lm"`` line a run. The wire of every run on the kernel wire must be
-    ~1/32 of f32."""
-    runs, t0 = {}, time.perf_counter()
+    ~1/32 of f32. Phase 10 serves the final parameters of each run in
+    SERVE right after it (a ``"phase": "serve"`` line)."""
+    import torch
+
+    runs, served_s, t0 = {}, [], time.perf_counter()
 
     def one(name, label, argv, with_ref, cut=None, want=None):
-        run = lm_run(dev, name, argv, with_ref=with_ref, cut=cut)
+        run = lm_run(dev, name, argv, with_ref=with_ref, cut=cut, keep=name in SERVE)
+        served = run.pop("served", None)
         line = {"phase": "lm", "run": label, "argv": argv, **({"cut": cut} if cut else {}), **run}
         if with_ref:
             ratio = run["wire"]["wire_bytes_f32"] / run["wire"]["wire_bytes"]
@@ -2070,6 +2123,12 @@ def lm_runs(dev) -> dict:
             require({k: run[k] for k in want} == want, f"lm {name}: d and leaves {run['d']}, {run['leaves']} != {want}")
         print(json.dumps(line), flush=True)
         runs[f"lm/{name}"] = run
+        if served is not None:
+            line = serve_run(dev, name, label, *served)
+            print(json.dumps(line), flush=True)
+            served_s.append(line["phase_seconds"])
+            del served
+            torch.cuda.empty_cache()
 
     for name, argv in LM_VARIANTS.items():
         one(name, f"{LM_ARCH}/{name}", LM_ARGS + argv, with_ref=name == "p")
@@ -2079,8 +2138,206 @@ def lm_runs(dev) -> dict:
     runs["lm/q-stream"] = {"launches": q["launches"]["stream"]}
     for name, (label, arch, cut, extra, want) in LM_FAMILIES.items():
         one(name, f"{label}/{name}", ["--arch", arch] + LM_COMMON + extra, with_ref=True, cut=cut, want=want)
-    print(json.dumps({"phase": "lm_done", "seconds": time.perf_counter() - t0}), flush=True)
+    require(len(served_s) == len(SERVE), f"phase 10 served {len(served_s)} of {len(SERVE)} models")
+    print(json.dumps({"phase": "lm_done", "seconds": time.perf_counter() - t0 - sum(served_s)}), flush=True)
+    print(json.dumps({"phase": "serve_done", "seconds": sum(served_s), "models": len(served_s)}), flush=True)
     return runs
+
+
+def serve_prompts(vocab: int, n: int, lens: tuple[int, int]) -> list:
+    """Phase 10's prompts: ``n`` lengths in ``[lens[0], lens[1]]`` and the
+    tokens of each, drawn from the port's Threefry at SERVE_SEED."""
+    from repro_torch import prng
+
+    key = prng.key(SERVE_SEED)
+    sizes = prng.randint(prng.fold_in(key, 0), (n,), lens[0], lens[1] + 1).tolist()
+    return [prng.randint(prng.fold_in(prng.fold_in(key, 1), i), (k,), 0, vocab).tolist() for i, k in enumerate(sizes)]
+
+
+def serve_layers(cfg, params) -> list:
+    """The served model's layers one at a time, one of each kind (mixer and
+    FFN): ``(tag, config, parameters)``, the parameters the first rep of
+    that pattern position of ``params`` (views: nothing is made anew)."""
+    import dataclasses
+
+    from repro_torch.tree import tree_map
+
+    out, seen = [], set()
+    for u in range(cfg.unit):
+        kind = (cfg.mixer_at(u), cfg.ffn_at(u))
+        if kind in seen:
+            continue
+        seen.add(kind)
+        moe_every = 1 if kind[1] == "moe" else 2 if cfg.n_experts else cfg.moe_every
+        one = dataclasses.replace(cfg, pattern=(kind[0],), n_layers=1, moe_every=moe_every)
+        require(one.ffn_at(0) == kind[1], f"serve {cfg.name}: layer {u} cut to {one.ffn_at(0)}")
+        out.append((f"{u}:{'+'.join(kind)}", one,
+                    {**params, "blocks": [tree_map(lambda a: a[:1], params["blocks"][u])]}))
+    return out
+
+
+def bf16_step(x: float) -> float:
+    """One bf16 rounding step (ulp) at |x|."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 0.0
+
+
+def first_tokens(dev, cfg, params, prompts, out) -> list:
+    """Each prompt's first generated token beside prefill's logits at its
+    last position: the argmax, the gap to the second, and whether the
+    decoded token is prefill's argmax or, where prefill's top two are tied
+    at bf16's resolution (the head's product is rounded to bf16), one of
+    the tokens within one bf16 step of the top (``tie``)."""
+    import torch
+
+    from repro_torch.models import prefill
+
+    rows = []
+    with torch.no_grad():
+        for p, o in zip(prompts, out):
+            last = prefill(params, {"tokens": torch.tensor([p], device=dev)}, cfg)[0, -1]
+            top2 = torch.topk(last, 2).values.tolist()
+            step = bf16_step(top2[0])
+            rows.append({"len": len(p), "decode": o[0], "prefill": int(last.argmax()), "top2_gap": top2[0] - top2[1],
+                         "tie": top2[0] - top2[1] <= step and last[o[0]].item() >= top2[0] - step})
+    return rows
+
+
+def serve_check(dev, cfg, params, ring: bool, bars: tuple | None) -> dict:
+    """Decode against prefill over SERVE_CHECK positions of a batch of 8
+    drawn sequences, each position's decode logits against prefill's, and,
+    with ``ring``, a ring of SERVE_RING slots stepped beside the full cache,
+    against it while the history fits the ring and finite after. Returns
+    the differences, relative to the largest prefill logit. Every logit must
+    be finite, and position 0 (one key: nothing for the attention to
+    amplify) within the dense bars; with ``bars``, every position and the
+    ring within them too."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.models import init_cache, prefill, serve_step
+
+    b = SERVE_CFG["batch_size"]
+    toks = prng.randint(prng.fold_in(prng.key(SERVE_SEED), 2), (b, SERVE_CHECK), 0, cfg.vocab).to(dev)
+    worst = {"decode_max": 0.0, "decode_mean": 0.0, "ring_max": 0.0, "ring_mean": 0.0}
+    agree, finite, at0 = 0, True, None
+    with torch.no_grad():
+        pre = prefill(params, {"tokens": toks}, cfg)
+        scale = pre.abs().max().item()
+        full = init_cache(cfg, b, SERVE_CHECK, dev)
+        rc = init_cache(cfg, b, SERVE_RING, dev) if ring else None
+        for t in range(SERVE_CHECK):
+            tok = {"tokens": toks[:, t : t + 1]}
+            lf, full = serve_step(params, full, tok, t, cfg)
+            diff = (lf - pre[:, t]).abs()
+            at0 = diff.max().item() / scale if t == 0 else at0
+            worst["decode_max"] = max(worst["decode_max"], diff.max().item() / scale)
+            worst["decode_mean"] = max(worst["decode_mean"], diff.mean().item() / scale)
+            agree += int((lf.argmax(-1) == pre[:, t].argmax(-1)).sum())
+            finite &= bool(torch.isfinite(lf).all())
+            if ring:
+                lr, rc = serve_step(params, rc, tok, t, cfg, window=SERVE_RING)
+                finite &= bool(torch.isfinite(lr).all())
+                if t < SERVE_RING:
+                    diff = (lr - lf).abs()
+                    worst["ring_max"] = max(worst["ring_max"], diff.max().item() / scale)
+                    worst["ring_mean"] = max(worst["ring_mean"], diff.mean().item() / scale)
+    out = {"positions": SERVE_CHECK, "max_abs_prefill_logit": scale, "position0_max": at0, **worst,
+           "argmax_agree_share": agree / (b * SERVE_CHECK), "ring": ring, "finite": finite, "bars": bars}
+    require(finite, f"serve {cfg.name}: a logit is not finite {out}")
+    require(at0 <= SERVE_BARS["dense"][0], f"serve {cfg.name}: position 0 against prefill {out}")
+    if bars:
+        require(worst["decode_max"] <= bars[0] and worst["decode_mean"] <= bars[1],
+                f"serve {cfg.name}: decode against prefill {out}")
+        require(not ring or (worst["ring_max"] <= bars[0] and worst["ring_mean"] <= bars[1]),
+                f"serve {cfg.name}: the ring of {SERVE_RING} against the full cache {out}")
+    return out
+
+
+def serve_run(dev, name: str, label: str, cfg, params) -> dict:
+    """Phase 10: serve phase 9's final parameters of run ``name`` through
+    ``repro_torch.serving.ServingEngine`` (SERVE[name]'s traffic, greedy):
+    the tokens a second and ms a step of its first run, peak memory,
+    nvidia-smi's busy share over the traffic, run again until 3 s have
+    passed (each rerun must give the same tokens), the cache's bytes and
+    the engine's set-up seconds (no init: the parameters are phase 9's). Checks on the whole model: no kernel launch; every
+    request gets its 32 tokens; with a sampled wave, T = SERVE_T at seed 0
+    twice, the same tokens; :func:`serve_check` without bars (finite, and
+    position 0 within them), its first tokens against prefill's argmax
+    printed. Then every kind of layer of the model alone, at full width
+    (:func:`serve_layers`): every prompt's first token prefill's argmax (or
+    a bf16 tie of it, :func:`first_tokens`) and :func:`serve_check` within
+    SERVE_BARS. At full depth the reference's init makes decode and prefill
+    part (ROADMAP C, "Decode at depth"), in the reference as in the port."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.serving import ServeConfig, ServingEngine
+    from repro_torch.tree import leaves
+
+    spec, t_start = SERVE[name], time.perf_counter()
+    prompts = serve_prompts(cfg.vocab, spec["prompts"], spec["lens"])
+    if name == "p":  # greedy ties go to the first index, as jnp.argmax breaks them
+        ties = torch.zeros(SERVE_CFG["batch_size"], cfg.vocab, device=dev)
+        first = cfg.vocab // 3
+        ties[:, [cfg.vocab - 1, first, cfg.vocab // 2, first + 1]] = 1.0
+        require(torch.argmax(ties, -1).tolist() == [first] * SERVE_CFG["batch_size"], "argmax ties on the card")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, params, ServeConfig(**SERVE_CFG))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cache_bytes = sum(v.numel() * v.element_size() for v in leaves(eng.cache))
+    runs = []
+
+    def traffic():  # at least once, and until 3 s have passed (nvidia-smi's samples)
+        t_end = time.perf_counter() + 3.0
+        while not runs or time.perf_counter() < t_end:
+            t0 = time.perf_counter()
+            runs.append((eng.generate(prompts), time.perf_counter() - t0))
+
+    busy = smi_busy_share(traffic)
+    (out, wall), steps = runs[0], eng.steps
+    n_new = SERVE_CFG["max_new_tokens"]
+    require(all(len(o) == n_new and all(0 <= t < cfg.vocab for t in o) for o in out), f"serve {label}: {out}")
+    require(all(r == out for r, _ in runs[1:]), f"serve {label}: a greedy rerun gave other tokens")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    firsts = first_tokens(dev, cfg, params, prompts, out)
+    line = {"phase": "serve", "run": label, "arch": cfg.name, "layers": cfg.n_layers, "card": card_line(),
+            "config": SERVE_CFG, "prompts": len(prompts), "prompt_lens": [len(p) for p in prompts],
+            "waves": math.ceil(len(prompts) / SERVE_CFG["batch_size"]), "steps": steps, "seconds": wall,
+            "tokens_per_s": len(prompts) * n_new / wall,
+            "slot_tokens_per_s": steps * SERVE_CFG["batch_size"] / wall, "ms_per_step": 1e3 * wall / steps,
+            "peak_gb": peak_gb, "busy": busy, "runs": len(runs), "cache_bytes": cache_bytes, "setup_seconds": setup_s,
+            "first_tokens_agree": sum(f["decode"] == f["prefill"] for f in firsts)}
+    if spec["sampled"]:
+        seng = ServingEngine(cfg, params, ServeConfig(**SERVE_CFG, temperature=SERVE_T))
+        wave = prompts[: SERVE_CFG["batch_size"]]
+        t0 = time.perf_counter()
+        s1 = seng.generate(wave, seed=0)
+        sampled_s = time.perf_counter() - t0
+        s2 = seng.generate(wave, seed=0)
+        require(s1 == s2, f"serve {label}: the sampled wave did not repeat")
+        require(s1 != out[: len(wave)], f"serve {label}: T = {SERVE_T} sampled the greedy tokens")
+        line["sampled"] = {"temperature": SERVE_T, "seed": 0, "requests": len(wave), "seconds": sampled_s,
+                           "tokens_per_s": len(wave) * n_new / sampled_s, "repeats_bit_for_bit": True}
+        del seng
+    del eng
+    line["whole"] = serve_check(dev, cfg, params, spec["ring"], None)
+    line["layers_alone"] = {}
+    for tag, one, one_params in serve_layers(cfg, params):
+        bars = SERVE_BARS["mamba" if one.mixer_at(0) == "mamba" else "dense"]
+        one_out = ServingEngine(one, one_params, ServeConfig(**{**SERVE_CFG, "max_new_tokens": 1})).generate(prompts)
+        rows = first_tokens(dev, one, one_params, prompts, one_out)
+        require(all(r["decode"] == r["prefill"] or r["tie"] for r in rows), f"serve {label} layer {tag}: {rows}")
+        line["layers_alone"][tag] = {"first_tokens_agree": sum(r["decode"] == r["prefill"] for r in rows),
+                                     "first_tokens_tied": sum(r["decode"] != r["prefill"] for r in rows),
+                                     **serve_check(dev, one, one_params, spec["ring"] and one.mixer_at(0) == "attn",
+                                                   bars)}
+    require(not any(_build.launches.values()), f"serve {label}: the serving path launched {_build.launches}")
+    line["phase_seconds"] = time.perf_counter() - t_start
+    return line
 
 
 def graph_ms(fn) -> float:

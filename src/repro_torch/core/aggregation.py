@@ -112,8 +112,9 @@ __all__ = [
 ]
 
 
-def recip32(n: int) -> float:
-    """``f32(1 / n)`` as a Python float."""
+def recip32(n: float) -> float:
+    """``f32(1 / f32(n))`` as a Python float: what XLA multiplies by where
+    the reference divides by the constant ``n`` under ``jit``."""
     return float(np.float32(1.0) / np.float32(n))
 
 

@@ -21,7 +21,7 @@ import torch
 
 from .tree import leaves, leaves_with_path, tree_map, unflatten
 
-__all__ = ["ravel_params", "params_from_jax", "lm_params_from_numpy"]
+__all__ = ["ravel_params", "params_from_jax", "lm_params_from_numpy", "lm_cache_from_numpy"]
 
 
 def _leaves(tree, prefix: tuple = ()):
@@ -71,3 +71,19 @@ def lm_params_from_numpy(tree, device=None, dtype=torch.bfloat16, specs=None):
         return tree_map(lambda a: carry(a, dtype), tree)
     spec_dtypes = [s.dtype for s in leaves(specs, is_leaf=lambda s: hasattr(s, "logical"))]
     return unflatten(tree, [carry(a, t) for a, t in zip(leaves(tree), spec_dtypes, strict=True)])
+
+
+def lm_cache_from_numpy(cache, device=None):
+    """A JAX decode cache (``models.init_cache``'s tree, as returned by
+    ``serve_step``), passed as numpy arrays, as the port's cache on
+    ``device``: a leaf whose numpy dtype is bfloat16 (what ``np.asarray``
+    makes of a bf16 JAX array) becomes a bf16 tensor, any other a tensor of
+    its own dtype. Each leaf is a copy the port's steps may update in place."""
+
+    def carry(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+        return torch.from_numpy(a.copy()).to(device=device)
+
+    return tree_map(carry, cache)

@@ -1,13 +1,13 @@
 """Models of the port: the paper's MLP, CNN and ResNet, and the model zoo's
 dense attention, MoE, xLSTM, Mamba-hybrid, audio and vision families
-(``repro/models``' names as far as they are ported; decode and caches come
-with ROADMAP A13, the sharding helpers with A14)."""
+(``repro/models``' names as far as they are ported, decode and caches
+included; the sharding helpers come with ROADMAP A14)."""
 
 from . import layers, moe, ssm, xlstm
 
 from .config import SHAPES, ModelConfig, ShapeConfig
 from .inputs import batch_structure, sample_batch
-from .model import backbone, build_specs, prefill, train_loss
+from .model import backbone, build_specs, init_cache, prefill, serve_step, train_loss
 from .spec import LeafSpec, count_params, init_params
 from .vision import (
     MODELS,
@@ -28,7 +28,7 @@ __all__ = [
     "MODELS", "xent_loss", "accuracy",
     "ModelConfig", "ShapeConfig", "SHAPES", "LeafSpec",
     "init_params", "count_params",
-    "build_specs", "train_loss", "prefill", "backbone",
+    "build_specs", "train_loss", "prefill", "backbone", "init_cache", "serve_step",
     "sample_batch", "batch_structure",
     "layers", "moe", "ssm", "xlstm",
 ]

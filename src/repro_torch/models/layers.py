@@ -9,8 +9,9 @@ projections in plain ``jnp`` outside any Pallas kernel; so does the port,
 with ``torch.einsum``. The dtypes follow the reference: projections in the
 parameters' dtype (bf16 by default), attention logits, softmax and norms
 in f32, the LM head's product rounded to the parameters' dtype and then
-widened to f32. Decode attention and its caches come with serving
-(ROADMAP A13). :func:`causal_conv1d` is the xLSTM and Mamba mixers'
+widened to f32. :func:`decode_attention_block` is the one-token decode
+over a bf16 KV cache (:func:`init_attn_cache`), linear or a ring of
+``window`` slots. :func:`causal_conv1d` is the xLSTM and Mamba mixers'
 depthwise convolution.
 """
 
@@ -21,6 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.aggregation import recip32
 from .config import ModelConfig
 from .spec import LeafSpec
 
@@ -32,6 +34,8 @@ __all__ = [
     "attn_specs",
     "chunked_attention",
     "attention_block",
+    "init_attn_cache",
+    "decode_attention_block",
     "ffn_specs",
     "ffn_block",
     "embed_specs",
@@ -178,6 +182,49 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch
     q, k, v = _qkv(p, x, cfg, positions)
     out = chunked_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+# -- decode ------------------------------------------------------------------
+
+def init_attn_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> dict:
+    shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
+def decode_attention_block(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig, pos: int,
+                           window: int) -> tuple[torch.Tensor, dict]:
+    """One-token decode. x: (B, 1, d); ``pos`` the token's position.
+    ``window > 0``: a ring-buffer cache of that size (slot ``pos % window``);
+    otherwise a linear cache of full length. The new key and value are
+    written into ``cache`` in place, which is returned.
+
+    Like the reference, only ``window`` bounds the keys: ``cfg.sliding_window``
+    is not read here (ROADMAP C). The logits are scaled by the f32
+    reciprocal of ``sqrt(hd)``, as XLA rewrites the reference's division by
+    the constant under ``jit``.
+    """
+    B = x.shape[0]
+    cache_len = cache["k"].shape[1]
+    slot = pos % window if window > 0 else pos
+    if not 0 <= slot < cache_len:
+        raise ValueError(f"position {pos} is past the cache's {cache_len} slots")
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    q, k, v = _qkv(p, x, cfg, positions)  # (B,1,H,hd), (B,1,KV,hd)
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    qg = q.reshape(B, KV, cfg.n_heads // KV, hd).float()
+    logits = torch.einsum("bkgh,bskh->bkgs", qg, cache["k"].float()) * recip32(math.sqrt(hd))
+    idx = torch.arange(cache_len, device=x.device)
+    # ring buffer: every slot valid once the window has wrapped
+    valid = idx <= pos if window <= 0 else idx < min(pos + 1, cache_len)
+    logits = logits + torch.where(valid, 0.0, NEG_INF)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    w = e / e.sum(-1, keepdim=True)  # jax.nn.softmax
+    out = torch.einsum("bkgs,bskh->bkgh", w, cache["v"].float())
+    out = out.reshape(B, 1, cfg.n_heads, hd).to(x.dtype)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Model assembly: spec tree, backbone, loss and prefill logits.
+"""Model assembly: spec tree, backbone, loss, prefill logits and decode.
 
 Counterpart of ``repro/models/model.py``. A model is ``reps`` repetitions
 of a pattern unit; the parameters of each pattern position are stacked
@@ -11,9 +11,12 @@ frontend (``hubert-xlarge``: the mask token on the masked frames, a
 classifier, the loss over the masked frames) and the vision frontend
 (``pixtral-12b``: projected patches before the token embeddings). Both
 frontends are the reference's stubs: the batch carries the frame or patch
-embeddings. The reference's remat and indexed-parameter context managers
-are mesh memory levers and come with ROADMAP A14; decode (``serve_step``
-and the caches) with A13.
+embeddings. :func:`serve_step` decodes one token over the caches of
+:func:`init_cache`, one entry a pattern position with its leaves stacked
+over ``reps`` as the reference's; the steps update the caches in place.
+The reference's remat and indexed-parameter context managers and
+``cache_logical`` are mesh levers and sharding metadata and come with
+ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from . import layers, moe, ssm, xlstm
 from .config import ModelConfig
 from .spec import LeafSpec, stack_specs
 
-__all__ = ["build_specs", "backbone", "train_loss", "prefill"]
+__all__ = ["build_specs", "backbone", "train_loss", "prefill", "init_cache", "serve_step"]
 
 Params = Any
 
@@ -152,3 +155,61 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     if cfg.encoder_only:
         return _classifier_logits(params, x)
     return layers.lm_logits(params["embed"], x)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> list:
+    """The decode cache: one entry a pattern position, its leaves stacked
+    ``(reps, ...)``. ``cache_len`` is the KV-cache length of attention
+    positions (the ring's size when the sliding variant is active); the
+    recurrent mixers carry O(1) state."""
+    caches = []
+    for pos in range(cfg.unit):
+        mix = cfg.mixer_at(pos)
+        if mix == "attn":
+            c = layers.init_attn_cache(cfg, batch, cache_len, device)
+        elif mix == "mamba":
+            c = ssm.init_mamba_cache(cfg, batch, device)
+        elif mix == "mlstm":
+            c = xlstm.init_mlstm_cache(cfg, batch, device)
+        else:
+            c = xlstm.init_slstm_cache(cfg, batch, device)
+        caches.append({k: v.expand((cfg.reps,) + v.shape).clone() for k, v in c.items()})
+    return caches
+
+
+def serve_step(params: Params, cache: list, batch: dict, pos: int, cfg: ModelConfig,
+               window: int = 0) -> tuple[torch.Tensor, list]:
+    """Decode ONE token. batch: ``{"tokens": (B, 1)}``; ``pos`` its position
+    (an int). ``window > 0`` makes the attention caches rings of that many
+    slots. Returns the (B, vocab) f32 logits and ``cache``, updated in
+    place."""
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: it has no decode path")
+    x = layers.embed_tokens(params["embed"], batch["tokens"])
+    for r in range(cfg.reps):
+        for upos, stacked in enumerate(params["blocks"]):
+            mix = cfg.mixer_at(upos)
+            p, c = _index(stacked, r), _index(cache[upos], r)
+            h = layers.apply_norm(p["norm1"], x, cfg.norm_eps)
+            if mix == "attn":
+                h, c_new = layers.decode_attention_block(p["mixer"], h, c, cfg, pos, window)
+            elif mix == "mamba":
+                h, c_new = ssm.mamba_decode_step(p["mixer"], h, c, cfg)
+            elif mix == "mlstm":
+                h, c_new = xlstm.mlstm_decode_step(p["mixer"], h, c, cfg)
+            else:
+                h, c_new = xlstm.slstm_decode_step(p["mixer"], h, c, cfg)
+            for k, v in c_new.items():
+                if v is not c[k]:
+                    c[k].copy_(v)
+            x = x + h
+            f = cfg.ffn_at(upos)
+            if f != "none":
+                h = layers.apply_norm(p["norm2"], x, cfg.norm_eps)
+                x = x + (layers.ffn_block(p["ffn"], h, cfg) if f == "dense" else moe.moe_block(p["ffn"], h, cfg))
+    x = layers.apply_norm(params["final_norm"], x, cfg.norm_eps)
+    return layers.lm_logits(params["embed"], x)[:, 0], cache

@@ -1,4 +1,4 @@
-"""Mamba-1 selective-SSM mixer, prefill side.
+"""Mamba-1 selective-SSM mixer: the chunked prefill and the O(1) decode step.
 
 Counterpart of ``repro/models/ssm.py``. The sequence is cut into chunks: a
 Python loop over chunks (the reference's ``lax.scan``) carries the SSM
@@ -12,8 +12,10 @@ the :func:`ssm_state_dtype` (f32 by default). XLA contracts the
 combine's ``a2 * b1 + b2`` into a fused multiply-add, and so does the
 port (``torch.addcmul``): on the CPU the scan equals the jitted
 reference's bit for bit. SiLU and softplus are XLA's expansions of them, a
-rounding a step, with JAX's derivatives. The decode cache and step come
-with serving (ROADMAP A13).
+rounding a step, with JAX's derivatives. The decode step
+(:func:`mamba_decode_step`) carries the last ``d_conv - 1`` inputs of the
+convolution (bf16) and the SSM state (f32) in its cache
+(:func:`init_mamba_cache`).
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from .config import ModelConfig
 from .layers import causal_conv1d
 from .spec import LeafSpec
 
-__all__ = ["ssm_state_dtype", "mamba_specs", "associative_scan", "mamba_block"]
+__all__ = ["ssm_state_dtype", "mamba_specs", "associative_scan", "mamba_block", "init_mamba_cache",
+           "mamba_decode_step"]
 
 # Dtype of the chunked scan's state tensors (decays, drives, h): f32 by
 # default; bf16 halves their traffic (the decays are in (0, 1]).
@@ -190,3 +193,30 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig, chunk: int = 256) ->
     y = torch.cat(ys, dim=1) + uf * p["d_skip"].float()
     y = y.to(x.dtype) * _silu(z)
     return torch.einsum("bse,ed->bsd", y, p["out_proj"])
+
+
+# -- decode -------------------------------------------------------------------
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
+    d_in, _, ds = _dims(cfg)
+    return {"conv": torch.zeros((batch, cfg.d_conv - 1, d_in), dtype=torch.bfloat16, device=device),
+            "ssm": torch.zeros((batch, d_in, ds), dtype=torch.float32, device=device)}
+
+
+def mamba_decode_step(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """x: (B, 1, d); O(1) state update. Returns the output and a new cache.
+    The state update ``adt * h + drive`` is one fused multiply-add, as XLA
+    contracts it."""
+    u, z = _ssm_inputs(p, x, cfg)  # (B, 1, d_in)
+    conv_in = torch.cat([cache["conv"].to(u.dtype), u], dim=1)
+    u1 = _silu(causal_conv1d(conv_in, p["conv_w"], p["conv_b"])[:, -1:, :])
+    dt, bc, cc, a = _ssm_params(p, u1, cfg)
+    dt0 = dt[:, 0, :, None]
+    adt = torch.exp(dt0 * a)  # (B, d_in, ds)
+    drive = dt0 * u1.float()[:, 0, :, None] * bc[:, 0, None, :]
+    h = torch.addcmul(drive, adt, cache["ssm"])
+    y = torch.einsum("bds,bs->bd", h, cc[:, 0])[:, None, :]
+    y = y + u1.float() * p["d_skip"].float()
+    y = y.to(x.dtype) * _silu(z)
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    return out, {"conv": conv_in[:, 1:, :].to(torch.bfloat16), "ssm": h}

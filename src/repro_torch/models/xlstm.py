@@ -1,7 +1,7 @@
 """xLSTM mixers [arXiv:2405.04517]: mLSTM (matrix memory, chunked-parallel)
 and sLSTM (scalar memory, strictly sequential exponential gating).
 
-Counterpart of ``repro/models/xlstm.py``, prefill side. The mLSTM cell
+Counterpart of ``repro/models/xlstm.py``. The mLSTM cell
 runs in chunkwise-parallel form: within a chunk every timestep is computed
 with dense einsums, and a Python loop over chunks (the reference's
 ``lax.scan``) carries the stabilized matrix state (C_hat, n_hat, m). The
@@ -10,8 +10,11 @@ time where the reference scans. Both keep the reference's dtypes: the
 projections in the parameters' dtype, the cells in f32 (a bf16 operand
 of an f32 product is widened first, as JAX promotes it; ``torch.einsum``
 refuses mixed dtypes). Maxima are ``amax`` and ``torch.cummax``, whose
-gradients go to the maxima as JAX's do. The decode caches and steps come
-with serving (ROADMAP A13).
+gradients go to the maxima as JAX's do. Each mixer has an O(1) decode
+step over its cache: the mLSTM's matrix state, normalizer, stabilizer and
+the convolution's last inputs (bf16); the sLSTM's four (B, H, hd) f32
+states. Both caches start the stabilizer at ``M_INIT``: the first step's
+decay ``exp(M_INIT + ...)`` is 0, not a NaN.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from .config import ModelConfig
 from .layers import causal_conv1d
 from .spec import LeafSpec
 
-__all__ = ["mlstm_specs", "mlstm_block", "slstm_specs", "slstm_block"]
+__all__ = ["mlstm_specs", "mlstm_block", "init_mlstm_cache", "mlstm_decode_step", "slstm_specs", "slstm_block",
+           "init_slstm_cache", "slstm_decode_step"]
 
 # The stabilizer's start: exp of anything offset by it underflows to 0.
 M_INIT = -1e30
@@ -140,6 +144,44 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, chunk: int = 256) ->
     return torch.einsum("bse,ed->bsd", hseq * F.silu(g), p["w_down"])
 
 
+def init_mlstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
+    dup, hd = _mlstm_dims(cfg)
+    h = cfg.n_heads
+    return {
+        "c": torch.zeros((batch, h, hd, hd), dtype=torch.float32, device=device),
+        "n": torch.zeros((batch, h, hd), dtype=torch.float32, device=device),
+        "m": torch.full((batch, h), M_INIT, dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.d_conv - 1, dup), dtype=torch.bfloat16, device=device),
+    }
+
+
+def mlstm_decode_step(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """x: (B, 1, d); the sequential mLSTM cell. Returns the output and a new
+    cache."""
+    b = x.shape[0]
+    dup, hd = _mlstm_dims(cfg)
+    h = cfg.n_heads
+    ug = torch.einsum("bsd,de->bse", x, p["w_up"])
+    u, g = ug[..., :dup], ug[..., dup:]
+    conv_in = torch.cat([cache["conv"].to(u.dtype), u], dim=1)
+    u1 = F.silu(causal_conv1d(conv_in, p["conv_w"], p["conv_b"])[:, -1:, :])
+    q = torch.einsum("bse,ef->bsf", u1, p["wq"]).reshape(b, h, hd).float()
+    k = (torch.einsum("bse,ef->bsf", u1, p["wk"]).reshape(b, h, hd) * hd**-0.5).float()
+    v = torch.einsum("bse,ef->bsf", u1, p["wv"]).reshape(b, h, hd).float()
+    li = (torch.einsum("be,eh->bh", u1[:, 0], p["wi"]) + p["bi"]).float()
+    lf = F.logsigmoid((torch.einsum("be,eh->bh", u1[:, 0], p["wf"]) + p["bf"]).float())
+    m_new = torch.maximum(cache["m"] + lf, li)
+    decay = torch.exp(cache["m"] + lf - m_new)
+    inj = torch.exp(li - m_new)
+    c_new = decay[..., None, None] * cache["c"] + inj[..., None, None] * (k[..., :, None] * v[..., None, :])
+    n_new = decay[..., None] * cache["n"] + inj[..., None] * k
+    y = torch.einsum("bhk,bhkv->bhv", q, c_new)
+    denom = torch.maximum(torch.einsum("bhk,bhk->bh", q, n_new).abs(), torch.exp(-m_new))
+    hvec = (y / denom[..., None]).reshape(b, 1, dup).to(x.dtype)
+    out = torch.einsum("bse,ed->bsd", hvec * F.silu(g), p["w_down"])
+    return out, {"c": c_new, "n": n_new, "m": m_new, "conv": conv_in[:, 1:, :].to(torch.bfloat16)}
+
+
 # ---------------------------------------------------------------------------
 # sLSTM
 # ---------------------------------------------------------------------------
@@ -189,3 +231,23 @@ def slstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         hs.append(h_t)
     hseq = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
     return torch.einsum("bsd,de->bse", hseq, p["out_proj"])
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
+    shape = (batch, cfg.n_heads, cfg.d_model // cfg.n_heads)
+    return {"c": torch.zeros(shape, dtype=torch.float32, device=device),
+            "n": torch.zeros(shape, dtype=torch.float32, device=device),
+            "m": torch.full(shape, M_INIT, dtype=torch.float32, device=device),
+            "h": torch.zeros(shape, dtype=torch.float32, device=device)}
+
+
+def slstm_decode_step(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """x: (B, 1, d); one step of :func:`_slstm_cell`. Returns the output
+    and a new cache."""
+    b, _, d = x.shape
+    h = cfg.n_heads
+    gates = (torch.einsum("bsd,dg->bsg", x, p["w_in"]) + p["b_in"]).reshape(b, 4, h, d // h)
+    carry = (cache["c"], cache["n"], cache["m"], cache["h"])
+    (c, n, m, hh), h_new = _slstm_cell(carry, gates, p["r"].float(), torch.tensor(1e-6, device=x.device))
+    out = torch.einsum("bsd,de->bse", h_new.reshape(b, 1, d).to(x.dtype), p["out_proj"])
+    return out, {"c": c, "n": n, "m": m, "h": hh}

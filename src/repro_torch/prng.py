@@ -20,7 +20,12 @@ Mapping to ``jax.random`` (jax 0.9, partitionable threefry):
   the (hi, lo) words of each element's flat index; a 16-bit draw is its low
   16 bits (``convert_element_type`` of the same word)
 * ``uniform(k, shape)`` == f32 ``uniform``: ``((bits >> 9) | 0x3F800000)``
-  viewed as f32, minus 1
+  viewed as f32, minus 1; with ``minval``, scaled and shifted as
+  ``max(minval, u * (1 - minval) + minval)``
+* ``gumbel(k, shape)`` == f32 ``gumbel`` (its default "low" mode):
+  ``-log(-log(u))``, ``u`` uniform on ``[tiny, 1)``, with XLA's CPU log
+* ``categorical(k, logits)`` == ``categorical`` over the last axis:
+  ``argmax(gumbel + logits)``
 * ``randint``          == ``jax/_src/random.py: _randint`` for int32
 * ``normal(k, shape)``  == f32 ``normal``: ``sqrt(2) * erf_inv(u)`` with
   ``u`` uniform on ``[nextafter(-1, 0), 1)`` and ``erf_inv`` the f32
@@ -38,7 +43,8 @@ import struct
 import torch
 
 __all__ = [
-    "key", "fold_in", "split", "bits", "uniform", "randint", "normal", "permutation", "choice",
+    "key", "fold_in", "split", "bits", "uniform", "randint", "normal", "gumbel", "categorical", "permutation",
+    "choice",
     "threefry2x32",
 ]
 
@@ -104,11 +110,19 @@ def bits(k: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
     return (x0 ^ x1).reshape(batch + shape)
 
 
-def uniform(k: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
-    """f32 uniforms in ``[0, 1)``, bit-exact with ``jax.random.uniform``
-    (``offset`` as in :func:`bits`)."""
+def uniform(k: torch.Tensor, shape, offset: int = 0, minval: float = 0.0) -> torch.Tensor:
+    """f32 uniforms in ``[minval, 1)``, bit-exact with
+    ``jax.random.uniform`` (``offset`` as in :func:`bits`). With a
+    ``minval`` the draw is ``max(minval, u * (1 - minval) + minval)`` in f32
+    with the multiply-add fused, as XLA compiles ``jax.random.uniform``
+    (always jitted)."""
     mant = (bits(k, shape, offset) >> 9) | 0x3F800000
-    return mant.to(torch.int32).view(torch.float32) - 1.0
+    u = mant.to(torch.int32).view(torch.float32) - 1.0
+    if minval == 0.0:
+        return u
+    lo = _r32(minval)
+    span = float(torch.tensor(1.0) - torch.tensor(lo, dtype=torch.float32))
+    return torch.clamp_min(_fma(span, u, lo), lo)
 
 
 def randint(k: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
@@ -232,6 +246,22 @@ def normal(k: torch.Tensor, shape, scale: float = 1.0, offset: int = 0) -> torch
     this. Batched keys and ``offset`` as in :func:`uniform`."""
     u = torch.clamp(uniform(k, shape, offset) * 2.0 + _LO, min=_LO)
     return _erf_inv(u) * _r32(_SQRT2 * _r32(scale))
+
+
+def gumbel(k: torch.Tensor, shape) -> torch.Tensor:
+    """f32 standard Gumbel draws, bit-exact with ``jax.random.gumbel``
+    (``mode="low"``, its default): ``-log(-log(u))`` with ``u`` uniform on
+    ``[tiny, 1)`` and both logs XLA's CPU log (:func:`_log`), so the draws
+    are the same on the card."""
+    u = uniform(k, shape, minval=torch.finfo(torch.float32).tiny)
+    return -_log(-_log(u))
+
+
+def categorical(k: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(k, logits)`` over the last axis of f32
+    ``logits``: ``argmax(gumbel + logits)``, ties to the first index as
+    ``jnp.argmax`` breaks them."""
+    return torch.argmax(gumbel(k, logits.shape) + logits, dim=-1)
 
 
 def permutation(k: torch.Tensor, n: int) -> torch.Tensor:

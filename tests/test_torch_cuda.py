@@ -785,3 +785,66 @@ def test_lm_round_refuses_a_cohort_whose_rows_exceed_free_memory(dev):
     batch = {"x": torch.zeros(1, 1, 1, 1, 2, device=dev).expand(m, 1, 1, 1, 2)}
     with pytest.raises(MemoryError, match="wire rows"):
         step(params, torch.tensor(0.01, device=dev), batch, prng.key(1, dev))
+
+
+def _serve_models(arch):
+    """The reduced ``arch`` in f32 on the CPU (the port's init) and its copy
+    on the card."""
+    from repro_torch import configs, tree
+    from repro_torch.models import build_specs, init_params
+
+    cfg = configs.reduced(configs.get_config(arch))
+    cpu = tree.tree_map(lambda w: w.float(), init_params(build_specs(cfg), prng.key(0)))
+    return cfg, cpu, tree.tree_map(lambda w: w.cuda(), cpu)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen3-moe-30b-a3b", "jamba-1.5-large-398b", "xlstm-350m"])
+def test_serve_step_on_card_equals_cpu_run(dev, f32_convolutions, arch):
+    """serve_step over 8 positions on the card against the same steps on the
+    CPU, f32 parameters, each carrying its own caches: logits within 5e-3
+    absolute (the bf16 KV cache turns an f32 ulp into a bf16 step now and
+    then, as against the reference; tests/test_torch_decode.py), the
+    recurrent f32 states within 1e-4 of their largest entries and the bf16
+    leaves within one bf16 step. The serving path launches no kernel."""
+    from repro_torch import tree
+    from repro_torch.models import init_cache, serve_step
+
+    cfg, cpu, card = _serve_models(arch)
+    toks = prng.randint(prng.key(5), (2, 8), 0, cfg.vocab)
+    c_cpu, c_card = init_cache(cfg, 2, 8), init_cache(cfg, 2, 8, dev)
+    _build.reset_launches()
+    for t in range(8):
+        want, c_cpu = serve_step(cpu, c_cpu, {"tokens": toks[:, t : t + 1]}, t, cfg)
+        got, c_card = serve_step(card, c_card, {"tokens": toks[:, t : t + 1].to(dev)}, t, cfg)
+        assert got.device.type == "cuda" and torch.isfinite(got).all()
+        assert (got.cpu() - want).abs().max() <= 5e-3
+    assert not any(_build.launches.values())
+    for w, g in zip(tree.leaves(c_cpu), tree.leaves(c_card)):
+        assert g.dtype == w.dtype and g.device.type == "cuda"
+        rel = ((g.cpu().float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30)).item()
+        assert rel <= (2.0**-7 if w.dtype == torch.bfloat16 else 1e-4)
+
+
+def test_serve_engine_on_card_equals_cpu_engine(dev, f32_convolutions):
+    """The engine on the card gives the CPU engine's greedy tokens and its
+    T = 0.8 sampled tokens (the gumbel draws are the same bits on both),
+    3 prompts over a batch of 2, f32 reduced qwen2; argmax ties go to the
+    first index on the card as on the CPU."""
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg, cpu, card = _serve_models("qwen2-1.5b")
+    prompts = [[1, 2, 3], [4, 5], [6, 7, 8, 9]]
+    for temperature in (0.0, 0.8):
+        sc = ServeConfig(batch_size=2, max_len=32, max_new_tokens=5, temperature=temperature)
+        want = ServingEngine(cfg, cpu, sc).generate(prompts, seed=0)
+        eng = ServingEngine(cfg, card, sc)
+        assert eng.generate(prompts, seed=0) == want
+        assert eng.generate(prompts, seed=0) == want
+    ties = torch.zeros(3, cfg.vocab, device=dev)
+    ties[0, [cfg.vocab - 1, 17, 300]] = 1.0
+    ties[1, :] = -2.0
+    ties[2, [5, 4]] = 3.0
+    assert torch.argmax(ties, dim=-1).tolist() == [17, 0, 4]
+    g = torch.Generator().manual_seed(0)
+    wide = torch.randint(0, 4, (8, 151_936), generator=g).float()
+    assert torch.equal(torch.argmax(wide.to(dev), dim=-1).cpu(), torch.argmax(wide, dim=-1))
