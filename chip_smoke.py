@@ -137,9 +137,11 @@ Phases (any failure raises and exits non-zero before the result line):
    steps, with the same clients and local steps: (r) Qwen3-30B-A3B at its
    published widths (d_model 2,048, 128 experts, top-8, expert width 768,
    vocab 151,936) cut to 4 of its 48 layers (13 leaves, d =
-   3,114,813,440; B1 104, B3 26), and (s) xLSTM-350M whole (24 layers,
-   92 leaves, d = 518,855,848) at 512 tokens a sequence, so the mLSTM
-   carries its state across two chunks of 256 (B1 736, B3 184). Then the
+   3,114,813,440; B1 104, B3 26), and (s) xLSTM-350M at its published
+   widths cut to 8 of its 24 layers, one 7:1 pattern of mLSTM and sLSTM
+   blocks (92 leaves, d = 241,634,360; whole until phase 11 took the time)
+   at 512 tokens a sequence, so the mLSTM carries its state across two
+   chunks of 256 (B1 736, B3 184). Then the
    Mamba hybrid and the frontends (ROADMAP A12c, A12e), the same way: (t)
    HuBERT-XLarge whole (48 layers, non-causal, layernorm, tanh-GELU, the
    encoder-only head; 15 leaves, d = 945,258,240) on the trainer's stub of
@@ -158,8 +160,8 @@ Phases (any failure raises and exits non-zero before the result line):
    ``kernels_at_lm_moe_leaf``; ``at_lm_leaf`` and ``at_lm_moe_leaf`` in
    their rows);
 10. serve (ROADMAP A13, the ``"phase": "serve"`` lines): the final
-   parameters of phase 9's (p) qwen2-1.5b (whole), (s) xLSTM-350M (whole)
-   and (v) Jamba-1.5-Large (2 layers) runs, each served through
+   parameters of phase 9's (p) qwen2-1.5b (whole), (s) xLSTM-350M (8
+   layers) and (v) Jamba-1.5-Large (2 layers) runs, each served through
    ``repro_torch.serving.ServingEngine`` right after its run, before the
    next one starts (no model is made again, no peak rises above phase
    9's): a static batch of 8, a cache of 512, 32 new tokens, greedy;
@@ -179,6 +181,26 @@ Phases (any failure raises and exits non-zero before the result line):
    its top), decode logits within SERVE_BARS of prefill's at every position and (attention)
    a ring of 64 slots equal to the full cache within them while the
    history fits it, finite after;
+11. mesh (ROADMAP A14a, after phase 10; the ``"phase": "mesh"`` line): the
+   client axis over MESH_RANKS gloo ranks that share the card, started
+   here with ``torch.multiprocessing`` (spawn) and a ``FileStore`` in a
+   temporary directory, each with this script's deterministic settings,
+   and stopped at MESH_TIMEOUT_S: (w) ``stream_shard`` of the main path's
+   cohort in chunks of 25, 2 rounds; (x) ``tree_shard`` of it as 4 edges of
+   25; (y) ``run_campaign(shard=True)`` of phase 7's cohort group, 4 runs a
+   rank; (z) qwen2-1.5b at its published widths cut to 2 layers, its 4
+   clients as 2 scan steps of 2 pods on a ("pod",) mesh, one round. Each is
+   held to the same configuration in this process: (w) theta_hat, loss and
+   b bit for bit, theta_mse within rtol 1e-6; (x) every metric bit for bit;
+   (y) every run to phase 7's (b exact, loss rtol 1e-6, accuracy 1e-6; the
+   runs equal bit for bit counted); (z) parameters, b and losses bit for
+   bit, and the one-process step held to the (4, 1) layout of the same
+   clients (parameters and b bit for bit, losses rtol 1e-6). Every sharded
+   run must report MESH_RANKS ranks and each rank its own expected launches
+   (B1, B4; B3 in (y) and (z)); the line gives each run's round seconds,
+   collectives (calls, bytes, host ms), each rank's peak and the spawn and
+   set-up seconds. Two ranks on one card measure the protocol's host and
+   collective cost, not a speed-up;
 6. with ``--profile`` only: (a) on the MLP and on ``resnet18w64-m100``:
    the device busy share as nvidia-smi reads it over unprofiled rounds and
    as the union of the kernels' records of one round under
@@ -312,7 +334,10 @@ LM_Q = {"clients": 4, "client_chunk": 2, "rounds": 2}
 # Qwen3-30B-A3B whole is 30,532,110,336 parameters (61.1 GB in bf16); the
 # round holds the parameters, a local copy, the next copy and the
 # gradients, so it is cut to 4 of its 48 layers at its published widths.
-# xLSTM-350M runs whole, at 512 tokens a sequence: two mLSTM chunks of 256.
+# xLSTM-350M keeps 8 of its 24 layers, one whole 7:1 pattern (7 mLSTM, 1
+# sLSTM), at 512 tokens a sequence: two mLSTM chunks of 256. It ran whole
+# until phase 11 (the mesh) pushed the script past the 1,000 s ceiling: its
+# sLSTM loop over time is the slowest per parameter of phase 9.
 # (t), (u) and (v): the frontends and the Mamba hybrid (ROADMAP A12e,
 # A12c). HuBERT-XLarge runs whole on the trainer's stub frames. Pixtral-12B
 # (12.27e9 parameters whole) keeps 2 of its 40 layers and its 1,024 stub
@@ -324,7 +349,8 @@ LM_Q = {"clients": 4, "client_chunk": 2, "rounds": 2}
 LM_FAMILIES = {
     "r": ("qwen3-moe-30b-a3b-l4-m4", "qwen3-moe-30b-a3b", {"n_layers": 4}, ["--rounds", "2"],
           {"d": 3_114_813_440, "leaves": 13}),
-    "s": ("xlstm-350m-m4", "xlstm-350m", {}, ["--rounds", "2", "--seq", "512"], {"d": 518_855_848, "leaves": 92}),
+    "s": ("xlstm-350m-l8-m4", "xlstm-350m", {"n_layers": 8}, ["--rounds", "2", "--seq", "512"],
+          {"d": 241_634_360, "leaves": 92}),
     "t": ("hubert-xlarge-m4", "hubert-xlarge", {}, ["--rounds", "2"], {"d": 945_258_240, "leaves": 15}),
     "u": ("pixtral-12b-l2-m4", "pixtral-12b", {"n_layers": 2}, ["--rounds", "1", "--seq", "1024"],
           {"d": 1_913_676_800, "leaves": 13}),
@@ -357,6 +383,23 @@ SERVE_BARS = {"dense": (0.1, 0.004), "mamba": (0.4, 0.006)}
 # (the round's 4 rows): qwen2-1.5b's blocks[0].ffn.w1 (28 x 1,536 x 8,960)
 # and (r)'s blocks[0].ffn.w1 (4 x 128 x 2,048 x 768).
 LM_LEAVES = {"at_lm_leaf": 28 * 1_536 * 8_960, "at_lm_moe_leaf": 4 * 128 * 2_048 * 768}
+# Phase 11: the client axis over a mesh of gloo ranks (ROADMAP A14a). The
+# machine has one card and NCCL refuses two ranks on one device, so
+# MESH_RANKS gloo ranks share cuda:0 (gloo crosses CUDA tensors through host
+# copies): they measure the protocol's collectives and host cost, not a
+# speed-up. (w) the main path's cohort streamed in chunks of 25, 50
+# stateless clients a rank; (x) the same cohort as a sum tree of 4 edges of
+# 25, 2 a rank; (y) phase 7's cohort group ((a) with seeds 0-7, 3 rounds),
+# 4 runs a rank; (z) qwen2-1.5b at its published widths cut to 2 of its 28
+# layers, its 4 clients as 2 scan steps of 2 pods, one pod a rank, 1 round.
+MESH_RANKS = 2
+MESH_FL = {
+    "w": {"client_chunk": 25, "stateless_clients": True, "rounds": 2, "stream_shard": True},
+    "x": {"tree_edges": 4, "client_chunk": 25, "stateless_clients": True, "rounds": 2, "tree_shard": True},
+}
+MESH_LM_CUT = {"n_layers": 2}
+MESH_LM_LAYOUTS = {"pods": (2, 2), "one_pod": (4, 1)}  # (m_seq, n_pods) of the 4 clients
+MESH_TIMEOUT_S = 300
 
 
 def require(cond, msg: str) -> None:
@@ -1277,14 +1320,16 @@ def sequential_run(dev, cfg) -> dict:
     return {"rounds": recs, "final": sim.w_global}
 
 
-def campaign_phase(dev, name: str, spec) -> dict:
+def campaign_phase(dev, name: str, spec, keep: bool = False) -> dict:
     """Phase 7, one grid: its plan; run_campaign through the kernels, its
     launches zeroed just before and read just after; each group's prepared
     runner again, with its own launch counts, equal to the campaign's
     trajectories and to its engine="ref" rerun exactly; every cell and seed
     against its sequential FLSimulation run (b exact, loss within rtol
     1e-6, accuracy within 1e-6), counting the runs equal bit for bit in the
-    final model and every loss."""
+    final model and every loss. With ``keep`` the result also holds the
+    campaign's result and each group's final models (phase 11 holds its
+    sharded campaign to them)."""
     import dataclasses
 
     import numpy as np
@@ -1306,7 +1351,7 @@ def campaign_phase(dev, name: str, spec) -> dict:
     launches = {k: _build.launches[k] for k in KERNELS}
     require(set(_build.launches) <= set(KERNELS), f"campaign {name}: unknown kernel {dict(_build.launches)}")
     peak = torch.cuda.max_memory_allocated(dev)
-    groups, seq_s, exact, n_runs = [], 0.0, 0, 0
+    groups, finals, seq_s, exact, n_runs = [], [], 0.0, 0, 0
     for group, stats in zip(plan.groups, result.groups):
         names = [spec.cells[i].name for i in group.cell_idx]
         require(stats["cells"] == names, f"campaign {name}: group order {stats['cells']} != {names}")
@@ -1339,6 +1384,7 @@ def campaign_phase(dev, name: str, spec) -> dict:
                 n_runs += 1
                 exact += int(torch.equal(run["final"][e], seq["final"])
                              and np.array_equal(cell.metrics["loss"][s], loss.astype(np.float32)))
+        finals.append(run["final"].cpu())
         groups.append({"cells": names, "fused": stats["fused"], "m_pad": stats["m_pad"], "n_elems": stats["n_elems"],
                        "wall_s": stats["wall_s"], "compile_s": stats["compile_s"],
                        "cells_per_sec": stats["cells_per_sec"], "launches": got,
@@ -1351,7 +1397,7 @@ def campaign_phase(dev, name: str, spec) -> dict:
            "bit_exact_runs_final_model_and_loss": exact, "groups": groups,
            "final_acc": {c.name: c.final("acc")[0] for c in result.cells}}
     print(json.dumps(out), flush=True)
-    return {"launches": launches, "stats": out}
+    return {"launches": launches, "stats": out, **({"result": result, "finals": finals} if keep else {})}
 
 
 def cohort_phase(dev, spec, main_a: dict) -> dict:
@@ -1410,7 +1456,7 @@ def cohort_phase(dev, spec, main_a: dict) -> dict:
     smi_seq = smi_busy_share(seq_rounds)
     del runner, state, sim
     torch.cuda.empty_cache()
-    checked = campaign_phase(dev, "cohort", spec)
+    checked = campaign_phase(dev, "cohort", spec, keep=True)
     out = {"phase": "campaign_cohort", "E": len(spec.seeds), "M": MAIN["n_clients"], "d": 118_282,
            "rows": len(spec.seeds) * MAIN["n_clients"], "plane_mb": len(spec.seeds) * MAIN["n_clients"] * 118_282 * 4 / 1e6,
            "round_seconds": round_s, "steady_round_s": steady, "peak_gb": peak / 1e9,
@@ -1870,7 +1916,8 @@ def kernel_rows(runs: dict, chk: Checker, at_main: dict, at_resnet: dict, at_gro
     path's cohort beside them, B1 at the top-k wire's shape, and B1 and B3
     at the largest leaves of qwen2-1.5b and of the MoE (``at_lm``, by
     LM_LEAVES' keys); ``launches`` is the sum over every run of phases 4,
-    4b, 4c, 4d, 7, 8 and 9 of each one's own count, by run beside it."""
+    4b, 4c, 4d, 7, 8, 9 and 11 (each rank's) of each one's own count, by
+    run beside it."""
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rows.append({
@@ -2707,6 +2754,301 @@ def copy_bandwidth_gbs(dev) -> float:
     return 2 * 4 * n / (ms * 1e-3) / 1e9
 
 
+def mesh_fl_run(dev, extra: dict) -> dict:
+    """Phase 11, (w) or (x): one FLSimulation of the main path's model and
+    cohort with ``extra``: each round's loss, b, theta_mse, theta_hat (on
+    the host), edge_mass_min (a tree) and seconds (host clock after a
+    synchronize), the launches, the collectives, the ranks the round spread
+    over, the clients whose data this process holds, its peak memory and the
+    final model. Without a process group (the one-process run) the round
+    warns that sharding is a no-op and runs unsharded."""
+    import warnings
+
+    import torch
+
+    from repro_torch import distributed
+    from repro_torch.fl.hierarchy import tree_shard_devices
+    from repro_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    distributed.reset_collectives()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        sim = make_sim(dev, extra)
+    recs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _, met in sim.iter_rounds():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        recs.append({"seconds": t1 - t0, "theta": met["theta"].cpu(),
+                     **{k: met[k].item() for k in ("loss", "b", "theta_mse", "edge_mass_min") if k in met}})
+        t0 = t1
+    require(set(_build.launches) <= set(KERNELS), f"mesh: unknown kernel {dict(_build.launches)}")
+    return {"rounds": recs, "launches": {k: _build.launches[k] for k in KERNELS},
+            "ranks": distributed.group_size(sim.ctx.group), "tree_ranks": tree_shard_devices(sim.ctx),
+            "client_rows": sim.ctx.client_x.shape[0], "collectives": dict(distributed.collectives),
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "final": sim.w_global.cpu()}
+
+
+def mesh_campaign_run(dev) -> dict:
+    """Phase 11, (y), on a rank: phase 7's cohort campaign with
+    ``shard=True`` (launches, collectives and peak of this rank, the
+    gathered metrics of every cell, the group records), then this rank's
+    block of the group's runs through the prepared runner again, for their
+    final models."""
+    import torch
+
+    from repro_torch import distributed
+    from repro_torch.kernels import _build
+    from repro_torch.sim import campaign, plan_campaign, run_campaign
+    from repro_torch.sim.plan import CompileCache
+
+    spec = campaign_specs()["cohort"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    distributed.reset_collectives()
+    t0 = time.perf_counter()
+    result = run_campaign(spec, campaign_task(dev), shard=True, compile_cache=CompileCache())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: _build.launches[k] for k in KERNELS}
+    collectives = dict(distributed.collectives)
+    (group,) = plan_campaign(spec, shard=True).groups
+    prepare, args, *_ = campaign._prepare_group(group, spec.configs(), spec, campaign_task(dev), with_acc=True,
+                                                shard=True, cache=CompileCache())
+    _, finals = prepare(*args).run()
+    return {"cells": {c.name: {k: v.tolist() for k, v in c.metrics.items()} for c in result.cells},
+            "groups": result.groups, "finals": finals.cpu(), "wall_s": wall, "launches": launches,
+            "collectives": collectives, "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def mesh_lm_run(dev, layouts: dict, mesh: bool) -> dict:
+    """Phase 11, (z): the trainer's set-up of qwen2-1.5b cut by MESH_LM_CUT,
+    then one step of its 4 clients' first round in each ``(m_seq, n_pods)``
+    layout from the same parameters, on a ("pod",) mesh of every rank when
+    ``mesh``: each step's losses, b, seconds, peak, launches, collectives
+    and a digest of every new parameter leaf's bytes."""
+    import contextlib
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    from repro_torch import configs, distributed, prng, tree
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+
+    args = train.parse_args(["--arch", LM_ARCH, *LM_COMMON, "--rounds", "1", "--device", str(dev)])
+    run = train.setup(args, dataclasses.replace(configs.get_config(LM_ARCH), **MESH_LM_CUT))
+    first = train.round_batch(run, args, 0)
+    _, kr = prng.split(prng.key(1, dev), 2)
+    b = torch.tensor(args.b_init, dtype=torch.float32, device=dev)
+    pod_mesh = make_mesh((layouts["pods"][1],), ("pod",), dev.type) if mesh else None
+    out = {"d": sum(w.numel() for w in tree.leaves(run.params)), "leaves": len(tree.leaves(run.params))}
+    for name, (m_seq, n_pods) in layouts.items():
+        batch = {k: v.reshape((m_seq, n_pods) + v.shape[2:]) for k, v in first.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        distributed.reset_collectives()
+        t0 = time.perf_counter()
+        with distributed.set_mesh(pod_mesh) if mesh else contextlib.nullcontext():
+            new, b_new, met = run.step(run.params, b, batch, kr)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        out[name] = {"seconds": sec, "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                     "loss_first": met["loss_first"].item(), "loss_last": met["loss_last"].item(),
+                     "b": b_new.item(), "launches": {k: _build.launches[k] for k in KERNELS},
+                     "collectives": dict(distributed.collectives),
+                     "digests": [hashlib.sha256(w.contiguous().view(-1).view(torch.uint8).cpu().numpy()).hexdigest()
+                                 for w in tree.leaves(new)]}
+        del new
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_expected_launches(n_leaves: int) -> dict:
+    """Each rank's launches in phase 11: (w) and (x) one B1 a chunk of its
+    50 clients and one B4 a local step of each, every round; (y) its 4 runs
+    as one group, one B1 and one B3 a round and one B4 a local step; (z)
+    one B1 a (client, leaf) of its pod's 2 clients and one B3 a leaf over
+    the gathered rows of all 4."""
+    steps = MAIN["local_epochs"] * MAIN["per_client"] // MAIN["batch_size"]
+    chunks = MAIN["n_clients"] // MESH_RANKS // MESH_FL["w"]["client_chunk"]
+    fl = {"stoch_quant_pack": MESH_FL["w"]["rounds"] * chunks, "stoch_quant_ef": 0, "bit_aggregate": 0,
+          "prox_sgd": MESH_FL["w"]["rounds"] * chunks * steps}
+    clients = MESH_LM_LAYOUTS["pods"][0]
+    return {"w": fl, "x": fl,
+            "y": {"stoch_quant_pack": MAIN["rounds"], "stoch_quant_ef": 0, "bit_aggregate": MAIN["rounds"],
+                  "prox_sgd": MAIN["rounds"] * steps},
+            "z": {"stoch_quant_pack": clients * n_leaves, "stoch_quant_ef": 0, "bit_aggregate": n_leaves,
+                  "prox_sgd": 0}}
+
+
+def mesh_rank(rank: int, world: int, store: str, out_dir: str, t_spawn: float) -> None:
+    """Phase 11, one of the MESH_RANKS ranks (a spawned process): the
+    parent's deterministic settings, the gloo group through a FileStore, the
+    card shared with the other ranks; then (w), (x), (y) and (z), saved to
+    ``out_dir/rank<k>.pt``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank, world_size=world)
+    try:
+        torch.zeros(1, device=dev)
+        dist.barrier()
+        res = {"setup_s": time.time() - t_spawn}
+        res.update({name: mesh_fl_run(dev, extra) for name, extra in MESH_FL.items()})
+        res["y"] = mesh_campaign_run(dev)
+        res["z"] = mesh_lm_run(dev, {"pods": MESH_LM_LAYOUTS["pods"]}, mesh=True)
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_mesh_ranks(world: int) -> tuple[list, float]:
+    """Start ``world`` :func:`mesh_rank` processes and wait for them, at
+    most MESH_TIMEOUT_S seconds: their results and the wall seconds. A rank
+    that raises fails the phase; at the time limit every rank is killed and
+    the phase fails."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        t0 = time.time()
+        ctx = mp.start_processes(mesh_rank, args=(world, os.path.join(tmp, "store"), tmp, t0), nprocs=world,
+                                 join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=1.0):
+                require(time.time() - t0 < MESH_TIMEOUT_S, f"phase 11: the ranks ran past {MESH_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        wall = time.time() - t0
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(world)], wall
+
+
+def mesh_phase(dev, cohort: dict) -> dict:
+    """Phase 11: the one-process runs of (w), (x) and (z) here, then
+    MESH_RANKS gloo ranks sharing the card run them sharded with (y); each
+    rank is held to the one-process run: (w) theta_hat, loss and b bit for
+    bit (theta_mse rtol 1e-6: its delta sum crosses ranks as a sum); (x)
+    every metric bit for bit; (y) every run of the gathered cohort against
+    phase 7's unsharded run (``cohort``: b exact, loss rtol 1e-6, accuracy
+    1e-6), the runs whose final model and losses are the same bits counted;
+    (z) the 2-pod-rank step's parameters, b and losses bit for bit against
+    the one-process step with 2 pods, which is held to the (4, 1) layout of
+    the same clients (parameters and b bit for bit, losses rtol 1e-6). Each
+    sharded run must report MESH_RANKS ranks. Prints one ``"phase": "mesh"``
+    line; returns each run's launches summed over the ranks."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    one = {name: mesh_fl_run(dev, extra) for name, extra in MESH_FL.items()}
+    one["z"] = mesh_lm_run(dev, MESH_LM_LAYOUTS, mesh=False)
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    ranks, ranks_wall = spawn_mesh_ranks(MESH_RANKS)
+    for k, r in enumerate(ranks):
+        for name in MESH_FL:
+            got, want = r[name], one[name]
+            require(got["ranks"] == MESH_RANKS and want["ranks"] == 1, f"mesh {name} rank {k}: ran over {got['ranks']}")
+            require(got["client_rows"] == MAIN["n_clients"] // MESH_RANKS, f"mesh {name} rank {k}: holds "
+                    f"{got['client_rows']} clients' data")
+            require(got["tree_ranks"] == (MESH_RANKS if name == "x" else 1), f"mesh {name}: tree ranks {got['tree_ranks']}")
+            for t, (a, c) in enumerate(zip(got["rounds"], want["rounds"], strict=True)):
+                require(torch.equal(a["theta"], c["theta"]), f"mesh {name} rank {k} round {t}: theta differs")
+                for m in ("loss", "b", "edge_mass_min"):
+                    require(a.get(m) == c.get(m), f"mesh {name} rank {k} round {t}: {m} {a.get(m)} vs {c.get(m)}")
+                exact_mse = name == "x"
+                require(a["theta_mse"] == c["theta_mse"] if exact_mse
+                        else np.isclose(a["theta_mse"], c["theta_mse"], rtol=1e-6, atol=0),
+                        f"mesh {name} rank {k} round {t}: theta_mse {a['theta_mse']} vs {c['theta_mse']}")
+            require(torch.equal(got["final"], want["final"]), f"mesh {name} rank {k}: final model differs")
+        y = r["y"]
+        require([g["n_devices"] for g in y["groups"]] == [MESH_RANKS], f"mesh y rank {k}: groups {y['groups']}")
+        res, finals = cohort["result"], cohort["finals"][0]
+        n_seeds = len(COHORT_SEEDS)
+        block = -(-n_seeds // MESH_RANKS)
+        exact = 0
+        for cell in res.cells:
+            mine = y["cells"][cell.name]
+            for s in range(n_seeds):
+                tag = f"mesh y rank {k} {cell.name} seed {COHORT_SEEDS[s]}"
+                require(np.array_equal(np.asarray(mine["b"][s], np.float32), cell.metrics["b"][s]), f"{tag}: b differs")
+                require(np.allclose(mine["loss"][s], cell.metrics["loss"][s], rtol=1e-6, atol=0), f"{tag}: loss")
+                require(np.allclose(mine["acc"][s], cell.metrics["acc"][s], rtol=0, atol=1e-6), f"{tag}: acc")
+            for j, s in enumerate(range(k * block, min((k + 1) * block, n_seeds))):
+                exact += int(torch.equal(y["finals"][j], finals[s])
+                             and np.array_equal(np.asarray(mine["loss"][s], np.float32), cell.metrics["loss"][s]))
+        y["bit_exact_runs_of_this_rank"] = exact
+        z, z1 = r["z"]["pods"], one["z"]
+        require(z["digests"] == z1["pods"]["digests"], f"mesh z rank {k}: parameters differ from one process")
+        for m in ("b", "loss_first", "loss_last"):
+            require(z[m] == z1["pods"][m], f"mesh z rank {k}: {m} {z[m]} vs one process {z1['pods'][m]}")
+    require(one["z"]["pods"]["digests"] == one["z"]["one_pod"]["digests"]
+            and one["z"]["pods"]["b"] == one["z"]["one_pod"]["b"],
+            "mesh z: the (2, 2) layout's parameters or b differ from the (4, 1) layout's")
+    for m in ("loss_first", "loss_last"):
+        require(np.isclose(one["z"]["pods"][m], one["z"]["one_pod"][m], rtol=1e-6, atol=0),
+                f"mesh z: {m} of the two layouts")
+    want = mesh_expected_launches(one["z"]["leaves"])
+    for k, r in enumerate(ranks):
+        for name, got in (("w", r["w"]), ("x", r["x"]), ("y", r["y"]), ("z", r["z"]["pods"])):
+            require(got["launches"] == want[name], f"mesh {name} rank {k}: launches {got['launches']} != {want[name]}")
+
+    def summary(run, keys):
+        return {k: run[k] for k in keys if k in run}
+
+    line = {
+        "phase": "mesh", "ranks": MESH_RANKS, "backend": "gloo", "card": card_line(), "seconds": time.perf_counter() - t0,
+        "one_process_seconds": one_s, "ranks_wall_s": ranks_wall,
+        "spawn_and_setup_s": [r["setup_s"] for r in ranks],
+        "runs": {
+            **{name: {"config": extra, "d": one[name]["final"].numel(),
+                      "one_process_round_s": [x["seconds"] for x in one[name]["rounds"]],
+                      "one_process_peak_gb": one[name]["peak_gb"],
+                      "ranks": [{"round_s": [x["seconds"] for x in r[name]["rounds"]],
+                                 **summary(r[name], ("launches", "collectives", "peak_gb"))} for r in ranks],
+                      "loss": [x["loss"] for x in one[name]["rounds"]], "b": [x["b"] for x in one[name]["rounds"]]}
+               for name, extra in MESH_FL.items()},
+            "y": {"runs": len(COHORT_SEEDS), "runs_a_rank": -(-len(COHORT_SEEDS) // MESH_RANKS),
+                  "ranks": [{"campaign_wall_s": r["y"]["wall_s"], "bit_exact_runs": r["y"]["bit_exact_runs_of_this_rank"],
+                             **summary(r["y"], ("launches", "collectives", "peak_gb"))} for r in ranks],
+                  "groups": ranks[0]["y"]["groups"]},
+            "z": {"arch": LM_ARCH, "cut": MESH_LM_CUT, "d": one["z"]["d"], "leaves": one["z"]["leaves"],
+                  "layouts": MESH_LM_LAYOUTS,
+                  "one_process": {name: summary(one["z"][name], ("seconds", "peak_gb", "loss_first", "loss_last", "b",
+                                                                 "launches"))
+                                  for name in MESH_LM_LAYOUTS},
+                  "ranks": [{"step_s": r["z"]["pods"]["seconds"], "b1_launches": r["z"]["pods"]["launches"]["stoch_quant_pack"],
+                             "b3_launches": r["z"]["pods"]["launches"]["bit_aggregate"],
+                             **summary(r["z"]["pods"], ("collectives", "peak_gb"))} for r in ranks]},
+        },
+    }
+    print(json.dumps(line), flush=True)
+    return {f"mesh/{name}": {"launches": {n: sum(r[name]["launches"][n] for r in ranks) for n in KERNELS}}
+            for name in ("w", "x", "y")} | {
+        "mesh/z": {"launches": {n: sum(r["z"]["pods"]["launches"][n] for r in ranks) for n in KERNELS}}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2784,6 +3126,7 @@ def main() -> int:
     campaigns = campaign_runs(dev, runs)
     wires_trees = wires_trees_runs(dev, runs, async_stream)
     lm = lm_runs(dev)
+    mesh = mesh_phase(dev, campaigns["campaign/cohort"])
 
     # Phase 5 times kernels, not allocations: under deterministic algorithms
     # every torch.empty is filled with NaN by a kernel of its own.
@@ -2794,7 +3137,7 @@ def main() -> int:
     at_group = kernel_times(dev, MAIN["n_clients"], 118_282, copy_gbs, elements=len(COHORT_SEEDS))
     at_topk = topk_pack_times(dev, copy_gbs)
     at_lm = {where: lm_leaf_times(dev, copy_gbs, d) for where, d in LM_LEAVES.items()}
-    rows = kernel_rows({**runs, **grid, **vision, **async_stream, **campaigns, **wires_trees, **lm}, chk, at_main,
+    rows = kernel_rows({**runs, **grid, **vision, **async_stream, **campaigns, **wires_trees, **lm, **mesh}, chk, at_main,
                        at_resnet, at_group, at_topk, at_lm)
     print(json.dumps({"phase": "times", "card": card, "copy_gbs": copy_gbs,
                       "round_seconds_a": [r["seconds"] for r in runs["a"]["rounds"]],

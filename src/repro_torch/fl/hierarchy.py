@@ -1,7 +1,6 @@
 """Hierarchical count-tree rounds: clients -> edge aggregators -> root.
 
-Counterpart of ``repro/fl/hierarchy.py`` without its sharded edges
-(``tree_shard``, ROADMAP A14). Vote counts add, so a round need not funnel
+Counterpart of ``repro/fl/hierarchy.py``. Vote counts add, so a round need not funnel
 all M clients through one server: the cohort splits into ``tree_edges``
 contiguous slices (:func:`edge_slices`), each **edge** runs the streaming
 round's chunk loop over its slice (``rounds._stream_chunks``, quantizer
@@ -26,6 +25,12 @@ the synchronous heartbeat (the b-vote and metric sums).
   mass`` per coordinate (the median, or the mean of the order statistics
   left after cutting ``edge_trim`` from each end) and rescale by the total
   mass.
+* **Sharded edges** (``tree_shard``): rank ``k`` of the client group runs
+  edges ``[k E/n, (k+1) E/n)`` over its block of the clients' data, and one
+  gather a tensor of the stacked per-edge tensors, in rank order, gives
+  every rank the whole edge axis, the reference's sharded ``out_specs``.
+  Every rank then merges at the root as one process would: no sum crosses
+  ranks, so the round equals the unsharded tree bit for bit, metrics too.
 
 Float rules (the reference's under ``jit``): a rate is a true division by
 the edge's mass; the median of an even number of edges is ``(a + b) *
@@ -47,11 +52,11 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .. import prng
+from .. import distributed, prng
 from ..core import staleness_weights, update_b_from_vote
 from ..core.aggregation import mean_rows, recip32
 from ..core.attacks import apply_edge_attack, edge_attack_id
-from .rounds import CellParams, RoundContext, RoundState, _stream_chunks, init_state
+from .rounds import CellParams, RoundContext, RoundState, _add_in_order, _stream_chunks, init_state
 
 __all__ = [
     "EDGE_MERGES",
@@ -106,9 +111,8 @@ def init_tree_state(ctx: RoundContext, b_init=None) -> TreeRoundState:
 
 
 def tree_shard_devices(ctx: RoundContext) -> int:
-    """Devices the edge reductions spread over: one (the sharded edges of
-    ``tree_shard`` come with ROADMAP A14)."""
-    return 1
+    """Ranks the edge reductions spread over (1: every edge on this rank)."""
+    return distributed.group_size(ctx.group) if ctx.cfg.tree_shard else 1
 
 
 def _sum_rows(x: torch.Tensor) -> torch.Tensor:
@@ -166,18 +170,30 @@ def tree_fl_round(
     n_byz = int(n * cfg.byz_frac)
     limit = min(n, int(params.m_active)) if ctx.masked else n
 
-    counts, masses, vote, loss, dsum, planes = [], [], 0.0, 0.0, 0.0, None
-    for row0, n_e in edge_slices(n, n_edges):
-        acc, e_vote, e_loss, e_dsum, e_wsum, w_locals, residuals = _stream_chunks(
+    group = ctx.group if cfg.tree_shard else None
+    slices = edge_slices(n, n_edges)
+    e_loc = n_edges // distributed.group_size(group)
+    mine = slices[distributed.group_rank(group) * e_loc:][:e_loc]
+    edges, planes = [], None
+    for row0, n_e in mine:
+        acc, e_vote, e_losses, e_dsum, e_wsum, w_locals, residuals = _stream_chunks(
             ctx, params, batches["key"], k_att, k_q, state, sel[row0:row0 + n_e], n_byz, True, limit,
             row0=row0, planes=planes,
         )
         planes = (w_locals, residuals)
-        counts.append(acc)
-        masses.append(e_wsum)
-        vote, loss, dsum = vote + e_vote, loss + e_loss, dsum + e_dsum
+        e_loss = _add_in_order(e_losses)
+        edges.append((acc, torch.stack([e_vote, e_loss, e_wsum]), e_dsum))
     w_locals, residuals = planes
-    counts_f, mass_f = torch.stack(counts), torch.stack(masses)
+    counts_f, heartbeat, dsums = (torch.stack(x) for x in zip(*edges))
+    if group is not None:
+        with record_function("round.collectives"):
+            # every rank's edges, stacked in rank order: the edge axis whole
+            counts_f, heartbeat, dsums = (distributed.all_gather_rows(x, group).flatten(0, 1)
+                                          for x in (counts_f, heartbeat, dsums))
+    mass_f = heartbeat[:, 2]
+    vote, loss, dsum = 0.0, 0.0, 0.0
+    for e_vote, e_loss, e_dsum in zip(heartbeat[:, 0], heartbeat[:, 1], dsums):
+        vote, loss, dsum = vote + e_vote, loss + e_loss, dsum + e_dsum
 
     with record_function("round.estimate"):
         wsum = _sum_rows(mass_f)

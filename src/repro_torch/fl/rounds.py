@@ -68,6 +68,17 @@ The hierarchical tree round (:mod:`repro_torch.fl.hierarchy`,
 the cohort and merges the slices' count tensors at a root;
 :func:`round_fn` and :func:`init_run_state` pick it. Every round takes
 the k-bit, mixed-width and top-k wires wherever the config admits them.
+
+``stream_shard`` spreads the streamed cohort over the ranks of the client
+group (:func:`repro_torch.distributed.client_group`): rank ``k`` holds only
+its contiguous block of ``n_active / n`` clients' data and scans it, and the
+additive carries are summed over the ranks, the reference's ``psum``. The
+count, vote and weight sums are integers, so the estimate, the new model
+and b are the unsharded round's bit for bit; the chunks' loss sums cross
+ranks as they are and are added in chunk order, so the loss is too. Only
+the delta sum behind ``theta_mse`` reassociates. With no process group,
+or a world of one, the round warns (the reference's one-device no-op) and
+runs unsharded.
 """
 
 from __future__ import annotations
@@ -79,7 +90,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .. import prng
+from .. import distributed, prng
 from ..core import (
     BState,
     DenseWire,
@@ -181,6 +192,11 @@ class RoundContext:
     # A fused heterogeneous-M campaign group's context: cfg.n_clients is the
     # group's largest cohort and each run's own is CellParams.m_active.
     masked: bool = False
+    # The process group a sharded context (stream_shard, tree_shard) spreads
+    # its clients over, None unsharded; client_x and client_y then hold this
+    # rank's block of clients, the first of which is client data_offset.
+    group: Any = None
+    data_offset: int = 0
 
     @property
     def d(self) -> int:
@@ -228,6 +244,10 @@ def make_context(
     n_byz = int(cfg.n_active * cfg.byz_frac)
     if wire_flip is None:
         wire_flip = is_wire_attack(cfg.attack)
+    group, offset = _shard_layout(cfg)
+    if group is not None:
+        block = cfg.n_active // distributed.group_size(group)
+        client_x, client_y = client_x[offset:offset + block], client_y[offset:offset + block]
     return RoundContext(
         cfg=cfg,
         loss_fn=loss_fn,
@@ -242,7 +262,41 @@ def make_context(
         device=device,
         engine=engine,
         masked=masked,
+        group=group,
+        data_offset=offset,
     )
+
+
+def _shard_layout(cfg):
+    """The client group a ``stream_shard`` or ``tree_shard`` config spreads
+    over and the first client of this rank's block: ``(None, 0)`` when it
+    runs unsharded, which with no group or a world of one is the
+    reference's one-device no-op and warns, and when the cohort (the
+    edges) does not divide over the ranks, the reference's fallback, which
+    warns too."""
+    import warnings
+
+    if not (cfg.stream_shard or cfg.tree_shard):
+        return None, 0
+    name, units = ("stream_shard", cfg.n_active) if cfg.stream_shard else ("tree_shard", cfg.tree_edges)
+    group = distributed.client_group()
+    n = distributed.group_size(group)
+    if n <= 1:
+        warnings.warn(
+            f"{name} is a no-op: only one local device is visible. Start several ranks "
+            "(torchrun --nproc-per-node N) to shard it.",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+        return None, 0
+    if units % n:
+        if cfg.stream_shard:
+            msg = f"stream_shard falling back to a single-device scan: cohort size {units} does not divide across"
+        else:
+            msg = f"tree_shard falling back to a host-loop edge sweep: {units} edges do not divide across"
+        warnings.warn(f"{msg} {n} devices.", RuntimeWarning, stacklevel=3)
+        return None, 0
+    return group, distributed.group_rank(group) * (cfg.n_active // n)
 
 
 def init_state(ctx: RoundContext, b_init=None) -> RoundState:
@@ -346,7 +400,7 @@ def _client_batch_idx(ctx: RoundContext, key: torch.Tensor, client_ids: torch.Te
 
 def _gather_batches(ctx: RoundContext, key: torch.Tensor, ids: torch.Tensor) -> dict:
     idx = _client_batch_idx(ctx, key, ids)
-    rows = ids.view(-1, 1, 1)
+    rows = (ids - ctx.data_offset).view(-1, 1, 1)
     return {"x": ctx.client_x[rows, idx], "y": ctx.client_y[rows, idx]}
 
 
@@ -508,7 +562,8 @@ def _stream_chunks(ctx, params, kb, k_att, k_q, state, sel, n_byz, weighted, lim
     additive carries, where positions at or past ``limit`` weigh 0.
     ``planes`` are the (w_locals, residuals) an earlier slice of the same
     round wrote back; None starts from the state's own, copied before the
-    first write. Returns the carries with the written-back planes (the
+    first write. Returns the carries, the loss as each chunk's own sum (add
+    them with :func:`_add_in_order`), with the written-back planes (the
     state's own when stateless)."""
     cfg, d, dev = ctx.cfg, ctx.d, ctx.device
     C, n = cfg.client_chunk, sel.shape[0]
@@ -524,7 +579,7 @@ def _stream_chunks(ctx, params, kb, k_att, k_q, state, sel, n_byz, weighted, lim
     else:  # "buffer": Fed-GM reads every row in each Weiszfeld step
         acc = torch.empty((n_pad, d), dtype=torch.float32, device=dev)
     zero = torch.zeros((), device=dev)
-    vote, loss, wsum, dsum = zero, zero, zero, torch.zeros(d, device=dev)
+    vote, wsum, dsum, losses = zero, zero, torch.zeros(d, device=dev), []
     if planes is not None:
         w_locals, residuals = planes
     else:
@@ -563,7 +618,7 @@ def _stream_chunks(ctx, params, kb, k_att, k_q, state, sel, n_byz, weighted, lim
                 else:
                     acc[g0:g0 + C] = wire.updates
                 vote = vote + (loss_bit(loss_before, loss_after).float() * w_c).sum()
-                loss = loss + (loss_after * w_c).sum()
+                losses.append((loss_after * w_c).sum())
                 dsum = dsum + (deltas * w_c[:, None]).sum(0)
                 wsum = wsum + w_c.sum()
                 if not cfg.stateless_clients:
@@ -572,7 +627,16 @@ def _stream_chunks(ctx, params, kb, k_att, k_q, state, sel, n_byz, weighted, lim
                         if residuals is state.residuals:
                             residuals = residuals.clone()
                         residuals.index_copy_(0, sel_c[:k], res_new[:k])
-    return acc, vote, loss, dsum, wsum, w_locals, residuals
+    return acc, vote, torch.stack(losses), dsum, wsum, w_locals, residuals
+
+
+def _add_in_order(parts: torch.Tensor) -> torch.Tensor:
+    """Zero plus the entries of ``parts``, added one at a time in order (as
+    the chunk loop's running sums are)."""
+    total = parts.new_zeros(())
+    for p in parts:
+        total = total + p
+    return total
 
 
 def stream_fl_round(
@@ -586,7 +650,9 @@ def stream_fl_round(
     the cohort), FedAvg's weighted mean or Fed-GM's weighted median of the
     buffered rows. Metric means are sums times the f32 reciprocal of the
     weight sum. A masked context weighs cohort positions at or past the
-    run's ``m_active`` 0, as the dense round's mask does."""
+    run's ``m_active`` 0, as the dense round's mask does. A sharded context
+    (``ctx.group``) scans this rank's block of the cohort and sums the
+    carries over the ranks (module docstring)."""
     cfg, d, dev = ctx.cfg, ctx.d, ctx.device
     n, C = cfg.n_active, cfg.client_chunk
     server = ctx.pipeline.server
@@ -597,10 +663,23 @@ def stream_fl_round(
         sel = torch.arange(cfg.n_clients, dtype=torch.int64, device=dev)
     k_att, k_q = prng.split(prng.fold_in(key, 1), 2)
     limit = min(n, int(params.m_active)) if ctx.masked else n
-    weighted = ctx.masked or n % C != 0
-    acc, vote, loss, dsum, wsum, w_locals, residuals = _stream_chunks(
-        ctx, params, batches["key"], k_att, k_q, state, sel, int(n * cfg.byz_frac), weighted, limit
+    group = ctx.group if cfg.stream_shard else None
+    n_loc = n // distributed.group_size(group)
+    row0 = distributed.group_rank(group) * n_loc
+    weighted = ctx.masked or n_loc % C != 0
+    acc, vote, losses, dsum, wsum, w_locals, residuals = _stream_chunks(
+        ctx, params, batches["key"], k_att, k_q, state, sel[row0:row0 + n_loc], int(n * cfg.byz_frac), weighted,
+        limit, row0=row0,
     )
+    if group is not None:
+        with record_function("round.collectives"):
+            # vote counts, or FedAvg's (sum, weight) pair
+            acc = (tuple(distributed.all_reduce_sum(a, group) for a in acc) if isinstance(acc, tuple)
+                   else distributed.all_reduce_sum(acc, group))
+            sums = distributed.all_reduce_sum(torch.cat([vote.view(1), wsum.view(1), dsum]), group)
+            vote, wsum, dsum = sums[0], sums[1], sums[2:]
+            losses = distributed.all_gather_rows(losses, group).flatten()
+    loss = _add_in_order(losses)
     with record_function("round.estimate"):
         if server.stream_kind == "counts":
             b_vec = ctx.pipeline.compressor.b_vector(d, state.b.b)

@@ -2,16 +2,17 @@
 
 Counterpart of ``repro/fl/runtime.py``. :class:`FLConfig` keeps every field
 of the reference's config, so a config carries over unchanged, and rejects
-what the reference rejects with the same ``ValueError``; the fields of
-paths the port does not have yet (``stream_shard`` and ``tree_shard``, the
-sharded rounds) raise ``NotImplementedError`` naming the ROADMAP item that
-ports them. :class:`FLSimulation` runs the round the config calls for
-(synchronous, streamed over ``client_chunk`` clients, buffered-asynchronous
-or a hierarchical tree, :func:`~repro_torch.fl.rounds.round_fn`) on any of
+what the reference rejects with the same ``ValueError``. :class:`FLSimulation`
+runs the round the config calls for (synchronous, streamed over
+``client_chunk`` clients, buffered-asynchronous or a hierarchical tree,
+:func:`~repro_torch.fl.rounds.round_fn`) on any of
 the wires (one-bit, k-bit, mixed-width, top-k, dense) with the
 reference's key schedule (``key = PRNGKey(seed)``; each round
 ``key, kb, kr = split(key, 3)``; batches from ``kb``, the round from
-``kr``), on the card unless ``device="cpu"`` is passed.
+``kr``), on the card unless ``device="cpu"`` is passed. ``stream_shard``
+and ``tree_shard`` spread the streamed cohort or the tree's edges over the
+ranks of a process group (:mod:`repro_torch.distributed`): every rank
+builds the same simulation and runs its slice.
 """
 
 from __future__ import annotations
@@ -39,12 +40,6 @@ from . import rounds as _rounds
 __all__ = ["FLConfig", "FLSimulation"]
 
 _B_MODES = ("dynamic", "fixed", "oracle")
-
-# Fields of paths not ported yet: (default, ROADMAP item that ports them).
-_UNPORTED = {
-    "stream_shard": (False, "A14"),
-    "tree_shard": (False, "A14"),
-}
 
 # Aggregators whose estimate streams as additive vote counts (a tree's edges
 # ship count tensors).
@@ -113,10 +108,8 @@ class FLConfig:
             )
         self._check_async_and_stream()
         self._check_wires()
+        self._check_stream_shard()
         self._check_tree()
-        for name, (default, item) in _UNPORTED.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(f"{name}={getattr(self, name)!r} is not ported yet (ROADMAP {item})")
 
     def _check_async_and_stream(self):
         """The reference's checks of the asynchronous and streaming fields."""
@@ -239,6 +232,28 @@ class FLConfig:
             raise ValueError(
                 f"wire attack {self.attack!r} is not supported on the heterogeneous wire yet; use a delta-level "
                 "attack or homogeneous wire_bits"
+            )
+
+    def _check_stream_shard(self):
+        """The reference's checks of the sharded streaming round."""
+        if not self.stream_shard:
+            return
+        if not self.client_chunk:
+            raise ValueError("stream_shard requires client_chunk > 0")
+        if not self.stateless_clients:
+            raise ValueError(
+                "stream_shard requires stateless_clients: scattering per-client state back from device-local "
+                "chunk rows is not supported"
+            )
+        if self.participation < 1.0:
+            raise ValueError(
+                "stream_shard requires participation == 1.0 (the static client-data shard layout cannot "
+                "follow a resampled cohort)"
+            )
+        if self.aggregator == "fed_gm":
+            raise ValueError(
+                "fed_gm buffers all rows (stream_kind='buffer') and cannot reduce across shards; pick a "
+                "count- or sum-streaming aggregator"
             )
 
     def _check_tree(self):

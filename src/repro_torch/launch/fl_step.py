@@ -2,11 +2,19 @@
 compresses each leaf of its model difference onto the one-bit wire, and
 the server makes the Eq.-13 estimate of every leaf.
 
-Counterpart of ``repro/launch/fl_step.py`` on one device (one pod): the
-reference's client scan is a Python loop over the cohort here, client
-after client, so one client's local copy, gradients and wire temporaries
-are resident at a time. Its pod axis and sharding constraints come with
-the mesh (ROADMAP A14).
+Counterpart of ``repro/launch/fl_step.py``: the reference's client scan
+is a Python loop over the cohort here, client after client, so one
+client's local copy, gradients and wire temporaries are resident at a
+time. A batch of ``(m_seq, n_pods, ...)`` clients runs scan step ``s`` and
+pod ``p`` as the client at cohort position ``s * n_pods + p``: without a
+mesh every pod runs here in turn, the reference's vmap over pods as a
+loop; on a mesh with a ``"pod"`` dimension (:mod:`repro_torch.distributed`)
+each rank trains its own pod's column of the same global batch, and after
+the cohort the pods' wire rows are gathered over the pod group, the votes
+summed and the losses gathered, so every rank makes the same estimate and
+b. The loss metrics are the mean over pods at each scan step, then the
+mean over the steps, in the reference's order. The model axis (parameter
+sharding) is ROADMAP A14b.
 
 Wire contract (per parameter leaf): client ``g`` compresses leaf ``l``
 with the shared ``ClientCompressor`` keyed ``fold_in(fold_in(round_key,
@@ -15,13 +23,15 @@ the reference's. At ``rand_bits=32`` the pipeline takes the kernel wire
 (``use_kernels``; the engine resolves from the parameters' device): on the
 card each (client, leaf) is one launch of the pack kernel (B1), into a
 stored ``(M, padded_len(d_l)/8)`` row plane of the leaf, and after the
-cohort one launch of the count kernel (B3) a leaf makes its estimate. The
-reference instead folds each client's rows into int32 counts as it goes;
-the counts are integers and B3 multiplies by ``f32(1/M)`` as XLA folds
-``/M``, so the estimates are the same bits. Rows cost ``M * d / 8`` bytes
-against the counts' ``4 * d``: less up to M = 32 clients; a cohort whose
-rows alone exceed the card's free memory is refused before the round
-starts. ``rand_bits=16`` draws 16-bit words
+cohort one launch of the count kernel (B3) a leaf over all M rows makes
+its estimate (on a pod mesh, on every rank, after the row gather). The
+reference instead folds each client's rows into int32 counts as it goes
+and sums the pods' counts; the counts are integers and B3 multiplies by
+``f32(1/M)`` as XLA folds ``/M``, so the estimates are the same bits. Rows
+cost ``M * d / 8`` bytes against the counts' ``4 * d``, and so do the
+gathered rows against the counts' psum: less up to M = 32 clients; a
+cohort whose rows alone (all pods' rows) exceed the card's free memory is
+refused before the round starts. ``rand_bits=16`` draws 16-bit words
 (:func:`~repro_torch.core.quantizer.threshold_u16`), which the reference
 refuses on the kernel wire: it stays plain on every device.
 ``fedavg_fp32`` uploads the f32 model differences.
@@ -37,10 +47,11 @@ the CPU (ROADMAP C, "bf16 differences that are widened at once").
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
-from .. import prng
+from .. import distributed, prng
 from ..core import build_pipeline
 from ..core.aggregation import PackedWire, mean_rows, recip32
 from ..core.bcontrol import BControlConfig, BState, update_b_from_vote
@@ -121,13 +132,27 @@ def _local_step(local: list, grads: list, w0: list, fl: DistFLConfig) -> list:
     return out
 
 
+def _pod_group(n_pods: int):
+    """The process group of the current mesh's "pod" dimension, whose ranks
+    each train one pod's clients (None without such a mesh: every pod
+    runs here)."""
+    mesh = distributed.current_mesh()
+    if mesh is None or "pod" not in (mesh.mesh_dim_names or ()):
+        return None
+    size = distributed.mesh_sizes(mesh)["pod"]
+    if size != n_pods:
+        raise ValueError(f"the batch has {n_pods} pods; the mesh's pod axis has {size} ranks")
+    return mesh.get_group("pod")
+
+
 def make_fl_train_step(cfg: ModelConfig, fl: DistFLConfig, *, engine: str | None = None):
     """Returns ``train_step(params, b, batch, key) -> (params, b, metrics)``.
 
     ``params`` is the model's tree of tensors, ``b`` a 0-dim f32 tensor,
     ``key`` a ``(2,)`` Threefry key; batch leaves are ``(m_seq, n_pods,
-    local_steps, per_batch, ...)`` with ``n_pods = 1`` (the pod axis comes
-    with ROADMAP A14). ``engine`` is passed to the wire's kernels (None:
+    local_steps, per_batch, ...)``, the whole cohort's on every rank of a
+    pod mesh, whose pod axis must have ``n_pods`` ranks (module
+    docstring). ``engine`` is passed to the wire's kernels (None:
     resolve from the parameters' device; ``"ref"`` forces the plain
     versions). Metrics: ``loss_first``, ``loss_last``, ``b`` and the
     round's uplink ``wire_bytes`` (as shipped) beside
@@ -141,63 +166,82 @@ def make_fl_train_step(cfg: ModelConfig, fl: DistFLConfig, *, engine: str | None
     def train_step(params, b, batch, key):
         first = leaves(batch)[0]
         m_seq, n_pods = first.shape[0], first.shape[1]
-        if n_pods != 1:
-            raise NotImplementedError("more than one pod needs the mesh; ROADMAP A14")
+        group = _pod_group(n_pods)
+        pods = range(n_pods) if group is None else [distributed.group_rank(group)]
+        m_total = m_seq * n_pods
         p_leaves = leaves(params)
         dims = [w.numel() for w in p_leaves]
         dev = p_leaves[0].device
         row_bytes = [compressor.wire_bytes(d) for d in dims]
-        if probit and dev.type == "cuda" and m_seq * sum(row_bytes) > torch.cuda.mem_get_info(dev)[0]:
-            raise MemoryError(f"{m_seq} clients' wire rows need {m_seq * sum(row_bytes) / 1e9:.2f} GB, more than "
-                              f"the card has free ({torch.cuda.mem_get_info(dev)[0] / 1e9:.2f} GB)")
+        if probit and dev.type == "cuda" and m_total * sum(row_bytes) > torch.cuda.mem_get_info(dev)[0]:
+            raise MemoryError(f"{m_total} clients' wire rows need {m_total * sum(row_bytes) / 1e9:.2f} GB, more "
+                              f"than the card has free ({torch.cuda.mem_get_info(dev)[0] / 1e9:.2f} GB)")
         if probit:
-            rows = [torch.empty((m_seq, p), dtype=torch.uint8, device=dev) for p in row_bytes]
+            # this process's rows, row s * len(pods) + j for pod pods[j] at scan step s
+            rows = [torch.empty((m_seq * len(pods), p), dtype=torch.uint8, device=dev) for p in row_bytes]
         else:
-            acc = [torch.zeros(w.shape, dtype=torch.float32, device=dev) for w in p_leaves]
+            acc = [[torch.zeros(w.shape, dtype=torch.float32, device=dev) for w in p_leaves] for _ in pods]
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         keys = [leaf_key(key, i) for i in range(len(p_leaves))]
-        votes, loss0, loss1 = 0, [], []
-        for g in range(m_seq):
-            local, losses = p_leaves, []
-            for s in range(fl.local_steps):
-                sb = {k: v[g, 0, s] for k, v in batch.items()}
-                loss, grads = _value_and_grad(local, params, sb, cfg)
-                losses.append(loss)
-                local = _local_step(local, grads, p_leaves, fl)
-            with torch.no_grad():
-                for i, (w_l, w, d) in enumerate(zip(local, p_leaves, dims)):
-                    # the difference in f32, as XLA computes the widened bf16 one
-                    delta = (w_l.float() - w.float()).reshape(1, d)
-                    if probit:
-                        wire, _ = compressor.compress(keys[i], delta, b, zero, row_offset=g)
-                        rows[i][g] = wire.packed[0]
-                    else:
-                        acc[i] += delta.view(w.shape)
-                    del delta
-            del local
-            loss0.append(losses[0])
-            loss1.append(losses[-1])
-            votes += 1 if bool(losses[-1] < losses[0]) else -1
+        votes, losses = 0, []  # losses: (first, last) of each (scan step, pod)
+        for s in range(m_seq):
+            for j, p in enumerate(pods):
+                g = s * n_pods + p  # the client's cohort position keys its quantizer rows
+                local, client_losses = p_leaves, []
+                for t in range(fl.local_steps):
+                    sb = {k: v[s, p, t] for k, v in batch.items()}
+                    loss, grads = _value_and_grad(local, params, sb, cfg)
+                    client_losses.append(loss)
+                    local = _local_step(local, grads, p_leaves, fl)
+                with torch.no_grad():
+                    for i, (w_l, w, d) in enumerate(zip(local, p_leaves, dims)):
+                        # the difference in f32, as XLA computes the widened bf16 one
+                        delta = (w_l.float() - w.float()).reshape(1, d)
+                        if probit:
+                            wire, _ = compressor.compress(keys[i], delta, b, zero, row_offset=g)
+                            rows[i][s * len(pods) + j] = wire.packed[0]
+                        else:
+                            acc[j][i] += delta.view(w.shape)
+                        del delta
+                del local
+                losses.append(torch.stack([client_losses[0], client_losses[-1]]))
+                votes += 1 if bool(client_losses[-1] < client_losses[0]) else -1
+        losses = torch.stack(losses).view(m_seq, len(pods), 2)
+        votes = torch.tensor(float(votes), device=dev)
+        if group is not None:
+            # the pods' votes, losses and rows (or sums) cross ranks
+            votes = distributed.all_reduce_sum(votes, group)
+            losses = distributed.all_gather_rows(losses[:, 0], group).transpose(0, 1)
         with torch.no_grad():
             if probit:
                 new_leaves = []
                 for i, (w, d) in enumerate(zip(p_leaves, dims)):
+                    if group is not None:
+                        rows[i] = distributed.all_gather_rows(rows[i], group).transpose(0, 1).reshape(m_total, -1)
                     wire = PackedWire(packed=rows[i], b=compressor.b_vector(d, b), d=d)
                     theta = pipeline.estimate(wire)
                     rows[i] = None
                     new_leaves.append((w.float() + theta.view(w.shape)).to(w.dtype))
                 wire_row_bytes = sum(row_bytes)
             else:
-                new_leaves = [(w.float() + a * recip32(m_seq)).to(w.dtype) for w, a in zip(p_leaves, acc)]
+                new_leaves = []
+                for i, w in enumerate(p_leaves):
+                    if group is None:
+                        total = functools.reduce(torch.add, [a[i] for a in acc])  # the pods' sums, in order
+                    else:
+                        total = distributed.all_reduce_sum(acc[0][i], group)
+                    new_leaves.append((w.float() + total * recip32(m_total)).to(w.dtype))
                 wire_row_bytes = 4 * sum(dims)
-        b_new = update_b_dist(b, torch.tensor(float(votes), device=dev), fl)
+        b_new = update_b_dist(b, votes, fl)
+        # the mean over pods at each scan step, then over the steps
+        step_means = losses.sum(1) * recip32(n_pods)
         metrics = {
-            "loss_first": mean_rows(torch.stack(loss0)),
-            "loss_last": mean_rows(torch.stack(loss1)),
+            "loss_first": mean_rows(step_means[:, 0].contiguous()),
+            "loss_last": mean_rows(step_means[:, 1].contiguous()),
             "b": b_new,
-            "wire_bytes": m_seq * wire_row_bytes,
-            "wire_bytes_int8": m_seq * sum(dims),
-            "wire_bytes_f32": m_seq * 4 * sum(dims),
+            "wire_bytes": m_total * wire_row_bytes,
+            "wire_bytes_int8": m_total * sum(dims),
+            "wire_bytes_f32": m_total * 4 * sum(dims),
         }
         return unflatten(params, new_leaves), b_new, metrics
 

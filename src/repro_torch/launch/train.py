@@ -18,7 +18,8 @@ Flags beyond the basics:
   --json-out PATH       write per-round metrics + wire-byte report JSON
   --smoke               exit nonzero unless every round's losses are
       finite and the wire-byte report is nonzero (CI gate)
-  --production-mesh     the reference's multi-pod mesh: ROADMAP A14
+  --production-mesh     the reference's 256- or 512-chip mesh, whose model
+      axis and dry run on a fake process group are ROADMAP A14b: refused
 """
 
 from __future__ import annotations
@@ -96,7 +97,8 @@ def setup(args: argparse.Namespace, cfg: ModelConfig | None = None) -> LMRun:
     ``--arch`` / ``--reduced`` config (a caller's own cut, e.g. fewer
     layers at the published widths)."""
     if args.production_mesh:
-        raise NotImplementedError("--production-mesh needs the multi-pod mesh; ROADMAP A14")
+        raise NotImplementedError("--production-mesh needs the model axis and its dry run on a fake process group; "
+                                  "ROADMAP A14b")
     dev = _device(args.device)
     if cfg is None:
         cfg = configs.get_config(args.arch)

@@ -1,7 +1,9 @@
 """Models of the port: the paper's MLP, CNN and ResNet, and the model zoo's
 dense attention, MoE, xLSTM, Mamba-hybrid, audio and vision families
 (``repro/models``' names as far as they are ported, decode and caches
-included; the sharding helpers come with ROADMAP A14)."""
+included). The logical-axis rules are in :mod:`repro_torch.distributed`;
+the model axis's sharding helpers (parameter and input specs) come with
+ROADMAP A14b."""
 
 from . import layers, moe, ssm, xlstm
 

@@ -2,7 +2,7 @@
 batches for smoke tests.
 
 Counterpart of ``repro/models/inputs.py`` (its ``input_specs`` and
-``input_logical`` are the dry-run's and come with ROADMAP A14). For the
+``input_logical`` are the dry-run's and come with ROADMAP A14b). For the
 audio and vision architectures the frontend is a stub, as in the
 reference: the batch carries precomputed frame or patch embeddings.
 """

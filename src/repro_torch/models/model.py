@@ -16,7 +16,7 @@ embeddings. :func:`serve_step` decodes one token over the caches of
 over ``reps`` as the reference's; the steps update the caches in place.
 The reference's remat and indexed-parameter context managers and
 ``cache_logical`` are mesh levers and sharding metadata and come with
-ROADMAP A14.
+the model axis, ROADMAP A14b.
 """
 
 from __future__ import annotations

@@ -18,7 +18,8 @@ contributions. Ties pick the lower index first everywhere, as
 ``jax.lax.top_k`` does: a stable descending ``torch.sort`` (``torch.topk``
 does not promise it). The products are plain torch, as they are plain JAX
 in the reference (no Pallas kernel). The expert-parallel ``shard_map``
-branch comes with the mesh (ROADMAP A14).
+branch belongs to the model axis (ROADMAP A14b); the mesh's client axis
+(:mod:`repro_torch.distributed`) leaves the experts whole on every rank.
 """
 
 from __future__ import annotations

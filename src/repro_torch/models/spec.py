@@ -4,7 +4,7 @@ Counterpart of ``repro/models/spec.py``. A model's parameters are a tree
 (nested dicts and lists, :mod:`repro_torch.tree`) of :class:`LeafSpec`;
 :func:`init_params` materializes it with the reference's draws, bit for
 bit. The reference's sharding helpers (``param_pspecs``,
-``abstract_params``) come with the mesh (ROADMAP A14).
+``abstract_params``) come with the model axis (ROADMAP A14b).
 """
 
 from __future__ import annotations

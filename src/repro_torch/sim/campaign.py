@@ -18,8 +18,9 @@ prepared runner:
    and each cell's real M rides ``CellParams.m_active``; the 0/1
    active-client mask folds into the Eq.-13 vote counts via the
    weighted-count path, wire format unchanged.
-3. ``shard=True`` is recorded; on one device it warns once and runs
-   unsharded, and more devices are not ported yet (ROADMAP A14).
+3. ``shard=True`` spreads each group's runs over the ranks of the client
+   group (:func:`repro_torch.distributed.client_group`); with one rank it
+   warns once and runs unsharded.
 
 **Execute** (:func:`run_campaign`) walks the plan:
 
@@ -36,6 +37,11 @@ prepared runner:
 * dispatch is **overlapped**: every group's rounds are queued on the device
   before the first group's results are read, and nothing inside a group's
   rounds waits for the device;
+* a sharded group pads its E runs to a multiple of the n ranks with copies
+  of the last run; rank ``k`` prepares and runs only its contiguous
+  ``E_pad / n`` runs (as one group where the round allows), and the runs'
+  trajectories are gathered in rank order, so every rank assembles the
+  same results;
 * per-group accounting lands in ``CampaignResult.groups`` (and its JSON),
   with the reference's keys: wall/compile seconds (``compile_s`` is the
   preparation), cache hit, ``n_devices``, ``cells_per_sec``, padded-vs-real
@@ -61,7 +67,7 @@ from typing import Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
-from .. import prng
+from .. import distributed, prng
 from ..core import is_timing_attack, is_wire_attack
 from ..fl import FLConfig
 from ..fl import rounds as R
@@ -216,23 +222,24 @@ def _initial_states(ctx, b_inits):
 _WARNED_SINGLE_DEVICE = False
 
 
-def _shard_devices(device: torch.device) -> int:
-    """Devices a sharded group would spread over: one runs unsharded (with
-    a warning, once a process); more are not ported yet."""
+def _shard_group():
+    """The process group a sharded campaign spreads its runs over, and its
+    ranks: ``(None, 1)`` with no group or a world of one, which runs
+    unsharded and warns once a process."""
     global _WARNED_SINGLE_DEVICE
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    if n_dev > 1:
-        raise NotImplementedError(
-            f"run_campaign(shard=True) over {n_dev} devices is not ported yet (ROADMAP A14)"
-        )
+    group = distributed.client_group()
+    n = distributed.group_size(group)
+    if n > 1:
+        return group, n
     if not _WARNED_SINGLE_DEVICE:
         _WARNED_SINGLE_DEVICE = True
         warnings.warn(
-            "run_campaign(shard=True) is a no-op: only one local device is visible",
+            "run_campaign(shard=True) is a no-op: only one local device is visible. Start several ranks "
+            "(torchrun --nproc-per-node N) to shard it.",
             RuntimeWarning,
             stacklevel=4,
         )
-    return 1
+    return None, 1
 
 
 def _pad_clients(arr: np.ndarray, m_pad: int) -> np.ndarray:
@@ -275,10 +282,10 @@ class _GroupFusionError(Exception):
 
 
 def _peak_bytes_est(ctx, n_elems_per_dev: int) -> int:
-    """Estimated peak resident bytes of one device's aggregation path.
+    """Estimated peak resident bytes of one rank's aggregation path.
 
     Padded wire rows + the server's accumulator, per (cell, seed) element,
-    times the elements a device carries. Dense rounds hold all
+    times the elements a rank carries. Dense rounds hold all
     ``n_clients`` wire rows; streamed rounds hold one ``client_chunk``-row
     chunk plus the O(d) count/sum carry (fed_gm's buffer kind still holds
     every row — streaming it is a parity fallback, not a memory win).
@@ -316,14 +323,27 @@ class _GroupRunner:
     runners keeps only contexts, params, keys and data."""
 
     def __init__(self, task: Task, ctx_cfg: FLConfig, cfgs: list[FLConfig], seeds: tuple, client_x, client_y,
-                 data_idx, *, wire_flip: bool, masked: bool, with_acc: bool, device: torch.device):
+                 data_idx, *, wire_flip: bool, masked: bool, with_acc: bool, device: torch.device, group=None):
         self.with_acc = with_acc
+        self.group = group
         self.ctx = R.make_context(
             ctx_cfg, task.init_params, task.loss_fn, task.acc_fn, client_x[0] if masked else client_x,
             client_y[0] if masked else client_y, task.test, device=device, engine=task.engine,
             wire_flip=wire_flip, masked=masked,
         )
         self.params, self.keys, self.b_inits = _cell_inputs(self.ctx, cfgs, seeds, masked=masked)
+        runs = [R.cell_params(c) for c in cfgs for _ in seeds]
+        if group is not None:
+            # this rank's contiguous block of the runs, padded to a multiple
+            # of the ranks with copies of the last run
+            n, k = len(runs), distributed.group_rank(group)
+            block = -(-n // distributed.group_size(group))
+            mine = [min(i, n - 1) for i in range(k * block, (k + 1) * block)]
+            fields = {f.name: getattr(self.params, f.name) for f in dataclasses.fields(R.CellParams)}
+            self.params = R.CellParams(**{k: None if v is None else v[mine] for k, v in fields.items()})
+            self.keys, self.b_inits, runs = self.keys[mine], self.b_inits[mine], [runs[i] for i in mine]
+            if data_idx is not None:
+                data_idx = np.asarray(data_idx)[mine]
         self.batched = batched.batchable(ctx_cfg)
         self.data = None
         if masked:
@@ -334,7 +354,7 @@ class _GroupRunner:
         if self.batched:
             self.group_params = batched.device_params(self.params, device)
         else:
-            self.runs = [R.cell_params(c) for c in cfgs for _ in seeds]
+            self.runs = runs
 
     def run(self) -> tuple[dict, torch.Tensor]:
         if self.batched:
@@ -355,7 +375,13 @@ class _GroupRunner:
         return {k: torch.stack([t[k] for t in trajs]) for k in trajs[0]}, torch.stack(finals)
 
     def __call__(self) -> dict:
-        return self.run()[0]
+        """The whole group's trajectories: this rank's runs', and on a
+        sharded group every rank's, gathered in rank order (padded runs
+        included)."""
+        traj = self.run()[0]
+        if self.group is None:
+            return traj
+        return {k: distributed.all_gather_rows(v, self.group).flatten(0, 1) for k, v in traj.items()}
 
 
 def _prepare_group(
@@ -407,7 +433,10 @@ def _prepare_group(
         # stream threshold, so the group's rounds loop over chunks.
         ctx_cfg = dataclasses.replace(ctx_cfg, client_chunk=group.client_chunk)
     device = _task_device(task)
-    n_dev = _shard_devices(device) if shard else 1
+    shard_group, n_dev = _shard_group() if shard else (None, 1)
+    if shard_group is not None and (ctx_cfg.stream_shard or ctx_cfg.tree_shard):
+        raise ValueError("run_campaign(shard=True) spreads runs over the ranks; its cells cannot shard their own "
+                         "clients over them too (unset stream_shard/tree_shard)")
 
     key = (
         group.signature, group.m_pad, group.fused, group.client_chunk,
@@ -415,10 +444,11 @@ def _prepare_group(
         tuple(group_cfgs), tuple(spec.seeds), str(device), task.engine,
     )
     prepare = functools.partial(
-        _GroupRunner, task, wire_flip=wire_flip, masked=group.fused, with_acc=with_acc, device=device
+        _GroupRunner, task, wire_flip=wire_flip, masked=group.fused, with_acc=with_acc, device=device,
+        group=shard_group,
     )
     args = (ctx_cfg, group_cfgs, tuple(spec.seeds), client_x, client_y, data_idx)
-    return prepare, args, key, keepalive, n, n, n_dev
+    return prepare, args, key, keepalive, n, -(-n // n_dev) * n_dev, n_dev
 
 
 def _demote_group(group: PlanGroup, cfgs: list[FLConfig]) -> list[PlanGroup]:

@@ -16,8 +16,10 @@ walks the plan. Three decisions are encoded per group:
    ``CellParams.m_active``; the 0/1 active-client mask folds into the
    Eq.-13 vote counts through the weighted-count path, so the wire format
    is unchanged. A bucket with a single M executes the unmasked round.
-3. **Placement.** ``shard=True`` records the placement decision; one
-   device runs the group unsharded (ROADMAP A14 ports the mesh).
+3. **Placement.** ``shard=True`` records the placement decision: the
+   executor spreads each group's runs over the ranks of the client group
+   (:func:`repro_torch.distributed.client_group`), and one rank runs the
+   group unsharded.
 
 Fusion requirements (checked per cell by :func:`fusable`): synchronous
 rounds at full participation with no Byzantine cohort, dense wires, and a

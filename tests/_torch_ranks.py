@@ -1,0 +1,132 @@
+"""Gloo ranks on the CPU for the port's mesh tests.
+
+:func:`run_ranks` spawns ``world`` processes that join one gloo process
+group through a ``FileStore`` under the test's temporary directory (no
+port is opened, so several test workers can spawn at once), each on one
+torch thread; every rank runs the same job and saves what it returns to a
+file, which the parent reads back. The jobs import the port only (no
+JAX): the parent passes them the task's numpy arrays, and holds what they
+return to its own runs.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import pathlib
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def _entry(rank: int, world: int, store: str, out: str, job: str, kwargs: dict) -> None:
+    torch.set_num_threads(1)
+    if torch.cuda.is_available():
+        # the card tests' settings: every rank shares cuda:0
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank, world_size=world)
+    try:
+        result = globals()[job](**kwargs)
+        torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(world: int, tmp_path: pathlib.Path, job: str, timeout: float = 300.0, **kwargs) -> list:
+    """Run ``job(**kwargs)`` on ``world`` gloo ranks; their results in rank
+    order. A rank that fails or outlives ``timeout`` seconds fails the call
+    (every rank is then stopped)."""
+    out = tmp_path / f"{job}-out"
+    out.mkdir(parents=True, exist_ok=True)
+    ctx = mp.start_processes(_entry, args=(world, str(tmp_path / f"{job}-store"), str(out), job, kwargs),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{job} on {world} ranks ran past {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _fl_task(p0, cx, cy, test):
+    from repro_torch.models import vision as tv
+
+    return (p0, functools.partial(tv.xent_loss, tv.mlp_logits), functools.partial(tv.accuracy, tv.mlp_logits),
+            cx, cy, test)
+
+
+def fl_run(cfg: dict, task: tuple, rounds: int, device: str = "cpu") -> dict:
+    """One FLSimulation on ``device``: each round's metrics (theta included),
+    the final global model (on the CPU), the ranks the round spread over
+    and the kernels' launches."""
+    from repro_torch.fl import FLConfig, FLSimulation
+    from repro_torch.fl.hierarchy import tree_shard_devices
+    from repro_torch.kernels import _build
+
+    p0, loss_fn, acc_fn, cx, cy, test = _fl_task(*task)
+    _build.reset_launches()
+    sim = FLSimulation(FLConfig(**cfg), p0, loss_fn, acc_fn, cx, cy, test, device=device)
+    mets = [{k: v.cpu() for k, v in m.items()} for _, m in sim.iter_rounds(rounds)]
+    group = sim.ctx.group
+    return {"metrics": mets, "w_global": sim.w_global.cpu(), "tree_ranks": tree_shard_devices(sim.ctx),
+            "ranks": 1 if group is None else dist.get_world_size(group), "launches": dict(_build.launches),
+            "client_rows": sim.ctx.client_x.shape[0], "data_offset": sim.ctx.data_offset}
+
+
+def fl_runs(cfgs: dict, task: tuple, rounds: int, device: str = "cpu") -> dict:
+    """:func:`fl_run` of each named config, in order, on every rank."""
+    return {name: fl_run(cfg, task, rounds, device) for name, cfg in cfgs.items()}
+
+
+def campaign(base: dict, cells: list, seeds: tuple, task: tuple, mesh: tuple) -> dict:
+    """``run_campaign(shard=True)`` under a CPU mesh of ``mesh = (shape,
+    names)``, whose "data" dimension the runs spread over: each cell's
+    metrics and the group records."""
+    from repro_torch.distributed import set_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sim import CampaignSpec, CellSpec, CompileCache, Task, run_campaign
+
+    p0, loss_fn, acc_fn, cx, cy, test = _fl_task(*task)
+    spec = CampaignSpec(base=base, cells=tuple(CellSpec(n, o) for n, o in cells), seeds=seeds)
+    t = Task(p0, loss_fn, acc_fn, cx, cy, test, device="cpu")
+    with set_mesh(make_mesh(*mesh, device_type="cpu")):
+        res = run_campaign(spec, lambda cfg: t, shard=True, compile_cache=CompileCache())
+    return {"cells": {c.name: {k: np.asarray(v) for k, v in c.metrics.items()} for c in res.cells},
+            "groups": res.groups}
+
+
+def lm_pod_step(cfg, params: dict, batch: dict, b: float, key: torch.Tensor, fl: dict, device: str = "cpu") -> dict:
+    """The LM round's step on a ("pod",) mesh of every rank on ``device``,
+    on the whole (m_seq, n_pods, ...) batch: the new parameters (on the
+    CPU), b, the metrics, the collectives and the kernels' launches."""
+    from repro_torch import distributed, tree
+    from repro_torch.kernels import _build
+    from repro_torch.launch import fl_step
+    from repro_torch.launch.mesh import make_mesh
+
+    step = fl_step.make_fl_train_step(cfg, fl_step.DistFLConfig(**fl))
+    mesh = make_mesh((dist.get_world_size(),), ("pod",), device)
+    params, batch = (tree.tree_map(lambda x: x.to(device), t) for t in (params, batch))
+    distributed.reset_collectives()
+    _build.reset_launches()
+    with distributed.set_mesh(mesh):
+        new, b_new, metrics = step(params, torch.tensor(b, device=device), batch, key.to(device))
+    return {"params": [w.cpu() for w in tree.leaves(new)], "b": float(b_new),
+            "metrics": {k: float(v) for k, v in metrics.items()}, "collectives": dict(distributed.collectives),
+            "launches": dict(_build.launches)}
+
+
+def several(**jobs) -> dict:
+    """Each named ``(job, kwargs)`` in turn on every rank: their results by
+    name."""
+    return {name: globals()[job](**kwargs) for name, (job, kwargs) in jobs.items()}

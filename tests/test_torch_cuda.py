@@ -848,3 +848,61 @@ def test_serve_engine_on_card_equals_cpu_engine(dev, f32_convolutions):
     g = torch.Generator().manual_seed(0)
     wide = torch.randint(0, 4, (8, 151_936), generator=g).float()
     assert torch.equal(torch.argmax(wide.to(dev), dim=-1).cpu(), torch.argmax(wide, dim=-1))
+
+
+def test_stream_shard_over_two_ranks_on_card_equals_one_process(dev, deterministic, tmp_path):
+    """Two gloo ranks sharing the card run a stream_shard round of 6
+    stateless clients, 3 a rank in one chunk, through the kernels: each
+    rank's estimate, loss and b equal the one-process round's (the same
+    chunks) bit for bit, with one B1 a round and one B4 a local step on
+    each rank."""
+    import warnings
+
+    from _torch_ranks import run_ranks
+    from repro_torch.fl import FLConfig, FLSimulation
+    from repro_torch.models import accuracy, mlp_logits, xent_loss
+
+    p0, cx, cy, test = _mlp_task()
+    cfg = dict(n_clients=6, rounds=2, local_epochs=2, use_kernels=True, client_chunk=3, stateless_clients=True,
+               stream_shard=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # one process: the one-device no-op
+        sim = FLSimulation(FLConfig(**cfg), p0, functools.partial(xent_loss, mlp_logits),
+                           functools.partial(accuracy, mlp_logits), cx, cy, test, device=dev)
+    want = [{k: v.cpu() for k, v in m.items()} for _, m in sim.iter_rounds()]
+    for r in run_ranks(2, tmp_path, "fl_run", cfg=cfg, task=(p0, cx, cy, test), rounds=2, device="cuda"):
+        assert r["ranks"] == 2 and r["client_rows"] == 3
+        assert r["launches"] == {"stoch_quant_pack": 2, "prox_sgd": 8}
+        assert torch.equal(r["w_global"], sim.w_global.cpu())
+        for a, c in zip(r["metrics"], want):
+            assert all(torch.equal(a[k], c[k]) for k in ("theta", "loss", "b"))
+
+
+def test_pod_axis_step_on_card_equals_one_process(dev, deterministic, tmp_path):
+    """The reduced qwen2's LM step with 4 clients as (2 steps, 2 pods): over
+    a ("pod",) mesh of two gloo ranks sharing the card, each rank's new
+    parameters, b and losses equal the one-process step's bit for bit; each
+    rank launches B1 once a (client, leaf) for its 2 clients and B3 once a
+    leaf over all 4 clients' gathered rows."""
+    from _torch_ranks import run_ranks
+    from repro_torch import configs, tree
+    from repro_torch.data import make_lm_streams
+    from repro_torch.launch import fl_step
+    from repro_torch.models import build_specs, init_params
+
+    cfg = configs.reduced(configs.get_config("qwen2-1.5b"))
+    params = init_params(build_specs(cfg), prng.key(0))
+    toks = np.stack([s.reshape(2, 2, 17) for s in make_lm_streams(0, 4, cfg.vocab, 17, 4)]).reshape(2, 2, 2, 2, 17)
+    t = torch.from_numpy(toks)
+    batch = {"tokens": t[..., :-1], "labels": t[..., 1:]}
+    _, kr = prng.split(prng.key(1), 2)
+    fl = dict(clients_per_round=4, local_steps=2)
+    step = fl_step.make_fl_train_step(cfg, fl_step.DistFLConfig(**fl))
+    new, b, m = step(tree.tree_map(lambda w: w.to(dev), params), torch.tensor(0.01, device=dev),
+                     tree.tree_map(lambda x: x.to(dev), batch), kr.to(dev))
+    n_leaves = len(tree.leaves(new))
+    for r in run_ranks(2, tmp_path, "lm_pod_step", cfg=cfg, params=params, batch=batch, b=0.01, key=kr, fl=fl,
+                       device="cuda"):
+        assert all(torch.equal(a, c.cpu()) for a, c in zip(r["params"], tree.leaves(new)))
+        assert r["b"] == float(b) and r["metrics"] == {k: float(v) for k, v in m.items()}
+        assert r["launches"] == {"stoch_quant_pack": 2 * n_leaves, "bit_aggregate": n_leaves}

@@ -28,3 +28,11 @@ def test_pattern_catches_what_it_must():
     for ok in ("import repro_torch", "from repro_torch.core import x", "from . import prng",
                "# jax.random.split"):
         assert not FORBIDDEN.search(ok), ok
+
+
+def test_the_mesh_modules_are_checked():
+    """The mesh layer and the test ranks' jobs are among the files held."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"src/repro_torch/distributed.py", "src/repro_torch/launch/mesh.py"} <= names
+    hits = FORBIDDEN.findall((ROOT / "tests" / "_torch_ranks.py").read_text())
+    assert not hits, f"tests/_torch_ranks.py imports {hits}"

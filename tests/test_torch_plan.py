@@ -4,10 +4,10 @@ groups equal per-group execution (rtol 1e-5, atol 1e-6, that file's bar)
 for all five aggregators; the preparation cache prepares nothing on a
 second identical run, is LRU-bounded and keys ``with_acc``; an explicit
 plan owns its flags; a shape mismatch demotes a fused group with a
-warning; ``shard=True`` on one device warns once and runs unsharded.
-
-The 4-virtual-device parity and the throughput benchmark stay with ROADMAP
-A14 and ``benchmarks/``.
+warning; ``shard=True`` on one rank warns once and runs unsharded, and on
+several ranks pads, splits and gathers each group's runs (here with the
+collectives faked in one process; ``tests/test_torch_shard.py`` runs real
+gloo ranks).
 """
 
 import dataclasses
@@ -265,14 +265,32 @@ def test_shard_single_device_warns_once(task_factory, monkeypatch):
 
 
 def test_shard_over_several_cards_is_not_ported(task_factory, monkeypatch):
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    spec = m_sweep_spec("probit_plus", seeds=(0,))
+    """shard=True on a group of two ranks, as rank 0 sees it, with the
+    collectives faked in one process (the other rank's runs are this
+    rank's again): every group reports n_devices 2, pads its runs to a
+    multiple of 2 with copies of the last run and reckons its memory for
+    the half it runs; this rank's runs equal the unsharded campaign's."""
+    from repro_torch import distributed
+    from repro_torch.sim import campaign as campaign_mod
 
-    def on_card(cfg):
-        return dataclasses.replace(task_factory(cfg), device="cuda")
-
-    with pytest.raises(NotImplementedError, match="A14"):
-        run_campaign(spec, on_card, shard=True, compile_cache=CompileCache())
+    spec = m_sweep_spec("probit_plus", seeds=(0, 1, 2))
+    plain = run_campaign(spec, task_factory, compile_cache=CompileCache())
+    monkeypatch.setattr(distributed, "client_group", lambda dim="data": "two ranks")
+    monkeypatch.setattr(distributed, "group_size", lambda group: 1 if group is None else 2)
+    monkeypatch.setattr(distributed, "group_rank", lambda group: 0)
+    monkeypatch.setattr(distributed, "all_gather_rows", lambda x, group: torch.stack([x, x]))
+    res = run_campaign(spec, task_factory, shard=True, compile_cache=CompileCache())
+    assert [g["n_devices"] for g in res.groups] == [2] * len(res.groups)
+    for g, p in zip(res.groups, plain.groups):
+        assert g["n_elems"] == p["n_elems"] and g["n_elems_padded"] == -(-p["n_elems"] // 2) * 2
+        assert g["peak_bytes_est"] * p["n_elems"] == p["peak_bytes_est"] * (g["n_elems_padded"] // 2)
+    n_seeds = len(spec.seeds)
+    block = -(-len(spec.cells) * n_seeds // 2)  # the runs rank 0 runs, in (cell, seed) order
+    for j, (cell, want) in enumerate(zip(res.cells, plain.cells)):
+        for s in range(n_seeds):
+            if j * n_seeds + s < block:
+                for metric in ("loss", "b", "acc"):
+                    np.testing.assert_array_equal(cell.metrics[metric][s], want.metrics[metric][s])
 
 
 def _tensors(obj, depth=0):

@@ -281,17 +281,11 @@ def test_flsimulation_needs_a_card_unless_told(monkeypatch):
     {"edge_trim": 1},
 ])
 def test_unported_options_raise(kw):
-    """The options that raised NotImplementedError until the k-bit, top-k
-    and tree paths were ported (ROADMAP A8-A10): the port now does with
-    each what the reference's FLConfig does (the same ValueError message,
-    or acceptance), except stream_shard, which still raises
-    NotImplementedError naming ROADMAP A14 (so does a valid sharded tree,
-    tests/test_torch_tree.py::test_tree_shard_raises_naming_a14)."""
+    """The options that raised NotImplementedError until the k-bit, top-k,
+    tree and sharded paths were ported (ROADMAP A8-A10, A14a): the port now
+    does with each what the reference's FLConfig does (the same ValueError
+    message, or acceptance)."""
     cfg = dict(n_clients=N_CLIENTS, **kw)
-    if "stream_shard" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-            FLConfig(**cfg)
-        return
     try:
         JConfig(**cfg)
     except ValueError as err:

@@ -15,6 +15,7 @@ dense rounds are in ``tests/test_torch_round.py``.
 """
 
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -292,5 +293,27 @@ def test_stream_round_against_reference(kw):
 
 
 def test_stream_shard_raises_naming_a14():
-    with pytest.raises(NotImplementedError, match="A14"):
-        FLConfig(stream_shard=True)
+    """stream_shard is ported: the reference's stream_shard checks raise its
+    ValueErrors word for word, and without a process group the round warns
+    the reference's one-device no-op (as the reference's context does) and
+    equals the unsharded streamed round bit for bit
+    (tests/test_torch_shard.py runs it over ranks)."""
+    for kw in (dict(stream_shard=True), dict(stream_shard=True, client_chunk=2),
+               dict(stream_shard=True, client_chunk=2, stateless_clients=True, participation=0.5),
+               dict(stream_shard=True, client_chunk=2, stateless_clients=True, aggregator="fed_gm")):
+        with pytest.raises(ValueError) as want:
+            JConfig(n_clients=N, **kw)
+        with pytest.raises(ValueError, match=re.escape(str(want.value))):
+            FLConfig(n_clients=N, **kw)
+    one_device = "stream_shard is a no-op: only one local device is visible"
+    p0, cx, cy, test = _task()
+    with pytest.warns(RuntimeWarning, match=one_device):
+        jr.make_context(JConfig(**_cfg(client_chunk=4, stateless_clients=True, stream_shard=True)), p0,
+                        functools.partial(jv.xent_loss, jv.mlp_logits), functools.partial(jv.accuracy, jv.mlp_logits),
+                        cx, cy, test)
+    with pytest.warns(RuntimeWarning, match=one_device):
+        sharded, sm = _run(client_chunk=4, stateless_clients=True, stream_shard=True)
+    plain, pm = _run(client_chunk=4, stateless_clients=True)
+    assert torch.equal(sharded.w_global, plain.w_global)
+    for a, c in zip(sm, pm):
+        assert set(a) == set(c) and all(torch.equal(a[k], c[k]) for k in a)

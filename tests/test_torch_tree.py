@@ -16,6 +16,7 @@ buffered tree under edge_replay and a k-bit cell against the reference's
 """
 
 import functools
+import re
 import types
 
 import numpy as np
@@ -196,12 +197,34 @@ def test_config_checks_match_reference(kw, match):
 
 
 def test_tree_shard_raises_naming_a14():
-    """A sharded tree the reference accepts is the one field left unported
-    beside stream_shard."""
+    """tree_shard is ported: a sharded tree the reference accepts, the port
+    accepts; the reference's tree_shard checks raise its ValueErrors; and
+    without a process group the round warns the reference's one-device
+    no-op (as the reference's context does) and equals the unsharded tree
+    bit for bit (tests/test_torch_shard.py runs it over ranks)."""
     kw = dict(OK, tree_edges=2, client_chunk=2, stateless_clients=True, tree_shard=True)
-    JConfig(**kw)
-    with pytest.raises(NotImplementedError, match="A14"):
-        FLConfig(**kw)
+    assert FLConfig(**kw) == FLConfig(**kw) and JConfig(**kw).tree_shard
+    for bad in (dict(kw, stateless_clients=False), dict(kw, n_clients=8, participation=0.5),
+                dict(kw, n_clients=5)):
+        with pytest.raises(ValueError) as want:
+            JConfig(**bad)
+        with pytest.raises(ValueError, match=re.escape(str(want.value))):
+            FLConfig(**bad)
+    p0, cx, cy, test = _task()
+    one_device = "tree_shard is a no-op: only one local device is visible"
+    with pytest.warns(RuntimeWarning, match=one_device):
+        jh_ctx = repro.fl.rounds.make_context(JConfig(**dict(BASE, tree_edges=2, client_chunk=2,
+                                                             stateless_clients=True, tree_shard=True)),
+                                              p0, functools.partial(jv.xent_loss, jv.mlp_logits),
+                                              functools.partial(jv.accuracy, jv.mlp_logits), cx, cy, test)
+    assert jh.tree_shard_devices(jh_ctx) == 1
+    tree_kw = dict(tree_edges=2, client_chunk=2, stateless_clients=True)
+    with pytest.warns(RuntimeWarning, match=one_device):
+        sharded, sm = _run(tree_shard=True, **tree_kw)
+    plain, pm = _run(**tree_kw)
+    assert torch.equal(sharded.w_global, plain.w_global)
+    for a, c in zip(sm, pm):
+        assert set(a) == set(c) and all(torch.equal(a[k], c[k]) for k in a)
 
 
 def test_campaign_tree_and_kbit_cells_against_reference():
