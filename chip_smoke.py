@@ -136,8 +136,9 @@ Phases (any failure raises and exits non-zero before the result line):
    two rounds of PRoBit+ on the kernel wire beside their ``engine="ref"``
    steps, with the same clients and local steps: (r) Qwen3-30B-A3B at its
    published widths (d_model 2,048, 128 experts, top-8, expert width 768,
-   vocab 151,936) cut to 4 of its 48 layers (13 leaves, d =
-   3,114,813,440; B1 104, B3 26), and (s) xLSTM-350M at its published
+   vocab 151,936) cut to 2 of its 48 layers (13 leaves, d =
+   1,868,572,672; B1 104, B3 26; 4 layers until phase 12 took the time;
+   its round 0 is kept for phase 12), and (s) xLSTM-350M at its published
    widths cut to 8 of its 24 layers, one 7:1 pattern of mLSTM and sLSTM
    blocks (92 leaves, d = 241,634,360; whole until phase 11 took the time)
    at 512 tokens a sequence, so the mLSTM carries its state across two
@@ -145,7 +146,8 @@ Phases (any failure raises and exits non-zero before the result line):
    Mamba hybrid and the frontends (ROADMAP A12c, A12e), the same way: (t)
    HuBERT-XLarge whole (48 layers, non-causal, layernorm, tanh-GELU, the
    encoder-only head; 15 leaves, d = 945,258,240) on the trainer's stub of
-   128 frames, all masked, 2 rounds (B1 120, B3 30); (u) Pixtral-12B at its
+   128 frames, all masked, 1 round (B1 60, B3 15; 2 rounds until PR 24's
+   phase 12); (u) Pixtral-12B at its
    published widths (d_model 5,120, 32/8 heads of 128, d_ff 14,336, vocab
    131,072) cut to 2 of its 40 layers (13 leaves, d = 1,913,676,800 with
    the projector), 1,024 stub patches before 1,024 tokens, 1 round (B1 52,
@@ -154,7 +156,11 @@ Phases (any failure raises and exits non-zero before the result line):
    heads; d_ff 24,576) cut to the pattern (mamba, attn), 2 of its 72 layers
    and 2 of its 16 experts, top-2 kept (27 leaves, d = 3,457,064,960), at
    512 tokens, so the Mamba scan carries its state across two chunks of
-   256, 1 round (B1 108, B3 27). Phase 5 then times B1 and B3 at
+   256, 1 round (B1 108, B3 27). The rounds run without the unit
+   checkpoint (the trainer's ``--remat`` off); after (p), (r) and (t)
+   (REMAT_PROBE) one client's forward alone and its forward and backward
+   with and without the checkpoint are timed, their gradients bit for bit
+   (``remat_probe`` in the line). Phase 5 then times B1 and B3 at
    qwen2-1.5b's largest leaf and at the MoE's, ``blocks[0].ffn.w1`` of (r)
    (``kernels_at_lm_leaf``,
    ``kernels_at_lm_moe_leaf``; ``at_lm_leaf`` and ``at_lm_moe_leaf`` in
@@ -200,15 +206,41 @@ Phases (any failure raises and exits non-zero before the result line):
    (B1, B4; B3 in (y) and (z)); the line gives each run's round seconds,
    collectives (calls, bytes, host ms), each rank's peak and the spawn and
    set-up seconds. Two ranks on one card measure the protocol's host and
-   collective cost, not a speed-up;
+   collective cost, not a speed-up. The ranks' process group is the
+   port's host-staged backend (``distributed.STAGED_BACKEND``: gloo on host
+   copies), which DTensor's own collectives of phase 12 need;
+12. model axis (ROADMAP A14b, on phase 11's ranks; the ``"phase":
+   "model_axis"`` line): (aa) after (z) each rank runs one round of phase
+   9's (r) (Qwen3-30B-A3B cut to 2 layers, its clients, first batch and
+   key) with the parameters as DTensors on a ("data", "model") = (1, 2)
+   mesh (MODEL_AXIS_MESH; each rank draws only its shards) and each
+   pattern unit checkpointed (the trainer's ``--remat``): 64 of the 128
+   experts a rank, the attention heads, the FFN and the vocabulary over
+   "model", the f32 router replicated. Each rank holds (r)'s round 0, kept
+   by phase 9 in the ranks' temporary directory: b exact, both losses within rtol 1e-3, at most 0.5%
+   of the parameters apart (MODEL_AXIS_BARS, counted once over the ranks);
+   each launches B1 once a (client, leaf) and B3 once a leaf over the
+   leaves it holds (52 and 13), and prints its step seconds, peak and
+   collectives (the staged backend's calls, bytes and host ms). (bb) beside
+   phase 9 (the card busy, the host mostly idle), a subprocess runs
+   ``python -m repro_torch.launch.dryrun`` with DRYRUN_ARGV (Qwen3-30B-A3B
+   whole at train_4k on a fake world of 2 x 16 x 16 ranks, fake tensors on
+   device type "cuda"), read after the ranks and killed at
+   DRYRUN_DEADLINE_S: its report must say ``status: ok``, name collectives
+   over each of "pod", "data" and "model", and count the step's dot FLOPs
+   (a device's times 512) within bounds that the config alone gives
+   (:func:`dryrun_dot_band`); the line prints its wall and trace seconds,
+   its dot FLOPs over ``6 N T`` and its peak bytes a device beside the
+   card's memory;
 6. with ``--profile`` only: (a) on the MLP and on ``resnet18w64-m100``:
    the device busy share as nvidia-smi reads it over unprofiled rounds and
    as the union of the kernels' records of one round under
    ``torch.profiler`` (by CUDA stream), stream ms by round step (CUDA
    events), the round's FLOPs and its top operators and kernels.
 
-The last three lines are the per-kernel JSON, the card line and
-``{"ok": true, "device": {...}}``.
+The last four lines are the script's total seconds (``"phase":
+"total"``), the per-kernel JSON, the card line and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -327,19 +359,29 @@ LM_VARIANTS = {
     "p-avg": ["--rounds", "1", "--aggregator", "fedavg_fp32"],
 }
 LM_Q = {"clients": 4, "client_chunk": 2, "rounds": 2}
+# The trainer's --remat (each pattern unit checkpointed, the reference's
+# backbone default) is off in phase 9's rounds; lm_remat_probe times one
+# client's forward and backward with and without it on these runs' batches
+# (phase 12's (aa) runs its round with it on).
+REMAT_PROBE = ("p", "r", "t")
+REMAT_PROBE_REPS = 3
 # (r) and (s): the MoE FFN and the xLSTM mixers (ROADMAP A12b, A12d) in the
 # same round, with LM_COMMON's clients, local steps and learning rate. The
 # run's name, the config, its cut (dataclasses.replace of the published
 # config; the trainer has no depth flag) and the trainer's extra flags.
 # Qwen3-30B-A3B whole is 30,532,110,336 parameters (61.1 GB in bf16); the
 # round holds the parameters, a local copy, the next copy and the
-# gradients, so it is cut to 4 of its 48 layers at its published widths.
+# gradients, so it is cut to 2 of its 48 layers at its published widths (4
+# until phase 12 took the time; phase 12 holds its model axis to this run's
+# round 0).
 # xLSTM-350M keeps 8 of its 24 layers, one whole 7:1 pattern (7 mLSTM, 1
 # sLSTM), at 512 tokens a sequence: two mLSTM chunks of 256. It ran whole
 # until phase 11 (the mesh) pushed the script past the 1,000 s ceiling: its
 # sLSTM loop over time is the slowest per parameter of phase 9.
 # (t), (u) and (v): the frontends and the Mamba hybrid (ROADMAP A12e,
-# A12c). HuBERT-XLarge runs whole on the trainer's stub frames. Pixtral-12B
+# A12c). HuBERT-XLarge runs whole on the trainer's stub frames, 1 round (2
+# until phase 12 and the unit checkpoint, now off in phase 9, pushed the
+# script past the 1,000 s ceiling). Pixtral-12B
 # (12.27e9 parameters whole) keeps 2 of its 40 layers and its 1,024 stub
 # patches; its 1,024 tokens make 2,048 positions, whole chunks of the
 # attention's 512 and 1,024 (the reference's rule). Jamba-1.5-Large's MoE
@@ -347,11 +389,11 @@ LM_Q = {"clients": 4, "client_chunk": 2, "rounds": 2}
 # the reduced config's pattern (mamba, attn), 2 of its 72 layers and 2 of
 # its 16 experts (top-2), at 512 tokens: two Mamba chunks of 256.
 LM_FAMILIES = {
-    "r": ("qwen3-moe-30b-a3b-l4-m4", "qwen3-moe-30b-a3b", {"n_layers": 4}, ["--rounds", "2"],
-          {"d": 3_114_813_440, "leaves": 13}),
+    "r": ("qwen3-moe-30b-a3b-l2-m4", "qwen3-moe-30b-a3b", {"n_layers": 2}, ["--rounds", "2"],
+          {"d": 1_868_572_672, "leaves": 13}),
     "s": ("xlstm-350m-l8-m4", "xlstm-350m", {"n_layers": 8}, ["--rounds", "2", "--seq", "512"],
           {"d": 241_634_360, "leaves": 92}),
-    "t": ("hubert-xlarge-m4", "hubert-xlarge", {}, ["--rounds", "2"], {"d": 945_258_240, "leaves": 15}),
+    "t": ("hubert-xlarge-m4", "hubert-xlarge", {}, ["--rounds", "1"], {"d": 945_258_240, "leaves": 15}),
     "u": ("pixtral-12b-l2-m4", "pixtral-12b", {"n_layers": 2}, ["--rounds", "1", "--seq", "1024"],
           {"d": 1_913_676_800, "leaves": 13}),
     "v": ("jamba-1.5-large-398b-l2-m4", "jamba-1.5-large-398b",
@@ -381,8 +423,9 @@ SERVE_T, SERVE_SEED, SERVE_CHECK, SERVE_RING = 0.8, 11, 128, 64
 SERVE_BARS = {"dense": (0.1, 0.004), "mamba": (0.4, 0.006)}
 # The largest leaves at which phase 5 times B1 (one client's row) and B3
 # (the round's 4 rows): qwen2-1.5b's blocks[0].ffn.w1 (28 x 1,536 x 8,960)
-# and (r)'s blocks[0].ffn.w1 (4 x 128 x 2,048 x 768).
-LM_LEAVES = {"at_lm_leaf": 28 * 1_536 * 8_960, "at_lm_moe_leaf": 4 * 128 * 2_048 * 768}
+# and (r)'s blocks[0].ffn.w1 (2 x 128 x 2,048 x 768: it moves with (r)'s
+# cut, 4 layers until phase 12).
+LM_LEAVES = {"at_lm_leaf": 28 * 1_536 * 8_960, "at_lm_moe_leaf": 2 * 128 * 2_048 * 768}
 # Phase 11: the client axis over a mesh of gloo ranks (ROADMAP A14a). The
 # machine has one card and NCCL refuses two ranks on one device, so
 # MESH_RANKS gloo ranks share cuda:0 (gloo crosses CUDA tensors through host
@@ -399,7 +442,25 @@ MESH_FL = {
 }
 MESH_LM_CUT = {"n_layers": 2}
 MESH_LM_LAYOUTS = {"pods": (2, 2), "one_pod": (4, 1)}  # (m_seq, n_pods) of the 4 clients
-MESH_TIMEOUT_S = 300
+MESH_TIMEOUT_S = 420
+# Phase 12: the model axis (ROADMAP A14b), on phase 11's ranks and alongside
+# them. (aa) each rank, after (z), runs one round of phase 9's (r)
+# (Qwen3-30B-A3B cut to 2 layers, (r)'s clients, batches and key) with the
+# parameters as DTensors on a ("data", "model") = (1, MESH_RANKS) mesh: 64 of
+# the 128 experts a rank, the heads, the FFN and the 151,936-token
+# vocabulary over "model", the f32 router replicated (FSDP over "data" is
+# one rank wide); held to (r)'s round 0 with the port's bf16 bars (b exact,
+# losses within rtol 1e-3, at most 0.5% of the parameters apart). DTensor's
+# own collectives cross the ranks through the host-staged backend
+# (distributed.STAGED_BACKEND), which phase 11's ranks now start. (bb) the
+# dry run of the whole model at train_4k on a fake world of 2 x 16 x 16
+# ranks, a subprocess started before phase 9 (whose rounds keep the card,
+# not the host, busy) and read after the ranks, with DRYRUN_DEADLINE_S.
+MODEL_AXIS_MESH = ((1, MESH_RANKS), ("data", "model"))
+MODEL_AXIS_BARS = {"loss_rtol": 1e-3, "params_apart": 0.005}
+DRYRUN_ARGV = ["--arch", "qwen3-moe-30b-a3b", "--shape", "train_4k", "--multi-pod"]
+DRYRUN_WORLD = 512
+DRYRUN_DEADLINE_S = 900
 
 
 def require(cond, msg: str) -> None:
@@ -1988,7 +2049,58 @@ def lm_stage_ms(fn) -> dict:
     return out
 
 
-def lm_run(dev, name: str, argv: list, with_ref: bool, cut: dict | None = None, keep: bool = False) -> dict:
+def lm_remat_probe(dev, run, params, batch) -> dict:
+    """The local step's model alone on one client's first batch of ``batch``
+    (``run``'s round batch): the forward without gradients, and the
+    forward and backward (``fl_step._value_and_grad``) with each pattern
+    unit checkpointed (the trainer's ``--remat``) and without: stream ms
+    (CUDA events; the least of REMAT_PROBE_REPS) and the peak GB above the
+    memory held before each. The two gradients must agree bit for bit."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.launch import fl_step
+    from repro_torch.models import train_loss
+
+    sb = {k: v[0, 0, 0] for k, v in batch.items()}
+    leaves = tree.leaves(params)
+
+    def timed(fn):
+        best, peak = float("inf"), 0
+        for _ in range(REMAT_PROBE_REPS):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            torch.cuda.synchronize()
+            best = min(best, a.elapsed_time(b))
+            peak = max(peak, torch.cuda.max_memory_allocated(dev) - base)
+            del out
+        return best, peak / 1e9
+
+    def forward():
+        with torch.no_grad():
+            return train_loss(params, sb, run.cfg)
+
+    out = {}
+    out["forward_ms"], out["forward_peak_gb"] = timed(forward)
+    for tag, remat in (("plain", False), ("remat", True)):
+        out[f"fwd_bwd_{tag}_ms"], out[f"fwd_bwd_{tag}_peak_gb"] = timed(
+            lambda remat=remat: fl_step._value_and_grad(leaves, params, sb, run.cfg, remat))
+    g0 = fl_step._value_and_grad(leaves, params, sb, run.cfg, False)[1]
+    g1 = fl_step._value_and_grad(leaves, params, sb, run.cfg, True)[1]
+    differ = sum(int((x != y).sum()) for x, y in zip(g0, g1))
+    require(differ == 0, f"remat probe: {differ} gradient entries differ with the unit checkpoint")
+    del g0, g1
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_run(dev, name: str, argv: list, with_ref: bool, cut: dict | None = None, keep: bool = False,
+           keep_round0: bool = False, remat_probe: bool = False) -> dict:
     """One phase-9 variant through ``repro_torch.launch.train``'s own set-up,
     batches and step (``argv`` the trainer's flags; ``cut`` replaces fields
     of the ``--arch`` config, as the trainer has no depth flag): each
@@ -2000,7 +2112,10 @@ def lm_run(dev, name: str, argv: list, with_ref: bool, cut: dict | None = None, 
     ``engine="ref"`` step on the same inputs (new parameters bit for bit,
     b and both losses exact; it must launch nothing). With ``keep`` the
     result also holds the config and the final parameters (``"served"``),
-    for phase 10."""
+    for phase 10; with ``keep_round0``, round 0's new parameters (on the
+    host), b and losses (``"round0"``), for phase 12; with
+    ``remat_probe``, :func:`lm_remat_probe` on round 0's batch and the
+    final parameters (``"remat_probe"``)."""
     import dataclasses
 
     import numpy as np
@@ -2076,17 +2191,22 @@ def lm_run(dev, name: str, argv: list, with_ref: bool, cut: dict | None = None, 
         require(moved > 0, f"lm {name} round {r}: no parameter moved")
         rec["params_moved"] = moved
         recs.append(rec)
+        if keep_round0 and r == 0:
+            round0 = {"params": [w.cpu() for w in tree.leaves(new)], "b": rec["b"], "loss_first": rec["loss_first"],
+                      "loss_last": rec["loss_last"]}
         params, b = new, b_new
         del new
     want = lm_expected_launches(n_leaves, args.clients, args.rounds, args)
     require(launches == want, f"lm {name}: launches {launches} != expected {want}")
+    probe = lm_remat_probe(dev, run, params, train.round_batch(run, args, 0)) if remat_probe else None
     served = (run.cfg, params) if keep else None
     del params, run, ref_step
     torch.cuda.empty_cache()
     return {"rounds": recs, "launches": launches, "expected_launches": want, "d": d, "leaves": n_leaves,
             "wire": wire, "init_seconds": init_s, "busy_last_round": busy,
             "stage_stream_ms_next_to_last_round": stages, "with_ref": with_ref,
-            **({"served": served} if keep else {})}
+            **({"served": served} if keep else {}), **({"round0": round0} if keep_round0 else {}),
+            **({"remat_probe": probe} if remat_probe else {})}
 
 
 def lm_pytree_ef(dev) -> dict:
@@ -2149,17 +2269,22 @@ def lm_pytree_ef(dev) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def lm_runs(dev) -> dict:
+def lm_runs(dev) -> tuple[dict, dict]:
     """Phase 9: LM_VARIANTS, (q), then LM_FAMILIES; prints one ``"phase":
     "lm"`` line a run. The wire of every run on the kernel wire must be
     ~1/32 of f32. Phase 10 serves the final parameters of each run in
-    SERVE right after it (a ``"phase": "serve"`` line)."""
+    SERVE right after it (a ``"phase": "serve"`` line). Returns the runs and
+    (r)'s round 0 (its new parameters on the host, b and losses), which
+    phase 12 holds its model axis to."""
     import torch
 
-    runs, served_s, t0 = {}, [], time.perf_counter()
+    runs, served_s, t0, kept = {}, [], time.perf_counter(), {}
 
     def one(name, label, argv, with_ref, cut=None, want=None):
-        run = lm_run(dev, name, argv, with_ref=with_ref, cut=cut, keep=name in SERVE)
+        run = lm_run(dev, name, argv, with_ref=with_ref, cut=cut, keep=name in SERVE, keep_round0=name == "r",
+                     remat_probe=name in REMAT_PROBE)
+        if name == "r":
+            kept.update(run.pop("round0"))
         served = run.pop("served", None)
         line = {"phase": "lm", "run": label, "argv": argv, **({"cut": cut} if cut else {}), **run}
         if with_ref:
@@ -2188,7 +2313,7 @@ def lm_runs(dev) -> dict:
     require(len(served_s) == len(SERVE), f"phase 10 served {len(served_s)} of {len(SERVE)} models")
     print(json.dumps({"phase": "lm_done", "seconds": time.perf_counter() - t0 - sum(served_s)}), flush=True)
     print(json.dumps({"phase": "serve_done", "seconds": sum(served_s), "models": len(served_s)}), flush=True)
-    return runs
+    return runs, kept
 
 
 def serve_prompts(vocab: int, n: int, lens: tuple[int, int]) -> list:
@@ -2891,21 +3016,169 @@ def mesh_expected_launches(n_leaves: int) -> dict:
                   "prox_sgd": 0}}
 
 
-def mesh_rank(rank: int, world: int, store: str, out_dir: str, t_spawn: float) -> None:
+def model_axis_expected_launches(n_leaves: int) -> dict:
+    """Each rank's launches in phase 12 (aa): one B1 a (client, leaf) over
+    the shards it holds (every leaf, sharded or replicated) and one B3 a
+    leaf."""
+    clients = int(LM_COMMON[LM_COMMON.index("--clients") + 1])
+    return {"stoch_quant_pack": clients * n_leaves, "stoch_quant_ef": 0, "bit_aggregate": n_leaves, "prox_sgd": 0}
+
+
+def model_axis_run(dev, r0_path: str) -> dict:
+    """Phase 12 (aa), on a rank: the trainer's set-up of phase 9's (r) with
+    its parameters as DTensors on MODEL_AXIS_MESH, then one round on (r)'s
+    first batch and key: the step's seconds, peak, launches and collectives
+    (the staged backend's calls, bytes and host ms among them), b, the
+    losses, and the parameters that differ from (r)'s round 0 (read from
+    ``r0_path``), each coordinate counted on one rank only."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import Shard
+
+    from repro_torch import configs, distributed, prng, tree
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+
+    _, arch, cut, extra, _ = LM_FAMILIES["r"]
+    args = train.parse_args(["--arch", arch, *LM_COMMON, *extra, "--remat", "--device", str(dev)])
+    mesh = make_mesh(*MODEL_AXIS_MESH, device_type="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    run = train.setup(args, dataclasses.replace(configs.get_config(arch), **cut), mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = train.round_batch(run, args, 0)
+    _, kr = prng.split(prng.key(1, dev), 2)
+    b = torch.tensor(args.b_init, dtype=torch.float32, device=dev)
+    _build.reset_launches()
+    distributed.reset_collectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with distributed.set_mesh(mesh):
+        new, b_new, met = run.step(run.params, b, batch, kr)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    out = {"step_s": sec, "init_s": init_s, "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": {k: _build.launches[k] for k in KERNELS}, "collectives": dict(distributed.collectives),
+           "b": b_new.item(), "loss_first": met["loss_first"].item(), "loss_last": met["loss_last"].item()}
+    ref = torch.load(r0_path, mmap=True, weights_only=False)["params"]
+    coord = mesh.get_coordinate()
+    apart = held = sharded = 0
+    for w, whole in zip(tree.leaves(new), ref, strict=True):
+        sharded += any(isinstance(p, Shard) and mesh.size(i) > 1 for i, p in enumerate(w.placements))
+        if not all(isinstance(p, Shard) or coord[i] == 0 for i, p in enumerate(w.placements)):
+            continue  # another rank counts this replicated coordinate
+        local, off = distributed.shard_bounds(tuple(w.shape), mesh, w.placements)
+        piece = whole[tuple(slice(o, o + n) for o, n in zip(off, local))].to(dev)
+        apart += int((w.to_local() != piece).sum())
+        held += piece.numel()
+    out.update(apart=apart, held=held, leaves=len(ref), sharded_leaves=sharded)
+    del new, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_start() -> dict:
+    """Phase 12 (bb): start the dry run of DRYRUN_ARGV (a subprocess) and a
+    thread that collects its output and the time it ends."""
+    import threading
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    run = {"t0": time.perf_counter()}
+    run["proc"] = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGV], env=env,
+                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def collect():
+        run["out"], run["err"] = run["proc"].communicate()
+        run["t1"] = time.perf_counter()
+
+    run["thread"] = threading.Thread(target=collect, daemon=True)
+    run["thread"].start()
+    return run
+
+
+def dryrun_stop(run: dict) -> None:
+    """Kill the dry run if it still runs."""
+    if run["proc"].poll() is None:
+        run["proc"].kill()
+    run["thread"].join(30)
+
+
+def dryrun_finish(run: dict) -> dict:
+    """Phase 12 (bb): wait for the dry run (killed at DRYRUN_DEADLINE_S from
+    its start) and hold its report: status ok, collectives over each of
+    "pod", "data" and "model", and the step's dot FLOPs (a device's times
+    DRYRUN_WORLD) within :func:`dryrun_dot_band`; its wall seconds, and
+    its peak bytes per device beside the card's memory."""
+    import torch
+
+    run["thread"].join(max(DRYRUN_DEADLINE_S - (time.perf_counter() - run["t0"]), 1.0))
+    if run["thread"].is_alive():
+        dryrun_stop(run)
+        require(False, f"phase 12 (bb): the dry run ran past {DRYRUN_DEADLINE_S} s")
+    proc, out, err = run["proc"], run["out"], run["err"]
+    require(proc.returncode == 0, f"phase 12 (bb): the dry run exited {proc.returncode}: {err[-2000:]}")
+    rep = json.loads(next(line for line in out.splitlines() if line.startswith("{")))
+    require(rep["status"] == "ok", f"phase 12 (bb): {rep.get('error')}")
+    calls = rep["collective_calls_by_dim"]
+    require(all(calls.get(d, 0) > 0 for d in ("pod", "data", "model")), f"phase 12 (bb): collectives by dim {calls}")
+    dots = rep["dot_flops_per_device"] * DRYRUN_WORLD
+    lo, hi, model_flops = dryrun_dot_band()
+    require(lo <= dots <= hi, f"phase 12 (bb): {dots:.4e} dot FLOPs, outside [{lo:.4e}, {hi:.4e}]")
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    keys = ("arch", "shape", "mesh", "engine", "device", "status", "t_lower_s", "traces", "extrapolated",
+            "global_flops", "flops_per_device", "dot_flops_per_device", "bytes_per_device", "collective_link_bytes",
+            "cross_pod_link_bytes", "n_collectives", "collectives_by_kind", "collectives_by_dim",
+            "collective_calls_by_dim", "t_compute_s", "t_memory_s", "t_memory_measured_s", "t_collective_s",
+            "bottleneck", "arg_bytes_per_device", "temp_bytes_per_device", "peak_bytes_per_device", "hardware")
+    return {"argv": DRYRUN_ARGV, "wall_s": run["t1"] - run["t0"], **{k: rep[k] for k in keys},
+            "dot_flops": dots, "dot_band": [lo, hi], "dots_over_6NT": dots / model_flops,
+            "card_bytes": card_bytes, "peak_over_card": rep["peak_bytes_per_device"] / card_bytes}
+
+
+def dryrun_dot_band() -> tuple[float, float, float]:
+    """Bounds on the dot FLOPs of DRYRUN_ARGV's train step from its config
+    alone, and ``6 N T`` (N the active parameters, T the step's tokens:
+    every client's sequences, one local step each). Every parameter but
+    the embedding table enters one product in the forward and two in the
+    backward (at least ``6 (N - V d) T``); at most, each enters four (the
+    checkpointed unit's forward runs twice), an expert's with up to the
+    capacity factor's share of slots, and each attention layer adds its
+    two products over the whole context in each of those four passes
+    (``16 S H hd T``, no causal skipping)."""
+    from repro_torch import configs
+    from repro_torch.models import SHAPES
+
+    cfg = configs.get_config(DRYRUN_ARGV[DRYRUN_ARGV.index("--arch") + 1])
+    shape = SHAPES[DRYRUN_ARGV[DRYRUN_ARGV.index("--shape") + 1]]
+    n, tokens = cfg.n_active_params(), shape.global_batch * shape.seq_len
+    n_attn = sum(cfg.mixer_at(i % cfg.unit) == "attn" for i in range(cfg.n_layers))
+    lo = 6 * (n - cfg.vocab * cfg.d_model) * tokens
+    hi = (8 * max(cfg.capacity_factor, 1.0) * n + 16 * n_attn * shape.seq_len * cfg.n_heads * cfg.head_dim) * tokens
+    return float(lo), float(hi), float(6 * n * tokens)
+
+
+def mesh_rank(rank: int, world: int, store: str, out_dir: str, t_spawn: float, r0_path: str) -> None:
     """Phase 11, one of the MESH_RANKS ranks (a spawned process): the
-    parent's deterministic settings, the gloo group through a FileStore, the
-    card shared with the other ranks; then (w), (x), (y) and (z), saved to
+    parent's deterministic settings, a process group of the host-staged
+    backend (gloo on host copies) through a FileStore, the card shared with
+    the other ranks; then (w), (x), (y), (z) and phase 12's (aa), saved to
     ``out_dir/rank<k>.pt``."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     import torch.distributed as dist
+
+    from repro_torch.distributed import STAGED_BACKEND
 
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", rank % torch.cuda.device_count())
     torch.cuda.set_device(dev)
-    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank, world_size=world)
+    dist.init_process_group(STAGED_BACKEND, store=dist.FileStore(store, world), rank=rank, world_size=world)
     try:
         torch.zeros(1, device=dev)
         dist.barrier()
@@ -2913,24 +3186,28 @@ def mesh_rank(rank: int, world: int, store: str, out_dir: str, t_spawn: float) -
         res.update({name: mesh_fl_run(dev, extra) for name, extra in MESH_FL.items()})
         res["y"] = mesh_campaign_run(dev)
         res["z"] = mesh_lm_run(dev, {"pods": MESH_LM_LAYOUTS["pods"]}, mesh=True)
+        res["aa"] = model_axis_run(dev, r0_path)
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def spawn_mesh_ranks(world: int) -> tuple[list, float]:
+def spawn_mesh_ranks(world: int, r0: dict) -> tuple[list, float]:
     """Start ``world`` :func:`mesh_rank` processes and wait for them, at
-    most MESH_TIMEOUT_S seconds: their results and the wall seconds. A rank
-    that raises fails the phase; at the time limit every rank is killed and
-    the phase fails."""
+    most MESH_TIMEOUT_S seconds: their results and the wall seconds. ``r0``
+    (phase 9 (r)'s round 0) is left for them in the temporary directory
+    they share. A rank that raises fails the phase; at the time limit every
+    rank is killed and the phase fails."""
     import tempfile
 
     import torch
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        r0_path = os.path.join(tmp, "r0.pt")
+        torch.save(r0, r0_path)
         t0 = time.time()
-        ctx = mp.start_processes(mesh_rank, args=(world, os.path.join(tmp, "store"), tmp, t0), nprocs=world,
+        ctx = mp.start_processes(mesh_rank, args=(world, os.path.join(tmp, "store"), tmp, t0, r0_path), nprocs=world,
                                  join=False, start_method="spawn")
         try:
             while not ctx.join(timeout=1.0):
@@ -2944,7 +3221,7 @@ def spawn_mesh_ranks(world: int) -> tuple[list, float]:
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(world)], wall
 
 
-def mesh_phase(dev, cohort: dict) -> dict:
+def mesh_phase(dev, cohort: dict, r0: dict, dry) -> dict:
     """Phase 11: the one-process runs of (w), (x) and (z) here, then
     MESH_RANKS gloo ranks sharing the card run them sharded with (y); each
     rank is held to the one-process run: (w) theta_hat, loss and b bit for
@@ -2956,7 +3233,11 @@ def mesh_phase(dev, cohort: dict) -> dict:
     the one-process step with 2 pods, which is held to the (4, 1) layout of
     the same clients (parameters and b bit for bit, losses rtol 1e-6). Each
     sharded run must report MESH_RANKS ranks. Prints one ``"phase": "mesh"``
-    line; returns each run's launches summed over the ranks."""
+    line. Then phase 12: (aa) from the ranks, held to ``r0`` (phase 9 (r)'s
+    round 0), and (bb), the dry run ``dry`` (:func:`dryrun_start`'s, started
+    before phase 9); prints one ``"phase":
+    "model_axis"`` line. Returns each run's launches summed over the
+    ranks."""
     import numpy as np
     import torch
 
@@ -2965,7 +3246,8 @@ def mesh_phase(dev, cohort: dict) -> dict:
     one["z"] = mesh_lm_run(dev, MESH_LM_LAYOUTS, mesh=False)
     torch.cuda.empty_cache()
     one_s = time.perf_counter() - t0
-    ranks, ranks_wall = spawn_mesh_ranks(MESH_RANKS)
+    ranks, ranks_wall = spawn_mesh_ranks(MESH_RANKS, r0)
+    bb = dryrun_finish(dry)
     for k, r in enumerate(ranks):
         for name in MESH_FL:
             got, want = r[name], one[name]
@@ -3018,7 +3300,8 @@ def mesh_phase(dev, cohort: dict) -> dict:
         return {k: run[k] for k in keys if k in run}
 
     line = {
-        "phase": "mesh", "ranks": MESH_RANKS, "backend": "gloo", "card": card_line(), "seconds": time.perf_counter() - t0,
+        "phase": "mesh", "ranks": MESH_RANKS, "backend": "staged (gloo on host copies)", "card": card_line(),
+        "seconds": time.perf_counter() - t0,
         "one_process_seconds": one_s, "ranks_wall_s": ranks_wall,
         "spawn_and_setup_s": [r["setup_s"] for r in ranks],
         "runs": {
@@ -3044,9 +3327,33 @@ def mesh_phase(dev, cohort: dict) -> dict:
         },
     }
     print(json.dumps(line), flush=True)
+    aa = [r["aa"] for r in ranks]
+    want_aa = model_axis_expected_launches(aa[0]["leaves"])
+    for k, a in enumerate(aa):
+        require(a["launches"] == want_aa, f"model_axis aa rank {k}: launches {a['launches']} != {want_aa}")
+        require(a["b"] == r0["b"], f"model_axis aa rank {k}: b {a['b']} vs (r) round 0 {r0['b']}")
+        for m in ("loss_first", "loss_last"):
+            require(np.isclose(a[m], r0[m], rtol=MODEL_AXIS_BARS["loss_rtol"], atol=0),
+                    f"model_axis aa rank {k}: {m} {a[m]} vs (r) round 0 {r0[m]}")
+        require(a["sharded_leaves"] > 0, f"model_axis aa rank {k}: no leaf is sharded")
+    held, apart = sum(a["held"] for a in aa), sum(a["apart"] for a in aa)
+    d = sum(w.numel() for w in r0["params"])
+    require(held == d, f"model_axis aa: the ranks hold {held} of the {d} parameters")
+    require(apart <= MODEL_AXIS_BARS["params_apart"] * d, f"model_axis aa: {apart} of {d} parameters apart")
+    model_line = {
+        "phase": "model_axis", "card": card_line(),
+        "aa": {"arch": LM_FAMILIES["r"][0], "mesh": MODEL_AXIS_MESH, "d": d, "leaves": aa[0]["leaves"],
+               "bars": MODEL_AXIS_BARS, "params_apart": apart, "params_apart_share": apart / d,
+               "r_round0": {k: r0[k] for k in ("b", "loss_first", "loss_last")},
+               "ranks": [{k: a[k] for k in ("step_s", "init_s", "peak_gb", "launches", "collectives", "b", "loss_first",
+                                            "loss_last", "sharded_leaves")} for a in aa]},
+        "bb": bb,
+    }
+    print(json.dumps(model_line), flush=True)
     return {f"mesh/{name}": {"launches": {n: sum(r[name]["launches"][n] for r in ranks) for n in KERNELS}}
             for name in ("w", "x", "y")} | {
-        "mesh/z": {"launches": {n: sum(r["z"]["pods"]["launches"][n] for r in ranks) for n in KERNELS}}}
+        "mesh/z": {"launches": {n: sum(r["z"]["pods"]["launches"][n] for r in ranks) for n in KERNELS}},
+        "model_axis/aa": {"launches": {n: sum(a["launches"][n] for a in aa) for n in KERNELS}}}
 
 
 def main() -> int:
@@ -3056,6 +3363,7 @@ def main() -> int:
     parser.add_argument("--b4-parent", type=pathlib.Path, metavar="DIR",
                         help="only time B4 of the checkout DIR against this one's (no other phase)")
     args = parser.parse_args()
+    t_script = time.perf_counter()
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
@@ -3125,8 +3433,15 @@ def main() -> int:
     async_stream = async_stream_runs(dev, runs, vision["resnet18w64-m100/a"]["peak_bytes"])
     campaigns = campaign_runs(dev, runs)
     wires_trees = wires_trees_runs(dev, runs, async_stream)
-    lm = lm_runs(dev)
-    mesh = mesh_phase(dev, campaigns["campaign/cohort"])
+    # phase 12 (bb), the dry run, traces on the host while phase 9's rounds
+    # keep the card busy
+    dry = dryrun_start()
+    try:
+        lm, r_round0 = lm_runs(dev)
+        mesh = mesh_phase(dev, campaigns["campaign/cohort"], r_round0, dry)
+    finally:
+        dryrun_stop(dry)
+    del r_round0
 
     # Phase 5 times kernels, not allocations: under deterministic algorithms
     # every torch.empty is filled with NaN by a kernel of its own.
@@ -3150,6 +3465,7 @@ def main() -> int:
     if args.profile:
         for task in ("mlp128-m100", "resnet18w64-m100"):
             print(json.dumps(profile_round(dev, task)), flush=True)
+    print(json.dumps({"phase": "total", "seconds": time.perf_counter() - t_script}), flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,6 +59,7 @@ __all__ = [
     "uniform_block_rows",
     "draw_blocks",
     "cohort_uniforms",
+    "shard_uniforms",
     "pad_rows",
     "level_positions",
     "level_probs",
@@ -238,6 +239,45 @@ def cohort_uniforms(
         c1 = min(c1, n)
         rows = torch.arange(r0, r1, dtype=torch.int64, device=key.device)
         out[r0:r1, c0:c1] = client_uniforms(_row_keys(keys, m, rows, row_offset), c1 - c0, chunk, col0=c0)
+    return out
+
+
+SHARD_BLOCK = 1 << 22  # a shard's coordinates drawn at a time
+
+
+def shard_uniforms(client_key: torch.Tensor, shape: tuple, local_shape: tuple, offset: tuple,
+                   chunk: int = PACK_CHUNK, *, out: torch.Tensor | None = None, bits16: bool = False) -> torch.Tensor:
+    """The uniforms that the unsharded ``shape`` leaf's row draws
+    (:func:`client_uniforms` of ``client_key``) at the coordinates of a
+    shard, in the shard's row-major order: the shard ``local_shape`` starts
+    at ``offset`` of the leaf. Every word is a pure function of (key,
+    chunk, position in the chunk), so each coordinate takes its chunk's key
+    and its own position; a shard of a leaf's inner dimension, whose flat
+    order is strided in the leaf's, gets the same bits as a contiguous one.
+    Drawn :data:`SHARD_BLOCK` coordinates at a time into ``out`` (a new
+    f32 ``(prod(local_shape),)`` when not given). ``bits16`` gives the
+    16-bit draws of :func:`client_bits16` instead (int64)."""
+    n = 1
+    for x in local_shape:
+        n *= x
+    dev = client_key.device
+    if out is None:
+        out = torch.empty((n,), dtype=torch.int64 if bits16 else torch.float32, device=dev)
+    for a in range(0, n, SHARD_BLOCK):
+        e = min(a + SHARD_BLOCK, n)
+        g = prng.shard_flat_index(shape, local_shape, offset, a, e, dev)
+        j = g // chunk
+        # the flat index grows with the shard's: its first and last bound the chunks
+        j0 = prng.shard_flat_at(shape, local_shape, offset, a) // chunk
+        j1 = prng.shard_flat_at(shape, local_shape, offset, e - 1) // chunk
+        keys = prng.fold_in(client_key, torch.arange(j0, j1 + 1, dtype=torch.int64, device=dev))
+        kk = keys[j - j0]
+        x0, x1 = prng.threefry2x32(kk[:, 0], kk[:, 1], torch.zeros_like(g), g % chunk)
+        if bits16:
+            out[a:e] = (x0 ^ x1) & 0xFFFF
+        else:
+            mant = ((x0 ^ x1) >> 9) | 0x3F800000
+            out[a:e] = mant.to(torch.int32).view(torch.float32) - 1.0
     return out
 
 

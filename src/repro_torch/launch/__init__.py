@@ -1,9 +1,11 @@
 """Launch layer: the federated LM round and its training entry point
-(``python -m repro_torch.launch.train``), and the meshes of
+(``python -m repro_torch.launch.train``), the meshes of
 ``torch.distributed`` ranks (:mod:`.mesh`) on which the round's pod axis,
 the sharded streamed and tree rounds and sharded campaigns spread their
-clients (ROADMAP A14a). The production mesh's model axis and the dry-run
-tooling come with ROADMAP A14b."""
+clients and the model axis shards the parameters, and the dry run
+(``python -m repro_torch.launch.dryrun``: a step traced on the production
+mesh of a fake process group, with :mod:`.flopcount` and
+:mod:`.analysis`)."""
 
 from .fl_step import DistFLConfig, make_fl_train_step
 

@@ -13,8 +13,7 @@ each rank trains its own pod's column of the same global batch, and after
 the cohort the pods' wire rows are gathered over the pod group, the votes
 summed and the losses gathered, so every rank makes the same estimate and
 b. The loss metrics are the mean over pods at each scan step, then the
-mean over the steps, in the reference's order. The model axis (parameter
-sharding) is ROADMAP A14b.
+mean over the steps, in the reference's order.
 
 Wire contract (per parameter leaf): client ``g`` compresses leaf ``l``
 with the shared ``ClientCompressor`` keyed ``fold_in(fold_in(round_key,
@@ -42,6 +41,18 @@ plain torch here as it is plain JAX there (it is not the prox-SGD kernel
 B4, which keeps f32 weights and momentum). The step and the model
 difference follow what XLA makes of the reference's bf16 arithmetic on
 the CPU (ROADMAP C, "bf16 differences that are widened at once").
+
+The model axis: ``params`` may be DTensors (``models.init_params(...,
+mesh=)``, FSDP over "data", tensor and expert parallelism over "model").
+The forward and backward then run on the mesh; each gradient is laid out
+as its parameter, and the local step, the model difference, the wire and
+the estimate run on each rank's local shard, without a gather: B1 packs
+the shard's coordinates with the uniforms that the unsharded leaf draws
+at them (:func:`~repro_torch.core.quantizer.shard_uniforms`), so every
+coordinate's bit is the unsharded wire's, and B3 makes the estimate of
+the shard's coordinates from the shard's M rows. A replicated leaf is
+compressed whole on every rank, with the same bits on each. The metrics'
+wire bytes stay the per-client uplink of the whole leaves.
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ from ..core.aggregation import PackedWire, mean_rows, recip32
 from ..core.bcontrol import BControlConfig, BState, update_b_from_vote
 from ..fl.pytree_wire import leaf_key
 from ..models import train_loss
+from ..models.model import unit_remat
 from ..models.config import ModelConfig
 from ..tree import leaves, unflatten
 
@@ -76,6 +88,11 @@ class DistFLConfig:
     aggregator: str = "probit_plus"
     # quantizer randomness width: 32 (f32 uniforms, the kernel wire) or 16
     rand_bits: int = 32
+    # checkpoint each pattern unit of the local step's model (the
+    # reference's ``backbone`` default): a memory lever, which costs one
+    # more forward a step; the dry run's steps take it, as the reference's
+    # lower it
+    remat: bool = False
 
     def __post_init__(self):
         if self.aggregator not in ("probit_plus", "fedavg_fp32"):
@@ -95,13 +112,60 @@ def update_b_dist(b: torch.Tensor, vote: torch.Tensor, fl: DistFLConfig) -> torc
     return update_b_from_vote(BState(b=b, prev_vote=torch.zeros_like(b)), vote, bcontrol_config(fl)).b
 
 
-def _value_and_grad(params_leaves: list, like, batch: dict, cfg: ModelConfig):
-    """``train_loss`` and its gradient with respect to every leaf (zeros
-    for a leaf the loss does not read, as ``jax.grad`` gives)."""
+def _value_and_grad(params_leaves: list, like, batch: dict, cfg: ModelConfig, remat: bool = False):
+    """``train_loss`` (with ``remat``) and its gradient with respect to
+    every leaf (zeros for a leaf the loss does not read, as ``jax.grad``
+    gives). On DTensor parameters each gradient comes laid out as its
+    parameter and the loss as a plain tensor."""
     req = [w.detach().requires_grad_(True) for w in params_leaves]
-    loss = train_loss(unflatten(like, req), batch, cfg)
-    grads = torch.autograd.grad(loss, req, allow_unused=True)
-    return loss.detach(), [torch.zeros_like(w) if g is None else g for w, g in zip(req, grads)]
+    tree = unflatten(like, req)
+    with distributed.mesh_context(tree), unit_remat(remat):
+        loss = train_loss(tree, batch, cfg)
+        grads = torch.autograd.grad(loss, req, allow_unused=True)
+        grads = [torch.zeros_like(w) if g is None else g for w, g in zip(req, grads)]
+        if distributed.is_dtensor(loss):
+            grads = [g.redistribute(w.device_mesh, w.placements) for w, g in zip(req, grads)]
+            loss = loss.full_tensor()
+    return loss.detach(), grads
+
+
+def _local(x):
+    return x.to_local() if distributed.is_dtensor(x) else x
+
+
+def _like(x, like):
+    """``x`` (a local shard) as a DTensor laid out as ``like``, or ``x``
+    when ``like`` is a plain tensor."""
+    if not distributed.is_dtensor(like):
+        return x
+    return distributed.from_shard(x, like.device_mesh, like.placements, like.shape)
+
+
+def _sharded(w) -> bool:
+    """Is ``w`` a DTensor that some rank holds only part of?"""
+    from torch.distributed.tensor import Shard
+
+    return distributed.is_dtensor(w) and any(isinstance(p, Shard) and w.device_mesh.size(i) > 1
+                                             for i, p in enumerate(w.placements))
+
+
+def _compress_shard(pipeline, engine, key, delta: torch.Tensor, w, b, g: int) -> torch.Tensor:
+    """Client ``g``'s packed row of this rank's shard of leaf ``w``: its
+    local coordinates, each with the uniform of the unsharded leaf's draw
+    at that coordinate (one launch of B1 through ``quant_pack_u``)."""
+    from ..core.quantizer import binarize_prob, pack_bits, shard_uniforms, threshold_u16
+    from ..kernels import ops as kops
+
+    comp = pipeline.compressor
+    local, off = distributed.shard_bounds(tuple(w.shape), w.device_mesh, w.placements)
+    n = delta.numel()
+    b_vec = comp.b_vector(n, b)
+    if comp.rand_bits == 16:
+        w16 = shard_uniforms(prng.fold_in(key, g), tuple(w.shape), local, off, comp.chunk, bits16=True)
+        bits = w16 < threshold_u16(binarize_prob(delta.reshape(n), b_vec))
+        return kops.realign_wire(pack_bits(bits.to(torch.int8) * 2 - 1), comp.wire_bytes(n))
+    u = shard_uniforms(prng.fold_in(key, g), tuple(w.shape), local, off, comp.chunk)
+    return kops.quant_pack_u(delta.reshape(n), b_vec, u, engine=engine if comp.use_kernels else "ref")
 
 
 # Flat elements of a leaf the local step updates at a time (its fused
@@ -170,9 +234,12 @@ def make_fl_train_step(cfg: ModelConfig, fl: DistFLConfig, *, engine: str | None
         pods = range(n_pods) if group is None else [distributed.group_rank(group)]
         m_total = m_seq * n_pods
         p_leaves = leaves(params)
-        dims = [w.numel() for w in p_leaves]
-        dev = p_leaves[0].device
-        row_bytes = [compressor.wire_bytes(d) for d in dims]
+        w_loc = [_local(w) for w in p_leaves]  # this rank's shards (the leaves themselves without a mesh)
+        dims = [w.numel() for w in p_leaves]  # whole leaves: the wire's report
+        loc_dims = [w.numel() for w in w_loc]
+        sharded = [_sharded(w) for w in p_leaves]
+        dev = w_loc[0].device
+        row_bytes = [compressor.wire_bytes(d) for d in loc_dims]
         if probit and dev.type == "cuda" and m_total * sum(row_bytes) > torch.cuda.mem_get_info(dev)[0]:
             raise MemoryError(f"{m_total} clients' wire rows need {m_total * sum(row_bytes) / 1e9:.2f} GB, more "
                               f"than the card has free ({torch.cuda.mem_get_info(dev)[0] / 1e9:.2f} GB)")
@@ -180,24 +247,30 @@ def make_fl_train_step(cfg: ModelConfig, fl: DistFLConfig, *, engine: str | None
             # this process's rows, row s * len(pods) + j for pod pods[j] at scan step s
             rows = [torch.empty((m_seq * len(pods), p), dtype=torch.uint8, device=dev) for p in row_bytes]
         else:
-            acc = [[torch.zeros(w.shape, dtype=torch.float32, device=dev) for w in p_leaves] for _ in pods]
+            acc = [[torch.zeros(w.shape, dtype=torch.float32, device=dev) for w in w_loc] for _ in pods]
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         keys = [leaf_key(key, i) for i in range(len(p_leaves))]
-        votes, losses = 0, []  # losses: (first, last) of each (scan step, pod)
+        # the clients' one-bit loss votes, summed as a tensor (no host sync)
+        votes, losses = torch.zeros((), dtype=torch.float32, device=dev), []
         for s in range(m_seq):
             for j, p in enumerate(pods):
                 g = s * n_pods + p  # the client's cohort position keys its quantizer rows
-                local, client_losses = p_leaves, []
+                local, client_losses = w_loc, []
                 for t in range(fl.local_steps):
                     sb = {k: v[s, p, t] for k, v in batch.items()}
-                    loss, grads = _value_and_grad(local, params, sb, cfg)
+                    loss, grads = _value_and_grad([_like(x, w) for x, w in zip(local, p_leaves)], params, sb, cfg,
+                                                  fl.remat)
                     client_losses.append(loss)
-                    local = _local_step(local, grads, p_leaves, fl)
+                    local = _local_step(local, [_local(x) for x in grads], w_loc, fl)
+                    del grads
                 with torch.no_grad():
-                    for i, (w_l, w, d) in enumerate(zip(local, p_leaves, dims)):
+                    for i, (w_l, w, d) in enumerate(zip(local, w_loc, loc_dims)):
                         # the difference in f32, as XLA computes the widened bf16 one
                         delta = (w_l.float() - w.float()).reshape(1, d)
-                        if probit:
+                        if probit and sharded[i]:
+                            rows[i][s * len(pods) + j] = _compress_shard(pipeline, engine, keys[i], delta,
+                                                                         p_leaves[i], b, g)
+                        elif probit:
                             wire, _ = compressor.compress(keys[i], delta, b, zero, row_offset=g)
                             rows[i][s * len(pods) + j] = wire.packed[0]
                         else:
@@ -205,9 +278,8 @@ def make_fl_train_step(cfg: ModelConfig, fl: DistFLConfig, *, engine: str | None
                         del delta
                 del local
                 losses.append(torch.stack([client_losses[0], client_losses[-1]]))
-                votes += 1 if bool(client_losses[-1] < client_losses[0]) else -1
+                votes = votes + torch.where(client_losses[-1] < client_losses[0], 1.0, -1.0)
         losses = torch.stack(losses).view(m_seq, len(pods), 2)
-        votes = torch.tensor(float(votes), device=dev)
         if group is not None:
             # the pods' votes, losses and rows (or sums) cross ranks
             votes = distributed.all_reduce_sum(votes, group)
@@ -215,17 +287,17 @@ def make_fl_train_step(cfg: ModelConfig, fl: DistFLConfig, *, engine: str | None
         with torch.no_grad():
             if probit:
                 new_leaves = []
-                for i, (w, d) in enumerate(zip(p_leaves, dims)):
+                for i, (w, d) in enumerate(zip(w_loc, loc_dims)):
                     if group is not None:
                         rows[i] = distributed.all_gather_rows(rows[i], group).transpose(0, 1).reshape(m_total, -1)
                     wire = PackedWire(packed=rows[i], b=compressor.b_vector(d, b), d=d)
                     theta = pipeline.estimate(wire)
                     rows[i] = None
                     new_leaves.append((w.float() + theta.view(w.shape)).to(w.dtype))
-                wire_row_bytes = sum(row_bytes)
+                wire_row_bytes = sum(compressor.wire_bytes(d) for d in dims)
             else:
                 new_leaves = []
-                for i, w in enumerate(p_leaves):
+                for i, w in enumerate(w_loc):
                     if group is None:
                         total = functools.reduce(torch.add, [a[i] for a in acc])  # the pods' sums, in order
                     else:
@@ -243,7 +315,7 @@ def make_fl_train_step(cfg: ModelConfig, fl: DistFLConfig, *, engine: str | None
             "wire_bytes_int8": m_total * sum(dims),
             "wire_bytes_f32": m_total * 4 * sum(dims),
         }
-        return unflatten(params, new_leaves), b_new, metrics
+        return unflatten(params, [_like(x, w) for x, w in zip(new_leaves, p_leaves)]), b_new, metrics
 
     train_step.pipeline = pipeline
     return train_step

@@ -6,16 +6,22 @@ needs the default process group, which the caller starts (``torchrun``,
 or ``init_process_group`` with a ``FileStore``, as the tests do) with as
 many ranks as the mesh has. These are functions, never module-level
 constants: importing this module touches no device and no group.
+
+:func:`fake_world` starts a ``"fake"`` process group of any size in this
+one process (no collective moves data): with fake tensors it lets the dry
+run (:mod:`.dryrun`) trace a step on the production mesh of 256 or 512
+ranks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 
 import torch
 
-__all__ = ["make_mesh", "make_production_mesh", "make_host_mesh", "make_campaign_mesh"]
+__all__ = ["fake_world", "make_mesh", "make_production_mesh", "make_host_mesh", "make_campaign_mesh"]
 
 # The reference's production layouts: 16 x 16 = 256 chips a pod; two pods
 # along a leading "pod" axis.
@@ -31,6 +37,24 @@ def _world() -> int:
             "torch.distributed.init_process_group) before making one"
         )
     return dist.get_world_size()
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """This process as rank 0 of a ``"fake"`` process group of ``n`` ranks
+    on a ``FakeStore`` (the default group inside the ``with`` block,
+    destroyed on exit). Its collectives move no data: with fake tensors a
+    step on a mesh of ``n`` ranks traces in one process."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already started in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_mesh(shape, axes, device_type: str | None = None):
@@ -53,19 +77,19 @@ def make_mesh(shape, axes, device_type: str | None = None):
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = None):
     """16 x 16 = 256 ranks a pod; ``multi_pod`` doubles them along a leading
-    "pod" axis. On fewer ranks it raises: a dry run of these meshes on a
-    fake process group is ROADMAP A14b."""
+    "pod" axis. The default group must have exactly that many ranks, real
+    or fake (:func:`fake_world`); otherwise it raises, naming the size."""
     import torch.distributed as dist
 
     shape, axes = _PRODUCTION[multi_pod]
     n = math.prod(shape)
-    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() < n:
-        raise NotImplementedError(
-            f"the production mesh needs {n} ranks; its dry run on a fake process group is ROADMAP A14b"
-        )
-    return make_mesh(shape, axes)
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 0
+    if world != n:
+        raise ValueError(f"the production mesh {shape} needs a world of {n} ranks; the process group has "
+                         f"{world or 'not been started'}")
+    return make_mesh(shape, axes, device_type)
 
 
 def make_host_mesh(model: int = 1):

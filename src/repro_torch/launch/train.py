@@ -18,8 +18,13 @@ Flags beyond the basics:
   --json-out PATH       write per-round metrics + wire-byte report JSON
   --smoke               exit nonzero unless every round's losses are
       finite and the wire-byte report is nonzero (CI gate)
-  --production-mesh     the reference's 256- or 512-chip mesh, whose model
-      axis and dry run on a fake process group are ROADMAP A14b: refused
+  --remat               checkpoint each pattern unit of the local step (the
+      reference's default; a memory lever that costs one more forward a
+      step, off by default: the card's cells fit without it)
+  --production-mesh     the reference's 16 x 16 ("data", "model") mesh over
+      a world of 256 ranks (start them with torchrun): the parameters are
+      DTensors, FSDP over "data" and tensor and expert parallelism over
+      "model"; on any other world the mesh raises, naming the size
 """
 
 from __future__ import annotations
@@ -41,7 +46,9 @@ from ..fl.pytree_wire import pytree_wire_bytes
 from ..models import build_specs
 from ..models.config import ModelConfig
 from ..models.spec import count_params, init_params
+from .. import distributed
 from .fl_step import DistFLConfig, make_fl_train_step
+from .mesh import make_production_mesh
 
 __all__ = ["parse_args", "LMRun", "setup", "round_batch", "main"]
 
@@ -62,6 +69,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--rand-bits", type=int, default=32, choices=[16, 32])
     ap.add_argument("--json-out", default=None)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--remat", action="store_true")
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda", help="cuda (the default; raises without a card) or cpu")
@@ -81,6 +89,7 @@ class LMRun:
     fl: DistFLConfig
     wire: dict
     streams: list
+    mesh: object = None
 
 
 def _device(name: str) -> torch.device:
@@ -90,30 +99,32 @@ def _device(name: str) -> torch.device:
     return dev
 
 
-def setup(args: argparse.Namespace, cfg: ModelConfig | None = None) -> LMRun:
+def setup(args: argparse.Namespace, cfg: ModelConfig | None = None, mesh=None) -> LMRun:
     """The run of ``args``: parameters from ``init_params`` at key 0 on the
     device, the step, the exact per-round uplink report and
     ``make_lm_streams(0, ...)``. ``cfg``, when given, replaces the
     ``--arch`` / ``--reduced`` config (a caller's own cut, e.g. fewer
-    layers at the published widths)."""
-    if args.production_mesh:
-        raise NotImplementedError("--production-mesh needs the model axis and its dry run on a fake process group; "
-                                  "ROADMAP A14b")
+    layers at the published widths). With a ``mesh`` (a ("data", "model")
+    ``DeviceMesh``; ``--production-mesh`` makes the production one) the
+    parameters are DTensors on it, FSDP over "data"; run the step with the
+    mesh current (``distributed.set_mesh(run.mesh)``)."""
     dev = _device(args.device)
+    if mesh is None and args.production_mesh:
+        mesh = make_production_mesh()
     if cfg is None:
         cfg = configs.get_config(args.arch)
         if args.reduced:
             cfg = configs.reduced(cfg)
-    params = init_params(build_specs(cfg), prng.key(0, dev))
+    params = init_params(build_specs(cfg), prng.key(0, dev), mesh=mesh, fsdp_axis="data" if mesh is not None else None)
     fl = DistFLConfig(clients_per_round=args.clients, local_steps=args.local_steps, lr=args.lr, lam=args.lam,
-                      aggregator=args.aggregator, rand_bits=args.rand_bits)
+                      aggregator=args.aggregator, rand_bits=args.rand_bits, remat=args.remat)
     step = make_fl_train_step(cfg, fl)
     # the exact per-round uplink: the step's packed wire, or f32 under FedAvg
     pipeline = step.pipeline if args.aggregator == "probit_plus" else build_pipeline("fedavg")
     wire = pytree_wire_bytes(pipeline, params, args.clients)
     streams = make_lm_streams(0, args.clients, cfg.vocab, args.seq + 1,
                               args.local_steps * args.per_batch * args.rounds)
-    return LMRun(cfg=cfg, device=dev, params=params, step=step, fl=fl, wire=wire, streams=streams)
+    return LMRun(cfg=cfg, device=dev, params=params, step=step, fl=fl, wire=wire, streams=streams, mesh=mesh)
 
 
 def round_batch(run: LMRun, args: argparse.Namespace, r: int) -> dict:
@@ -161,7 +172,8 @@ def main(argv=None) -> int:
         t0 = time.time()
         batch = round_batch(run, args, r)
         key, kr = prng.split(key, 2)
-        params, b, metrics = run.step(params, b, batch, kr)
+        with distributed.set_mesh(run.mesh):
+            params, b, metrics = run.step(params, b, batch, kr)
         history.append({
             "round": r,
             "loss_first": float(metrics["loss_first"]),

@@ -1,16 +1,27 @@
 """Models of the port: the paper's MLP, CNN and ResNet, and the model zoo's
 dense attention, MoE, xLSTM, Mamba-hybrid, audio and vision families
-(``repro/models``' names as far as they are ported, decode and caches
-included). The logical-axis rules are in :mod:`repro_torch.distributed`;
-the model axis's sharding helpers (parameter and input specs) come with
-ROADMAP A14b."""
+(``repro/models``' names, decode and caches included), with the model
+axis's sharding helpers: parameter specs and placements, abstract
+parameters and inputs, the caches' logical axes and the remat levers. The
+logical-axis rules are in :mod:`repro_torch.distributed`."""
 
 from . import layers, moe, ssm, xlstm
 
 from .config import SHAPES, ModelConfig, ShapeConfig
-from .inputs import batch_structure, sample_batch
-from .model import backbone, build_specs, init_cache, prefill, serve_step, train_loss
-from .spec import LeafSpec, count_params, init_params
+from .inputs import batch_structure, input_logical, input_specs, sample_batch
+from .model import (
+    backbone,
+    build_specs,
+    cache_logical,
+    indexed_params,
+    init_cache,
+    inner_remat,
+    prefill,
+    remat_policy,
+    serve_step,
+    train_loss,
+)
+from .spec import LeafSpec, abstract_params, count_params, init_params, param_placements, param_pspecs
 from .vision import (
     MODELS,
     accuracy,
@@ -29,8 +40,9 @@ __all__ = [
     "init_resnet", "resnet_logits",
     "MODELS", "xent_loss", "accuracy",
     "ModelConfig", "ShapeConfig", "SHAPES", "LeafSpec",
-    "init_params", "count_params",
-    "build_specs", "train_loss", "prefill", "backbone", "init_cache", "serve_step",
-    "sample_batch", "batch_structure",
+    "init_params", "count_params", "abstract_params", "param_pspecs", "param_placements",
+    "build_specs", "train_loss", "prefill", "backbone", "init_cache", "cache_logical", "serve_step",
+    "remat_policy", "inner_remat", "indexed_params",
+    "sample_batch", "batch_structure", "input_specs", "input_logical",
     "layers", "moe", "ssm", "xlstm",
 ]

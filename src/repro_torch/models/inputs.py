@@ -1,10 +1,10 @@
-"""Model inputs: the structure of one step's batch and concrete random
-batches for smoke tests.
+"""Model inputs: the structure of one step's batch, meta-tensor stand-ins
+for the dry run (nothing allocated), and concrete random batches for
+smoke tests.
 
-Counterpart of ``repro/models/inputs.py`` (its ``input_specs`` and
-``input_logical`` are the dry-run's and come with ROADMAP A14b). For the
-audio and vision architectures the frontend is a stub, as in the
-reference: the batch carries precomputed frame or patch embeddings.
+Counterpart of ``repro/models/inputs.py``. For the audio and vision
+architectures the frontend is a stub, as in the reference: the batch
+carries precomputed frame or patch embeddings.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import torch
 
 from .config import ModelConfig
 
-__all__ = ["batch_structure", "sample_batch"]
+__all__ = ["batch_structure", "input_specs", "input_logical", "sample_batch"]
 
 
 def batch_structure(cfg: ModelConfig, batch: int, seq: int, kind: str) -> dict:
@@ -43,6 +43,17 @@ def batch_structure(cfg: ModelConfig, batch: int, seq: int, kind: str) -> dict:
     if kind == "train":
         d["labels"] = ((batch, seq), torch.int32, ("batch", None))
     return d
+
+
+def input_specs(cfg: ModelConfig, batch: int, seq: int, kind: str) -> dict:
+    """Meta tensors of one step's inputs (nothing allocated)."""
+    return {k: torch.empty(shape, dtype=dtype, device="meta")
+            for k, (shape, dtype, _) in batch_structure(cfg, batch, seq, kind).items()}
+
+
+def input_logical(cfg: ModelConfig, batch: int, seq: int, kind: str) -> dict:
+    """The logical axes of each input."""
+    return {k: logical for k, (_, __, logical) in batch_structure(cfg, batch, seq, kind).items()}
 
 
 def sample_batch(cfg: ModelConfig, batch: int, seq: int, kind: str, seed: int = 0, device=None) -> dict:

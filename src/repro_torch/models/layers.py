@@ -13,6 +13,16 @@ widened to f32. :func:`decode_attention_block` is the one-token decode
 over a bf16 KV cache (:func:`init_attn_cache`), linear or a ring of
 ``window`` slots. :func:`causal_conv1d` is the xLSTM and Mamba mixers'
 depthwise convolution.
+
+On the model axis (DTensor parameters) the activations carry the
+reference's ``shard`` annotations; the attention core, the vocab-sharded
+embedding lookup and the loss run on each rank's local shards
+(:func:`repro_torch.distributed.local_region`): the core on its batch and
+head shards, each query head with its own key-value head; the lookup as
+each vocab shard's masked rows, summed over the vocab shards (one row is
+not zero, so the sum is exact); the loss on the batch shards of the
+logits gathered over the vocabulary, its sums added over the batch
+shards.
 """
 
 from __future__ import annotations
@@ -22,7 +32,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import distributed
 from ..core.aggregation import recip32
+from ..distributed import einsum, shard
 from .config import ModelConfig
 from .spec import LeafSpec
 
@@ -35,6 +47,7 @@ __all__ = [
     "chunked_attention",
     "attention_block",
     "init_attn_cache",
+    "attn_cache_logical",
     "decode_attention_block",
     "ffn_specs",
     "ffn_block",
@@ -42,6 +55,7 @@ __all__ = [
     "embed_tokens",
     "lm_logits",
     "softmax_xent",
+    "next_token_xent",
     "causal_conv1d",
 ]
 
@@ -111,9 +125,9 @@ def attn_specs(cfg: ModelConfig) -> dict:
 
 
 def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    k = einsum("bsd,dhk->bshk", x, p["wk"])
+    v = einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -121,6 +135,9 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     if cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv", None)
+    v = shard(v, "batch", None, "kv", None)
     return q, k, v
 
 
@@ -178,10 +195,43 @@ def chunked_attention(
     return out.to(q.dtype)
 
 
+_Q_LOGICAL, _KV_LOGICAL = ("batch", None, "heads", None), ("batch", None, "kv", None)
+
+
+def _kv_heads_of_local_q(q, k, n_heads: int, n_kv: int):
+    """On a mesh: the local key-value head of each local query head (None
+    when the local heads group as the whole model's do)."""
+    mesh = q.device_mesh
+    lq, off_q = distributed.shard_bounds(q.shape, mesh, distributed.placements_for(mesh, _Q_LOGICAL, tuple(q.shape)))
+    lk, off_k = distributed.shard_bounds(k.shape, mesh, distributed.placements_for(mesh, _KV_LOGICAL, tuple(k.shape)))
+    g = n_heads // n_kv
+    idx = [(off_q[2] + j) // g - off_k[2] for j in range(lq[2])]
+    natural = lq[2] % lk[2] == 0 and idx == [j // (lq[2] // lk[2]) for j in range(lq[2])]
+    return None if natural else idx
+
+
+def _attention_core(q, k, v, cfg: ModelConfig):
+    """``chunked_attention``; on DTensors, on each rank's batch and head
+    shards (a query head whose key-value head another rank holds reads
+    its own copy: the key-value heads are then replicated)."""
+    if not distributed.is_dtensor(q):
+        return chunked_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
+    idx = _kv_heads_of_local_q(q, k, cfg.n_heads, cfg.n_kv_heads)
+
+    def local(ql, kl, vl):
+        if idx is not None:
+            sel = torch.tensor(idx, device=kl.device)
+            kl, vl = kl.index_select(2, sel), vl.index_select(2, sel)
+        return chunked_attention(ql, kl, vl, causal=cfg.causal, window=cfg.sliding_window)
+
+    return distributed.logical_region(local, (q, k, v), (_Q_LOGICAL, _KV_LOGICAL, _KV_LOGICAL),
+                                      (_Q_LOGICAL, q.shape))
+
+
 def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
     q, k, v = _qkv(p, x, cfg, positions)
-    out = chunked_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = _attention_core(q, k, v, cfg)
+    return shard(einsum("bshk,hkd->bsd", out, p["wo"]), "batch", None, None)
 
 
 # -- decode ------------------------------------------------------------------
@@ -190,6 +240,10 @@ def init_attn_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
+def attn_cache_logical() -> dict:
+    return {"k": ("batch", "seq", "kv", None), "v": ("batch", "seq", "kv", None)}
 
 
 def decode_attention_block(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig, pos: int,
@@ -211,6 +265,9 @@ def decode_attention_block(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConf
         raise ValueError(f"position {pos} is past the cache's {cache_len} slots")
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)  # (B,1,H,hd), (B,1,KV,hd)
+    if distributed.is_dtensor(q):
+        out, cache = _sharded_decode_attention(q, k, v, cache, cfg, pos, slot, window)
+        return shard(einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"]), "batch", None, None), cache
     cache["k"][:, slot] = k[:, 0]
     cache["v"][:, slot] = v[:, 0]
     KV, hd = cfg.n_kv_heads, cfg.head_dim
@@ -224,7 +281,56 @@ def decode_attention_block(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConf
     w = e / e.sum(-1, keepdim=True)  # jax.nn.softmax
     out = torch.einsum("bkgs,bskh->bkgh", w, cache["v"].float())
     out = out.reshape(B, 1, cfg.n_heads, hd).to(x.dtype)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+    return einsum("bshk,hkd->bsd", out, p["wo"]), cache
+
+
+_CACHE_LOGICAL = ("batch", "seq", "kv", None)
+
+
+def _sharded_decode_attention(q, k, v, cache: dict, cfg: ModelConfig, pos: int, slot: int, window: int):
+    """The decode attention on DTensors: each rank holds a batch and
+    sequence shard of the caches (the reference's ``("batch", "seq", "kv",
+    None)``), writes the new key and value if the slot is its own, and
+    takes the softmax over its slots; the shards' maxima and sums are
+    combined over the sequence's mesh dimension (a flash-decode). Returns
+    the (B, 1, H, hd) f32 output and the new caches."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Shard
+
+    mesh = q.device_mesh
+    c_pl = distributed.placements_for(mesh, _CACHE_LOGICAL, tuple(cache["k"].shape))
+    (_, rows, _, _), (_, row0, _, _) = distributed.shard_bounds(cache["k"].shape, mesh, c_pl)
+    seq_dims = [i for i, pl in enumerate(c_pl) if isinstance(pl, Shard) and pl.dim == 1]
+    groups = [mesh.get_group(i) for i in seq_dims]
+    cache_len, KV, hd, H = cache["k"].shape[1], cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    q_log, kv_log = ("batch", None, None, None), ("batch", None, None, None)
+
+    def local(ql, kl, vl, ck, cv):
+        ck, cv = ck.clone(), cv.clone()
+        if row0 <= slot < row0 + rows:
+            ck[:, slot - row0] = kl[:, 0].to(ck.dtype)
+            cv[:, slot - row0] = vl[:, 0].to(cv.dtype)
+        b = ql.shape[0]
+        qg = ql.reshape(b, KV, H // KV, hd).float()
+        logits = torch.einsum("bkgh,bskh->bkgs", qg, ck.float()) * recip32(math.sqrt(hd))
+        idx = row0 + torch.arange(rows, device=ql.device)
+        valid = idx <= pos if window <= 0 else idx < min(pos + 1, cache_len)
+        logits = logits + torch.where(valid, 0.0, NEG_INF)
+        mx = logits.amax(-1, keepdim=True)
+        for g in groups:
+            mx = funcol.all_reduce(mx, "max", g)
+        e = torch.exp(logits - mx)
+        den = e.sum(-1, keepdim=True)
+        num = torch.einsum("bkgs,bskh->bkgh", e, cv.float())
+        for g in groups:
+            den, num = funcol.all_reduce(den, "sum", g), funcol.all_reduce(num, "sum", g)
+        return (num / den[..., 0, None]).reshape(b, 1, H, hd), ck, cv
+
+    c_shape = tuple(cache["k"].shape)
+    out, ck, cv = distributed.logical_region(
+        local, (q, k, v, cache["k"], cache["v"]), (q_log, kv_log, kv_log, _CACHE_LOGICAL, _CACHE_LOGICAL),
+        [(q_log, q.shape), (_CACHE_LOGICAL, c_shape), (_CACHE_LOGICAL, c_shape)])
+    return out, {"k": shard(ck, *_CACHE_LOGICAL), "v": shard(cv, *_CACHE_LOGICAL)}
 
 
 # ---------------------------------------------------------------------------
@@ -248,12 +354,12 @@ def ffn_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
 
 def ffn_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """SwiGLU, or GELU in its tanh form (``jax.nn.gelu``'s default)."""
-    h = torch.einsum("bsd,df->bsf", x, p["w1"])
+    h = shard(einsum("bsd,df->bsf", x, p["w1"]), "batch", None, "ff")
     if "w3" in p:
-        h = F.silu(h) * torch.einsum("bsd,df->bsf", x, p["w3"])
+        h = F.silu(h) * einsum("bsd,df->bsf", x, p["w3"])
     else:
         h = F.gelu(h, approximate="tanh")
-    return torch.einsum("bsf,fd->bsd", h, p["w2"])
+    return shard(einsum("bsf,fd->bsd", h, p["w2"]), "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +374,34 @@ def embed_specs(cfg: ModelConfig) -> dict:
 
 
 def embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens]
+    w = p["embed"]
+    if not distributed.is_dtensor(w):
+        return w[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = w.device_mesh
+    t_pl = distributed.placements_for(mesh, ("batch", None), tuple(tokens.shape))
+    if not distributed.is_dtensor(tokens):
+        tokens = distributed.keep_shard(tokens, mesh, t_pl)
+    # a mesh dimension that splits the tokens gathers its part of the vocabulary
+    w_pl = tuple(Replicate() if isinstance(pt, Shard) else pw for pw, pt in zip(
+        distributed.placements_for(mesh, ("vocab", None), tuple(w.shape)), t_pl))
+    (rows, _), (row0, _) = distributed.shard_bounds(w.shape, mesh, w_pl)
+    out_pl = distributed.placements_for(mesh, ("batch", None, None), tuple(tokens.shape) + (w.shape[1],))
+    out_pl = tuple(Partial() if isinstance(pw, Shard) else po for pw, po in zip(w_pl, out_pl))
+    grad_pl = tuple(pw if isinstance(pw, Shard) else (Partial() if isinstance(pt, Shard) else pw)
+                    for pw, pt in zip(w_pl, t_pl))
+
+    def local(wl, tl):
+        if rows == w.shape[0]:
+            return wl[tl]
+        idx = tl.long() - row0
+        inside = (idx >= 0) & (idx < rows)
+        got = wl[torch.where(inside, idx, torch.zeros_like(idx))]
+        return torch.where(inside[..., None], got, torch.zeros_like(got))
+
+    out = distributed.local_region(local, (w, tokens), (w_pl, t_pl), out_pl, in_grad_placements=(grad_pl, t_pl))
+    return shard(out, "batch", None, None)
 
 
 def lm_logits(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -276,14 +409,68 @@ def lm_logits(p: dict, x: torch.Tensor) -> torch.Tensor:
     head = p.get("head")
     if head is None:
         head = p["embed"].T
-    return torch.einsum("bsd,dv->bsv", x, head).float()
+    return shard(einsum("bsd,dv->bsv", x, head).float(), "batch", None, "vocab")
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean cross-entropy; logits (B, S, V) f32, labels (B, S) int."""
+    """Mean cross-entropy; logits (B, S, V) f32, labels (B, S) int (on
+    DTensor logits, :func:`_sharded_xent`)."""
+    if distributed.is_dtensor(logits):
+        return _sharded_xent(logits, labels, mask, shift=False)
+    return _xent(logits, labels, mask)
+
+
+def next_token_xent(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The next-token loss: the labels rolled left by one, the last position
+    masked out, with ``mask`` when given."""
+    if distributed.is_dtensor(logits):
+        return _sharded_xent(logits, labels, mask, shift=True)
+    return _xent(logits, *_next_tokens(labels, mask))
+
+
+def _next_tokens(labels: torch.Tensor, mask: torch.Tensor | None):
+    shifted = torch.roll(labels, -1, dims=1)
+    mask = torch.ones_like(labels, dtype=torch.bool) if mask is None else mask.clone()
+    mask[:, -1] = False  # last position has no next token
+    return shifted, mask
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
-    nll = lse - ll
+    return lse - torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+
+
+def _sharded_xent(logits, labels, mask, shift: bool):
+    """The loss of DTensor logits: each rank's batch shard of the logits,
+    gathered over the vocabulary, gives the sums of its masked losses and
+    mask, which are added over the batch shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = logits.device_mesh
+    lg_pl = distributed.placements_for(mesh, ("batch", None, None), tuple(logits.shape))
+    tok_pl = distributed.placements_for(mesh, ("batch", None), tuple(labels.shape))
+
+    def own(t):
+        return t if t is None or distributed.is_dtensor(t) else distributed.keep_shard(t, mesh, tok_pl)
+
+    def local(lg, lab, m):
+        if shift:
+            lab, m = _next_tokens(lab, m)
+        nll = _nll(lg, lab)
+        if m is None:
+            return torch.stack([nll.sum(), torch.tensor(float(nll.numel()), device=lg.device)])
+        mf = m.float()
+        return torch.stack([(nll * mf).sum(), mf.sum()])
+
+    sums_pl = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in lg_pl)
+    args = (logits, own(labels), own(mask))
+    sums = distributed.local_region(local, args, (lg_pl, tok_pl, None if mask is None else tok_pl), sums_pl)
+    sums = sums.redistribute(mesh, (Replicate(),) * mesh.ndim)
+    return sums[0] / torch.clamp(sums[1], min=1.0)
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    nll = _nll(logits, labels)
     if mask is not None:
         m = mask.float()
         return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)

@@ -25,11 +25,14 @@ import contextvars
 
 import torch
 
+from .. import distributed
+from ..distributed import einsum, shard
 from .config import ModelConfig
 from .layers import causal_conv1d
 from .spec import LeafSpec
 
 __all__ = ["ssm_state_dtype", "mamba_specs", "associative_scan", "mamba_block", "init_mamba_cache",
+           "mamba_cache_logical",
            "mamba_decode_step"]
 
 # Dtype of the chunked scan's state tensors (decays, drives, h): f32 by
@@ -111,7 +114,7 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
 def _ssm_inputs(p: dict, x: torch.Tensor, cfg: ModelConfig):
     """x: (B, S, d) -> (u, z), each (B, S, d_in) in the parameters' dtype."""
     d_in, _, _ = _dims(cfg)
-    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    xz = shard(einsum("bsd,de->bse", x, p["in_proj"]), "batch", None, "ff")
     return xz[..., :d_in], xz[..., d_in:]
 
 
@@ -119,9 +122,9 @@ def _ssm_params(p: dict, u: torch.Tensor, cfg: ModelConfig):
     """(dt (B, S, d_in), B (B, S, ds), C (B, S, ds), a (d_in, ds)), f32:
     ``dt``'s softplus in the parameters' dtype, then widened."""
     _, dt_rank, ds = _dims(cfg)
-    dbc = torch.einsum("bse,ef->bsf", u, p["x_proj"])
+    dbc = einsum("bse,ef->bsf", u, p["x_proj"])
     dt, bc, cc = dbc[..., :dt_rank], dbc[..., dt_rank : dt_rank + ds], dbc[..., dt_rank + ds :]
-    dt = _Softplus.apply(torch.einsum("bsr,re->bse", dt, p["dt_proj"]) + p["dt_bias"]).float()
+    dt = _Softplus.apply(einsum("bsr,re->bse", dt, p["dt_proj"]) + p["dt_bias"]).float()
     a = -torch.exp(p["a_log"].float())
     return dt, bc.float(), cc.float(), a
 
@@ -174,25 +177,32 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig, chunk: int = 256) ->
     u, z = _ssm_inputs(p, x, cfg)
     u = _silu(causal_conv1d(u, p["conv_w"], p["conv_b"]))
     dt, bc, cc, a = _ssm_params(p, u, cfg)
-    uf = u.float()
     c = min(chunk, s)
     if s % c:
         raise ValueError(f"sequence {s} is not a whole number of Mamba chunks of {c}")
     sdt = getattr(torch, _SSM_STATE_DTYPE.get())
-    h0 = torch.zeros((b, d_in, ds), dtype=torch.float32, device=x.device)
-    ys = []
-    for t0 in range(0, s, c):
-        sl = slice(t0, t0 + c)
-        dt_c = dt[:, sl, :, None]
-        adt = torch.exp(dt_c * a).to(sdt)  # (B, c, d_in, ds)
-        drive = (dt_c * uf[:, sl, :, None] * bc[:, sl, None, :]).to(sdt)
-        a_cum, b_cum = associative_scan(_combine, (adt, drive), dim=1)
-        h = torch.addcmul(b_cum, a_cum, h0[:, None].to(sdt))
-        ys.append(torch.einsum("bcds,bcs->bcd", h.float(), cc[:, sl]))
-        h0 = h[:, -1].float()
-    y = torch.cat(ys, dim=1) + uf * p["d_skip"].float()
+
+    def scan(dt, bc, cc, a, uf, d_skip):
+        # on a mesh: this rank's batch and d_inner shards (the channels scan
+        # independently)
+        h0 = torch.zeros((dt.shape[0], dt.shape[2], ds), dtype=torch.float32, device=dt.device)
+        ys = []
+        for t0 in range(0, s, c):
+            sl = slice(t0, t0 + c)
+            dt_c = dt[:, sl, :, None]
+            adt = torch.exp(dt_c * a).to(sdt)  # (B, c, d_in, ds)
+            drive = (dt_c * uf[:, sl, :, None] * bc[:, sl, None, :]).to(sdt)
+            a_cum, b_cum = associative_scan(_combine, (adt, drive), dim=1)
+            h = torch.addcmul(b_cum, a_cum, h0[:, None].to(sdt))
+            ys.append(torch.einsum("bcds,bcs->bcd", h.float(), cc[:, sl]))
+            h0 = h[:, -1].float()
+        return torch.cat(ys, dim=1) + uf * d_skip.float()
+
+    act, state = ("batch", None, "ff"), ("batch", None, None)
+    y = distributed.logical_region(scan, (dt, bc, cc, a, u.float(), p["d_skip"]),
+                                   (act, state, state, ("ff", None), act, ("ff",)), (act, dt.shape), params=(3, 5))
     y = y.to(x.dtype) * _silu(z)
-    return torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    return shard(einsum("bse,ed->bsd", y, p["out_proj"]), "batch", None, None)
 
 
 # -- decode -------------------------------------------------------------------
@@ -201,6 +211,10 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
     d_in, _, ds = _dims(cfg)
     return {"conv": torch.zeros((batch, cfg.d_conv - 1, d_in), dtype=torch.bfloat16, device=device),
             "ssm": torch.zeros((batch, d_in, ds), dtype=torch.float32, device=device)}
+
+
+def mamba_cache_logical() -> dict:
+    return {"conv": ("batch", None, "ff"), "ssm": ("batch", "ff", None)}
 
 
 def mamba_decode_step(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
@@ -218,5 +232,5 @@ def mamba_decode_step(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig) -
     y = torch.einsum("bds,bs->bd", h, cc[:, 0])[:, None, :]
     y = y + u1.float() * p["d_skip"].float()
     y = y.to(x.dtype) * _silu(z)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = shard(einsum("bse,ed->bsd", y, p["out_proj"]), "batch", None, None)
     return out, {"conv": conv_in[:, 1:, :].to(torch.bfloat16), "ssm": h}

@@ -22,12 +22,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import distributed
+from ..distributed import einsum, shard
 from .config import ModelConfig
 from .layers import causal_conv1d
 from .spec import LeafSpec
 
-__all__ = ["mlstm_specs", "mlstm_block", "init_mlstm_cache", "mlstm_decode_step", "slstm_specs", "slstm_block",
-           "init_slstm_cache", "slstm_decode_step"]
+__all__ = ["mlstm_specs", "mlstm_block", "init_mlstm_cache", "mlstm_cache_logical", "mlstm_decode_step",
+           "slstm_specs", "slstm_block", "init_slstm_cache", "slstm_cache_logical", "slstm_decode_step"]
 
 # The stabilizer's start: exp of anything offset by it underflows to 0.
 M_INIT = -1e30
@@ -65,14 +67,14 @@ def _mlstm_qkvg(p: dict, x: torch.Tensor, cfg: ModelConfig):
     b, s, _ = x.shape
     dup, hd = _mlstm_dims(cfg)
     h = cfg.n_heads
-    ug = torch.einsum("bsd,de->bse", x, p["w_up"])
+    ug = shard(einsum("bsd,de->bse", x, p["w_up"]), "batch", None, "ff")
     u, g = ug[..., :dup], ug[..., dup:]
     u = F.silu(causal_conv1d(u, p["conv_w"], p["conv_b"]))
-    q = torch.einsum("bse,ef->bsf", u, p["wq"]).reshape(b, s, h, hd)
-    k = torch.einsum("bse,ef->bsf", u, p["wk"]).reshape(b, s, h, hd) * hd**-0.5
-    v = torch.einsum("bse,ef->bsf", u, p["wv"]).reshape(b, s, h, hd)
-    li = (torch.einsum("bse,eh->bsh", u, p["wi"]) + p["bi"]).float()
-    lf = F.logsigmoid((torch.einsum("bse,eh->bsh", u, p["wf"]) + p["bf"]).float())
+    q = einsum("bse,ef->bsf", u, p["wq"]).reshape(b, s, h, hd)
+    k = einsum("bse,ef->bsf", u, p["wk"]).reshape(b, s, h, hd) * hd**-0.5
+    v = einsum("bse,ef->bsf", u, p["wv"]).reshape(b, s, h, hd)
+    li = (einsum("bse,eh->bsh", u, p["wi"]) + p["bi"]).float()
+    lf = distributed.pointwise(F.logsigmoid, (einsum("bse,eh->bsh", u, p["wf"]) + p["bf"]).float())
     return q, k, v, li, lf, g
 
 
@@ -129,19 +131,26 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, chunk: int = 256) ->
     c = min(chunk, s)
     if s % c:
         raise ValueError(f"sequence {s} is not a whole number of mLSTM chunks of {c}")
-    dev = x.device
-    carry = (
-        torch.zeros((b, h, hd, hd), dtype=torch.float32, device=dev),
-        torch.zeros((b, h, hd), dtype=torch.float32, device=dev),
-        torch.full((b, h), M_INIT, dtype=torch.float32, device=dev),
-    )
-    hs = []
-    for t0 in range(0, s, c):
-        sl = slice(t0, t0 + c)
-        carry, h_out = _mlstm_chunk(carry, q[:, sl], k[:, sl], v[:, sl], li[:, sl], lf[:, sl])
-        hs.append(h_out)
-    hseq = torch.cat(hs, dim=1).reshape(b, s, dup)
-    return torch.einsum("bse,ed->bsd", hseq * F.silu(g), p["w_down"])
+
+    def cell(q, k, v, li, lf):
+        # on a mesh: this rank's batch and head shards (the heads run apart)
+        bl, hl, dev = q.shape[0], q.shape[2], q.device
+        carry = (
+            torch.zeros((bl, hl, hd, hd), dtype=torch.float32, device=dev),
+            torch.zeros((bl, hl, hd), dtype=torch.float32, device=dev),
+            torch.full((bl, hl), M_INIT, dtype=torch.float32, device=dev),
+        )
+        hs = []
+        for t0 in range(0, s, c):
+            sl = slice(t0, t0 + c)
+            carry, h_out = _mlstm_chunk(carry, q[:, sl], k[:, sl], v[:, sl], li[:, sl], lf[:, sl])
+            hs.append(h_out)
+        return torch.cat(hs, dim=1)
+
+    heads4, heads3 = ("batch", None, "heads", None), ("batch", None, "heads")
+    hseq = distributed.logical_region(cell, (q, k, v, li, lf), (heads4, heads4, heads4, heads3, heads3),
+                                      (heads4, q.shape)).reshape(b, s, dup)
+    return shard(einsum("bse,ed->bsd", hseq * F.silu(g), p["w_down"]), "batch", None, None)
 
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
@@ -155,30 +164,48 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
     }
 
 
+def mlstm_cache_logical() -> dict:
+    return {
+        "c": ("batch", None, "ff", None),
+        "n": ("batch", None, "ff"),
+        "m": ("batch", None),
+        "conv": ("batch", None, "ff"),
+    }
+
+
 def mlstm_decode_step(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """x: (B, 1, d); the sequential mLSTM cell. Returns the output and a new
     cache."""
     b = x.shape[0]
     dup, hd = _mlstm_dims(cfg)
     h = cfg.n_heads
-    ug = torch.einsum("bsd,de->bse", x, p["w_up"])
+    ug = shard(einsum("bsd,de->bse", x, p["w_up"]), "batch", None, "ff")
     u, g = ug[..., :dup], ug[..., dup:]
     conv_in = torch.cat([cache["conv"].to(u.dtype), u], dim=1)
     u1 = F.silu(causal_conv1d(conv_in, p["conv_w"], p["conv_b"])[:, -1:, :])
-    q = torch.einsum("bse,ef->bsf", u1, p["wq"]).reshape(b, h, hd).float()
-    k = (torch.einsum("bse,ef->bsf", u1, p["wk"]).reshape(b, h, hd) * hd**-0.5).float()
-    v = torch.einsum("bse,ef->bsf", u1, p["wv"]).reshape(b, h, hd).float()
-    li = (torch.einsum("be,eh->bh", u1[:, 0], p["wi"]) + p["bi"]).float()
-    lf = F.logsigmoid((torch.einsum("be,eh->bh", u1[:, 0], p["wf"]) + p["bf"]).float())
-    m_new = torch.maximum(cache["m"] + lf, li)
-    decay = torch.exp(cache["m"] + lf - m_new)
-    inj = torch.exp(li - m_new)
-    c_new = decay[..., None, None] * cache["c"] + inj[..., None, None] * (k[..., :, None] * v[..., None, :])
-    n_new = decay[..., None] * cache["n"] + inj[..., None] * k
-    y = torch.einsum("bhk,bhkv->bhv", q, c_new)
-    denom = torch.maximum(torch.einsum("bhk,bhk->bh", q, n_new).abs(), torch.exp(-m_new))
-    hvec = (y / denom[..., None]).reshape(b, 1, dup).to(x.dtype)
-    out = torch.einsum("bse,ed->bsd", hvec * F.silu(g), p["w_down"])
+    q = einsum("bse,ef->bsf", u1, p["wq"]).reshape(b, h, hd).float()
+    k = (einsum("bse,ef->bsf", u1, p["wk"]).reshape(b, h, hd) * hd**-0.5).float()
+    v = einsum("bse,ef->bsf", u1, p["wv"]).reshape(b, h, hd).float()
+    li = (einsum("be,eh->bh", u1[:, 0], p["wi"]) + p["bi"]).float()
+    lf = distributed.pointwise(F.logsigmoid, (einsum("be,eh->bh", u1[:, 0], p["wf"]) + p["bf"]).float())
+
+    def cell(q, k, v, li, lf, c, n, m):
+        # on a mesh: this rank's batch shard, every head
+        m_new = torch.maximum(m + lf, li)
+        decay = torch.exp(m + lf - m_new)
+        inj = torch.exp(li - m_new)
+        c_new = decay[..., None, None] * c + inj[..., None, None] * (k[..., :, None] * v[..., None, :])
+        n_new = decay[..., None] * n + inj[..., None] * k
+        y = torch.einsum("bhk,bhkv->bhv", q, c_new)
+        denom = torch.maximum(torch.einsum("bhk,bhk->bh", q, n_new).abs(), torch.exp(-m_new))
+        return y / denom[..., None], c_new, n_new, m_new
+
+    b2, b3, b4 = ("batch", None), ("batch", None, None), ("batch", None, None, None)
+    hv, c_new, n_new, m_new = distributed.logical_region(
+        cell, (q, k, v, li, lf, cache["c"], cache["n"], cache["m"]), (b3, b3, b3, b2, b2, b4, b3, b2),
+        [(b3, q.shape), (b4, cache["c"].shape), (b3, cache["n"].shape), (b2, cache["m"].shape)])
+    hvec = hv.reshape(b, 1, dup).to(x.dtype)
+    out = shard(einsum("bse,ed->bsd", hvec * F.silu(g), p["w_down"]), "batch", None, None)
     return out, {"c": c_new, "n": n_new, "m": m_new, "conv": conv_in[:, 1:, :].to(torch.bfloat16)}
 
 
@@ -221,16 +248,26 @@ def slstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b, s, d = x.shape
     h = cfg.n_heads
     hd = d // h
-    gates = (torch.einsum("bsd,dg->bsg", x, p["w_in"]) + p["b_in"]).reshape(b, s, 4, h, hd)
-    z = torch.zeros((b, h, hd), dtype=torch.float32, device=x.device)
-    carry = (z, z, torch.full((b, h, hd), M_INIT, dtype=torch.float32, device=x.device), z)
-    r, n_floor = p["r"].float(), torch.tensor(1e-6, device=x.device)
-    hs = []
-    for t in range(s):
-        carry, h_t = _slstm_cell(carry, gates[:, t], r, n_floor)
-        hs.append(h_t)
-    hseq = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
-    return torch.einsum("bsd,de->bse", hseq, p["out_proj"])
+    gates = (einsum("bsd,dg->bsg", x, p["w_in"]) + p["b_in"]).reshape(b, s, 4, h, hd)
+
+    def steps(gates, r):
+        # on a mesh: this rank's batch and head shards
+        bl, hl, dev = gates.shape[0], gates.shape[3], gates.device
+        z = torch.zeros((bl, hl, hd), dtype=torch.float32, device=dev)
+        carry = (z, z, torch.full((bl, hl, hd), M_INIT, dtype=torch.float32, device=dev), z)
+        r, n_floor = r.float(), torch.tensor(1e-6, device=dev)
+        hs = []
+        for t in range(s):
+            carry, h_t = _slstm_cell(carry, gates[:, t], r, n_floor)
+            hs.append(h_t)
+        return torch.stack(hs, dim=1)
+
+    hs_logical = ("batch", None, "heads", None)
+    hseq = distributed.logical_region(steps, (gates, p["r"]), (("batch", None, None, "heads", None),
+                                                               (None, "heads", None, None)),
+                                      (hs_logical, (b, s, h, hd)), params=(1,))
+    hseq = hseq.reshape(b, s, d).to(x.dtype)
+    return shard(einsum("bsd,de->bse", hseq, p["out_proj"]), "batch", None, None)
 
 
 def init_slstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
@@ -241,13 +278,25 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
             "h": torch.zeros(shape, dtype=torch.float32, device=device)}
 
 
+def slstm_cache_logical() -> dict:
+    return {k: ("batch", None, None) for k in ("c", "n", "m", "h")}
+
+
 def slstm_decode_step(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """x: (B, 1, d); one step of :func:`_slstm_cell`. Returns the output
     and a new cache."""
     b, _, d = x.shape
     h = cfg.n_heads
-    gates = (torch.einsum("bsd,dg->bsg", x, p["w_in"]) + p["b_in"]).reshape(b, 4, h, d // h)
-    carry = (cache["c"], cache["n"], cache["m"], cache["h"])
-    (c, n, m, hh), h_new = _slstm_cell(carry, gates, p["r"].float(), torch.tensor(1e-6, device=x.device))
-    out = torch.einsum("bsd,de->bse", h_new.reshape(b, 1, d).to(x.dtype), p["out_proj"])
+    gates = (einsum("bsd,dg->bsg", x, p["w_in"]) + p["b_in"]).reshape(b, 4, h, d // h)
+
+    def step(gates, r, c, n, m, hh):
+        # on a mesh: this rank's batch shard, every head
+        (c, n, m, hh), h_new = _slstm_cell((c, n, m, hh), gates, r.float(), torch.tensor(1e-6, device=gates.device))
+        return c, n, m, hh, h_new
+
+    b3, b4 = ("batch", None, None), ("batch", None, None, None)
+    c, n, m, hh, h_new = distributed.logical_region(
+        step, (gates, p["r"], cache["c"], cache["n"], cache["m"], cache["h"]), (b4, (None,) * 4, b3, b3, b3, b3),
+        [(b3, cache["c"].shape)] * 5, params=(1,))
+    out = shard(einsum("bsd,de->bse", h_new.reshape(b, 1, d).to(x.dtype), p["out_proj"]), "batch", None, None)
     return out, {"c": c, "n": n, "m": m, "h": hh}

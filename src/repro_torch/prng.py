@@ -45,7 +45,7 @@ import torch
 __all__ = [
     "key", "fold_in", "split", "bits", "uniform", "randint", "normal", "gumbel", "categorical", "permutation",
     "choice",
-    "threefry2x32",
+    "threefry2x32", "shard_flat_index", "shard_flat_at",
 ]
 
 _MASK = 0xFFFFFFFF
@@ -92,17 +92,19 @@ def split(k: torch.Tensor, n: int = 2) -> torch.Tensor:
     return fold_in(k.unsqueeze(-2), idx)
 
 
-def bits(k: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
+def bits(k: torch.Tensor, shape, offset: int = 0, index: torch.Tensor | None = None) -> torch.Tensor:
     """32-bit random words (values in ``[0, 2**32)`` held in int64).
 
     Keys ``(..., 2)`` give ``(...,) + shape``: each key draws its own
     ``shape``-sized block, counted from flat index ``offset`` (0: the whole
     draw; a later offset continues the same stream, so a long draw can be
-    made a block at a time with the same bits).
+    made a block at a time with the same bits). ``index`` (int64, of
+    ``shape``'s size) gives the flat indices of the draw to take instead:
+    the words a shard of a larger draw holds.
     """
     shape = tuple(shape)
     n = math.prod(shape)
-    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=k.device)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=k.device) if index is None else index.reshape(n)
     batch = k.shape[:-1]
     k0 = k[..., 0].reshape(batch + (1,))
     k1 = k[..., 1].reshape(batch + (1,))
@@ -110,13 +112,39 @@ def bits(k: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
     return (x0 ^ x1).reshape(batch + shape)
 
 
-def uniform(k: torch.Tensor, shape, offset: int = 0, minval: float = 0.0) -> torch.Tensor:
+def shard_flat_index(shape: tuple, local: tuple, offset: tuple, lo: int, hi: int, device) -> torch.Tensor:
+    """The flat indices, in the whole ``shape``'s row-major order, of the
+    shard's coordinates ``lo .. hi`` in its own row-major order (the shard
+    ``local`` starts at ``offset``): int64 on ``device``."""
+    lin = torch.arange(lo, hi, dtype=torch.int64, device=device)
+    g = torch.zeros_like(lin)
+    stride = 1
+    for k in reversed(range(len(shape))):
+        g += (lin % local[k] + offset[k]) * stride
+        lin = lin // local[k]
+        stride *= shape[k]
+    return g
+
+
+def shard_flat_at(shape: tuple, local: tuple, offset: tuple, i: int) -> int:
+    """The whole ``shape``'s flat index of the shard's ``i``-th coordinate
+    (Python ints; it grows with ``i``)."""
+    g, stride = 0, 1
+    for k in reversed(range(len(shape))):
+        g += (i % local[k] + offset[k]) * stride
+        i //= local[k]
+        stride *= shape[k]
+    return g
+
+
+def uniform(k: torch.Tensor, shape, offset: int = 0, minval: float = 0.0,
+            index: torch.Tensor | None = None) -> torch.Tensor:
     """f32 uniforms in ``[minval, 1)``, bit-exact with
-    ``jax.random.uniform`` (``offset`` as in :func:`bits`). With a
+    ``jax.random.uniform`` (``offset`` and ``index`` as in :func:`bits`). With a
     ``minval`` the draw is ``max(minval, u * (1 - minval) + minval)`` in f32
     with the multiply-add fused, as XLA compiles ``jax.random.uniform``
     (always jitted)."""
-    mant = (bits(k, shape, offset) >> 9) | 0x3F800000
+    mant = (bits(k, shape, offset, index) >> 9) | 0x3F800000
     u = mant.to(torch.int32).view(torch.float32) - 1.0
     if minval == 0.0:
         return u
@@ -238,13 +266,14 @@ def _erf_inv(x: torch.Tensor) -> torch.Tensor:
     return p * x
 
 
-def normal(k: torch.Tensor, shape, scale: float = 1.0, offset: int = 0) -> torch.Tensor:
+def normal(k: torch.Tensor, shape, scale: float = 1.0, offset: int = 0,
+           index: torch.Tensor | None = None) -> torch.Tensor:
     """f32 ``scale * N(0, 1)`` draws, bit-exact with ``jax.random.normal``
     on the CPU: ``erf_inv(u) * f32(sqrt(2) * scale)``, ``u`` uniform on
     ``[nextafter(-1, 0), 1)`` (``2 * uniform + lo`` is exact). Under ``jit``
     XLA folds a constant ``scale`` into the ``sqrt(2)`` factor, and so does
-    this. Batched keys and ``offset`` as in :func:`uniform`."""
-    u = torch.clamp(uniform(k, shape, offset) * 2.0 + _LO, min=_LO)
+    this. Batched keys, ``offset`` and ``index`` as in :func:`uniform`."""
+    u = torch.clamp(uniform(k, shape, offset, index=index) * 2.0 + _LO, min=_LO)
     return _erf_inv(u) * _r32(_SQRT2 * _r32(scale))
 
 

@@ -22,14 +22,16 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
-def _entry(rank: int, world: int, store: str, out: str, job: str, kwargs: dict) -> None:
+def _entry(rank: int, world: int, store: str, out: str, job: str, kwargs: dict, backend: str) -> None:
     torch.set_num_threads(1)
     if torch.cuda.is_available():
         # the card tests' settings: every rank shares cuda:0
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True)
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank, world_size=world)
+    if backend != "gloo":
+        import repro_torch.distributed  # noqa: F401  (registers the staged backend)
+    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank, world_size=world)
     try:
         result = globals()[job](**kwargs)
         torch.save(result, os.path.join(out, f"rank{rank}.pt"))
@@ -37,13 +39,15 @@ def _entry(rank: int, world: int, store: str, out: str, job: str, kwargs: dict) 
         dist.destroy_process_group()
 
 
-def run_ranks(world: int, tmp_path: pathlib.Path, job: str, timeout: float = 300.0, **kwargs) -> list:
-    """Run ``job(**kwargs)`` on ``world`` gloo ranks; their results in rank
-    order. A rank that fails or outlives ``timeout`` seconds fails the call
-    (every rank is then stopped)."""
+def run_ranks(world: int, tmp_path: pathlib.Path, job: str, timeout: float = 300.0, backend: str = "gloo",
+              **kwargs) -> list:
+    """Run ``job(**kwargs)`` on ``world`` ranks of a ``backend`` group (gloo;
+    the port's host-staged ``"staged"`` for DTensor's own collectives on the
+    card); their results in rank order. A rank that fails or outlives
+    ``timeout`` seconds fails the call (every rank is then stopped)."""
     out = tmp_path / f"{job}-out"
     out.mkdir(parents=True, exist_ok=True)
-    ctx = mp.start_processes(_entry, args=(world, str(tmp_path / f"{job}-store"), str(out), job, kwargs),
+    ctx = mp.start_processes(_entry, args=(world, str(tmp_path / f"{job}-store"), str(out), job, kwargs, backend),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:
@@ -130,3 +134,60 @@ def several(**jobs) -> dict:
     """Each named ``(job, kwargs)`` in turn on every rank: their results by
     name."""
     return {name: globals()[job](**kwargs) for name, (job, kwargs) in jobs.items()}
+
+
+def model_axis(cfg, specs, batch: dict, step_batch: dict, b: float, key: torch.Tensor, fl: dict,
+               wire_leaf: int, wire_delta: torch.Tensor, engine: str | None = None,
+               mesh_shape: tuple | None = None, moe_cfg=None, moe_tokens: torch.Tensor | None = None) -> dict:
+    """The model axis on a ("data", "model") mesh of every rank, of
+    ``mesh_shape`` (by default (1, world)): ``specs`` initialized as
+    DTensors (FSDP over "data"); the prefill logits of ``batch``; for an
+    MoE config the first MoE block's expert-parallel f32 sum before its
+    rounding on the embedded ``moe_tokens`` (by default the prefill
+    tokens), under ``moe_cfg`` (by default ``cfg``); one LM round of ``step_batch`` (new parameters, b, metrics,
+    launches); and the shard of leaf ``wire_leaf`` that this rank packs
+    from the whole ``wire_delta``, unpacked to its bits, with the shard's
+    offset. Everything comes back whole, on the CPU."""
+    from repro_torch import distributed, prng, tree
+    from repro_torch.core.quantizer import unpack_bits
+    from repro_torch.kernels import _build
+    from repro_torch.launch import fl_step
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models import layers, moe, prefill
+    from repro_torch.models.spec import init_params
+
+    if mesh_shape is None:
+        mesh = make_host_mesh(dist.get_world_size())
+    else:
+        mesh = make_mesh(tuple(mesh_shape), ("data", "model"))
+    dev = torch.device(mesh.device_type, torch.cuda.current_device()) if mesh.device_type == "cuda" else "cpu"
+    params = init_params(specs, prng.key(0, dev), mesh=mesh, fsdp_axis="data")
+    batch, step_batch = (tree.tree_map(lambda x: x.to(dev), t) for t in (batch, step_batch))
+    out = {"placements": [str(w.placements) for w in tree.leaves(params)]}
+    with distributed.set_mesh(mesh), torch.no_grad():
+        out["logits"] = prefill(params, batch, cfg).full_tensor().cpu()
+        if cfg.n_experts:
+            from torch.distributed.tensor.experimental import implicit_replication
+
+            with implicit_replication():
+                x = layers.embed_tokens(params["embed"], batch["tokens"] if moe_tokens is None else moe_tokens)
+                p = {k: v[0] for k, v in params["blocks"][0]["ffn"].items()}
+                x2d = x.reshape(-1, x.shape[-1])
+                moe_out = moe._moe_on_mesh(p, x2d, moe_cfg or cfg)
+                out["moe_sum"], out["moe_placements"] = moe_out.full_tensor().cpu(), str(moe_out.placements)
+    step = fl_step.make_fl_train_step(cfg, fl_step.DistFLConfig(**fl), engine=engine)
+    distributed.reset_collectives()
+    _build.reset_launches()
+    with distributed.set_mesh(mesh):
+        new, b_new, metrics = step(params, torch.tensor(b, device=dev), step_batch, key.to(dev))
+    out.update(params_new=[w.full_tensor().cpu() for w in tree.leaves(new)], b=float(b_new),
+               metrics={k: float(v) for k, v in metrics.items()}, launches=dict(_build.launches))
+    leaf = tree.leaves(params)[wire_leaf]
+    local, off = distributed.shard_bounds(tuple(leaf.shape), mesh, leaf.placements)
+    piece = wire_delta.to(dev)[tuple(slice(o, o + n) for o, n in zip(off, local))].float()
+    with torch.no_grad():
+        row = fl_step._compress_shard(step.pipeline, "ref", prng.key(7, dev), piece.reshape(1, -1), leaf,
+                                      torch.tensor(b, device=dev), 3)
+    out["wire_bits"] = (unpack_bits(row.cpu(), piece.numel()) > 0).view(local)
+    out["wire_offset"] = off
+    return out

@@ -906,3 +906,80 @@ def test_pod_axis_step_on_card_equals_one_process(dev, deterministic, tmp_path):
         assert all(torch.equal(a, c.cpu()) for a, c in zip(r["params"], tree.leaves(new)))
         assert r["b"] == float(b) and r["metrics"] == {k: float(v) for k, v in m.items()}
         assert r["launches"] == {"stoch_quant_pack": 2 * n_leaves, "bit_aggregate": n_leaves}
+
+
+# The model-axis card test's f32 bars: shares of the largest value (logits,
+# the MoE sum), an rtol of the losses and a share of the coordinates apart.
+# Measured on an NVIDIA H100 80GB HBM3 at 700 W (both ranks alike): logits
+# 2.54e-5 (cuBLAS sums the vocabulary's and the heads' shorter sharded
+# products in another order), the MoE sum 0 (its bar is the CPU test's),
+# losses 7.2e-8 and 6.3e-7, 6.2e-6 of the coordinates apart.
+MODEL_AXIS_F32_BARS = {"logits": 1e-4, "moe_sum": 1e-6, "loss_rtol": 5e-6, "apart": 5e-5}
+
+
+def test_model_axis_step_on_card_equals_one_process(dev, deterministic, tmp_path):
+    """The reduced qwen3-moe in f32 on a ("data", "model") = (1, 2) mesh of
+    two ranks sharing the card (the host-staged backend carries DTensor's
+    own collectives), against one process on the card, with the bars
+    MODEL_AXIS_F32_BARS (each a few times the gap measured on an H100, in
+    its comment): each rank's prefill logits and the first MoE block's
+    expert-parallel f32 sum (before its rounding) within a share of the
+    largest value, its b exact, its losses within an rtol and its new
+    parameters with at most a share of the coordinates apart; its shard of
+    the largest leaf's wire, unpacked, equal to the whole wire's bits
+    coordinate for coordinate; and each rank's launches: B1 once a
+    (client, leaf) of the leaves it holds, every leaf, and B3 once a
+    leaf. The gaps are printed as one JSON line."""
+    import dataclasses
+    import json
+
+    from _torch_ranks import run_ranks
+    from repro_torch import configs, distributed, tree
+    from repro_torch.core.quantizer import unpack_bits
+    from repro_torch.launch import fl_step
+    from repro_torch.models import build_specs, init_params, layers, moe, prefill, sample_batch
+    from repro_torch.models.spec import is_spec
+
+    cfg = configs.reduced(configs.get_config("qwen3-moe-30b-a3b"))
+    specs = tree.tree_map(lambda s: dataclasses.replace(s, dtype=torch.float32), build_specs(cfg), is_leaf=is_spec)
+    params = init_params(specs, prng.key(0, dev))
+    batch = sample_batch(cfg, 2, 32, "prefill", seed=1)
+    sb = sample_batch(cfg, 16, 32, "train", seed=2)
+    step_batch = {k: v.view((2, 2, 2, 2) + v.shape[1:]) for k, v in sb.items()}
+    fl, key = dict(clients_per_round=4, local_steps=2, lr=0.01), prng.key(5)
+    leaves = tree.leaves(params)
+    li = max(range(len(leaves)), key=lambda i: leaves[i].numel())
+    delta = torch.randn(leaves[li].shape, generator=torch.Generator().manual_seed(0)) * 0.01
+    with torch.no_grad():
+        logits = prefill(params, {k: v.to(dev) for k, v in batch.items()}, cfg).cpu()
+        x2d = layers.embed_tokens(params["embed"], batch["tokens"].to(dev)).reshape(-1, cfg.d_model)
+        p = {k: v[0] for k, v in params["blocks"][0]["ffn"].items()}
+        gates, idx = moe._route(x2d, p["router"], cfg.top_k)
+        moe_sum = moe._expert_sum(x2d, gates, idx, p["w1"], p["w3"], p["w2"], moe.capacity(x2d.shape[0], cfg),
+                                  cfg.n_experts).cpu()
+    step = fl_step.make_fl_train_step(cfg, fl_step.DistFLConfig(**fl))
+    wire, _ = step.pipeline.compressor.compress(prng.key(7, dev), delta.to(dev).reshape(1, -1),
+                                                torch.tensor(0.01, device=dev), torch.zeros((), device=dev),
+                                                row_offset=3)
+    bits = (unpack_bits(wire.packed[0].cpu(), delta.numel()) > 0).view(delta.shape)
+    new, b, met = step(params, torch.tensor(0.01, device=dev), {k: v.to(dev) for k, v in step_batch.items()},
+                       key.to(dev))
+    n = sum(w.numel() for w in tree.leaves(new))
+    ranks = run_ranks(2, tmp_path, "model_axis", timeout=600, backend=distributed.STAGED_BACKEND, cfg=cfg,
+                      specs=specs, batch=batch, step_batch=step_batch, b=0.01, key=key, fl=fl, wire_leaf=li,
+                      wire_delta=delta)
+    gaps = [{"logits": float((r["logits"] - logits).abs().max() / logits.abs().max()),
+             "moe_sum": float((r["moe_sum"] - moe_sum).abs().max() / moe_sum.abs().max()),
+             **{k: abs(r["metrics"][k] / float(met[k]) - 1) for k in ("loss_first", "loss_last")},
+             "apart": sum(int((a != c.cpu()).sum()) for a, c in zip(r["params_new"], tree.leaves(new))) / n}
+            for r in ranks]
+    print(json.dumps({"model_axis_f32_gaps": gaps}))
+    bars = MODEL_AXIS_F32_BARS
+    for r, gap in zip(ranks, gaps):
+        assert gap["logits"] <= bars["logits"] and gap["moe_sum"] <= bars["moe_sum"], gap
+        assert r["b"] == float(b)
+        assert max(gap["loss_first"], gap["loss_last"]) <= bars["loss_rtol"], gap
+        assert gap["apart"] <= bars["apart"], gap
+        off, local = r["wire_offset"], r["wire_bits"]
+        assert torch.equal(local, bits[tuple(slice(o, o + s) for o, s in zip(off, local.shape))])
+        assert r["launches"] == {"stoch_quant_pack": 4 * len(leaves), "bit_aggregate": len(leaves)}

@@ -116,15 +116,16 @@ def test_spec_rules_without_a_mesh_and_the_drops():
 
 def test_meshes_refuse_what_they_cannot_build():
     """Without a process group every constructor raises a clear error; the
-    production mesh names ROADMAP A14b; the client axis has no group."""
+    production mesh names the world it needs; the client axis has no
+    group."""
     with pytest.raises(RuntimeError, match="process group"):
         tmesh.make_mesh((2,), ("data",), "cpu")
     with pytest.raises(RuntimeError, match="process group"):
         tmesh.make_campaign_mesh()
     with pytest.raises(RuntimeError, match="process group"):
         tmesh.make_host_mesh()
-    for multi_pod in (False, True):
-        with pytest.raises(NotImplementedError, match="A14b"):
+    for multi_pod, need in ((False, 256), (True, 512)):
+        with pytest.raises(ValueError, match=f"world of {need} ranks"):
             tmesh.make_production_mesh(multi_pod=multi_pod)
     assert distributed.client_group() is None and distributed.group_size(None) == 1
     with pytest.raises(ValueError, match="pods"):

@@ -31,8 +31,12 @@ def test_pattern_catches_what_it_must():
 
 
 def test_the_mesh_modules_are_checked():
-    """The mesh layer and the test ranks' jobs are among the files held."""
+    """The mesh layer, the model axis's launch modules (the dry run, its
+    counting and analysis) and the test ranks' jobs are among the files
+    held."""
     names = {str(p.relative_to(ROOT)) for p in FILES}
-    assert {"src/repro_torch/distributed.py", "src/repro_torch/launch/mesh.py"} <= names
+    assert {"src/repro_torch/distributed.py", "src/repro_torch/launch/mesh.py", "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/launch/flopcount.py", "src/repro_torch/launch/analysis.py",
+            "src/repro_torch/models/spec.py"} <= names
     hits = FORBIDDEN.findall((ROOT / "tests" / "_torch_ranks.py").read_text())
     assert not hits, f"tests/_torch_ranks.py imports {hits}"
