@@ -27,7 +27,9 @@ Phases (any failure raises and exits non-zero before the result line):
    ResNet-18's width with 3 rows a run, which its row groups do not divide);
    and B1 through ``ops.quant_pack_u`` on top-k row sets (k = 11,828 and 99,
    not multiples of 8, one b row a client), and the sparse compressor's
-   kernel wire against its plain one;
+   kernel wire against its plain one; and the single-client entries
+   ``kernels.stoch_quant_compress`` / ``stoch_quant_pack`` (B1; B2 with a
+   residual given or wanted) at d in SINGLE_CLIENT_D;
 4. main path: ``FLSimulation`` with probit_plus, dynamic b and the kernels,
    on the paper's MLP at its default width (hidden 128, d = 118,282) with
    100 clients, 3 rounds in each of four variants: (a) plain, (b) error
@@ -82,6 +84,8 @@ Phases (any failure raises and exits non-zero before the result line):
    PyTorch's fused SGD on the same tensors, and at both main shapes every
    candidate geometry of ``b4_candidates`` and the old out-of-place call;
    B1 at the top-k wire's shape (M = 100 rows of k = 11,828 values);
+   B1 and B2 on one client's row at d = 118,282 and 11,172,042, the kernel
+   alone and the whole single-client entry (its Threefry draw included);
    and the grid's plain-torch stages (FedAvg, Fed-GM's 16 Weiszfeld steps,
    the sign wire and its counts, the oracle range, the gaussian attack's
    draw) at the main path's shapes, each as device time (one call captured
@@ -119,9 +123,10 @@ Phases (any failure raises and exits non-zero before the result line):
    step at qwen2-1.5b's published width (28 layers, d_model 1,536, vocab
    151,936; 15 leaves, d = 1,777,088,000; random weights from the port's
    Threefry) with the trainer's defaults (4 clients, 2 local steps of 2
-   sequences of 128 tokens): (p) PRoBit+ on the kernel wire for 2 rounds
-   (3 before phase 10 was added: the 1,000 s ceiling), one B1 a (client,
-   leaf) and one B3 a leaf each round (120 and 30), every
+   sequences of 128 tokens): (p) PRoBit+ on the kernel wire for 1 round
+   (3 before phase 10 was added, 2 before phase 13: the 1,000 s ceiling;
+   (r) covers a second round at full width), one B1 a (client, leaf) and
+   one B3 a leaf each round (60 and 15), every
    round equal to its ``engine="ref"`` step on the same inputs (new
    parameters bit for bit, b and both losses exact), its wire ~1/32 of f32;
    (p16) the 16-bit draws and (p-avg) FedAvg, one round each, launching
@@ -232,6 +237,26 @@ Phases (any failure raises and exits non-zero before the result line):
    (:func:`dryrun_dot_band`); the line prints its wall and trace seconds,
    its dot FLOPs over ``6 N T`` and its peak bytes a device beside the
    card's memory;
+13. theorems (ROADMAP A16, after phase 12; the ``"phase": "theorems"``
+   lines, one a check): (cc) the paper's Theorems 1-3 through the
+   functional one-bit API (``core.stochastic_binarize``,
+   ``probit_plus_from_updates``, ``probit_plus_aggregate``, ``flip_codes``,
+   ``privacy_loss``) at the MLP's width d = 118,282, every draw batched:
+   Theorem 1's error formula within 2% at M in {8, 32, 128, 512} with 16
+   draws each (theta clipped to [-b, b], the theorem's premise), M times the error equal within 4% across them, the mean of
+   64 draws at M = 32 within 6 standard errors of FedAvg's; Theorem 2's
+   ``2 beta ||b||`` bound (x 1.05) under ``flip_codes`` of the same draws at
+   M = 100, beta in {0.1, 0.2, 0.4}; one client at 1e9 moving no estimate
+   by more than 2b/M (f32 ulps aside); Theorem 3's privacy loss within
+   epsilon (x 1.0001) for epsilon in {0.05, 0.1, 0.5, 1} at b's floor; and
+   at each M B3 on one draw's packed codes equal to
+   ``probit_plus_aggregate`` bit for bit. (dd) the grids of the reference's
+   ``tests/test_statistical.py`` through ``run_campaign`` with the kernels
+   (B1, B3, B4), each with its plan's launch counts: the log-log slope of
+   theta_mse over M in {8, 16, 32, 64} in [-1.35, -0.65] and falling, with
+   no DP and at epsilon 0.1; accuracy under bit_flip within 0.1 / 0.12 of
+   the clean run; the straggler+sign_flip grid within 0.1 / 0.15 with
+   buf_fill > 0.5 and finite mean_age. Nothing is written to the repo;
 6. with ``--profile`` only: (a) on the MLP and on ``resnet18w64-m100``:
    the device busy share as nvidia-smi reads it over unprofiled rounds and
    as the union of the kernels' records of one round under
@@ -345,8 +370,9 @@ KERNELS = {
 # reference's init (fan_in = shape[-2], 1/sqrt(12) for the (1536, 12, 128)
 # attention projections) makes 28 layers' gradients reach 1e11-1e13, and
 # one SGD step at the trainer's 0.01 makes the next local loss NaN in the
-# reference and the port alike (ROADMAP C). (p) PRoBit+ on the kernel wire, each
-# round beside its engine="ref" rerun; (p16) the 16-bit draws, which stay
+# reference and the port alike (ROADMAP C). (p) PRoBit+ on the kernel wire, one
+# round (2 until phase 13 took the time; (r) runs 2 at full width) beside
+# its engine="ref" rerun; (p16) the 16-bit draws, which stay
 # plain; (p-avg) the full-precision FedAvg baseline; both one round. Then
 # (q): aggregate_pytree with error feedback on the reduced qwen2 through B2
 # and B3, two rounds, against stream_aggregate_pytree and engine="ref".
@@ -354,7 +380,7 @@ LM_ARCH = "qwen2-1.5b"
 LM_COMMON = ["--clients", "4", "--local-steps", "2", "--per-batch", "2", "--seq", "128", "--lr", "1e-8"]
 LM_ARGS = ["--arch", LM_ARCH] + LM_COMMON
 LM_VARIANTS = {
-    "p": ["--rounds", "2"],
+    "p": ["--rounds", "1"],
     "p16": ["--rounds", "1", "--rand-bits", "16"],
     "p-avg": ["--rounds", "1", "--aggregator", "fedavg_fp32"],
 }
@@ -461,6 +487,30 @@ MODEL_AXIS_BARS = {"loss_rtol": 1e-3, "params_apart": 0.005}
 DRYRUN_ARGV = ["--arch", "qwen3-moe-30b-a3b", "--shape", "train_4k", "--multi-pod"]
 DRYRUN_WORLD = 512
 DRYRUN_DEADLINE_S = 900
+# Phase 3: the single-client kernel entries (kernels.stoch_quant_compress,
+# stoch_quant_pack) at a short row, the MLP's width and ResNet-18's.
+SINGLE_CLIENT_D = (997, 118_282, RESNET_D)
+# Phase 13: the paper's theorem layer (ROADMAP A16) at the MLP's width. (cc)
+# Theorems 1-3 through the functional one-bit API: the error formula at each
+# of THEOREM_MS with THEOREM_REPS draws (bar 2%), M times the error equal
+# across them (bar 4%), unbiasedness over THEOREM_UNBIASED (M, reps) (6
+# standard errors), Theorem 2's bound at THEOREM_BYZ_M and THEOREM_BETAS,
+# magnitude immunity, Theorem 3 at THEOREM_EPS, and B3 against
+# probit_plus_aggregate on one draw's codes at each M. (dd) the grids of the
+# reference's tests/test_statistical.py through repro_torch.sim with the
+# kernels, at its data, model, seeds and bars.
+THEOREM_D = 118_282
+THEOREM_MS = (8, 32, 128, 512)
+THEOREM_REPS = 16
+THEOREM_BARS = {"error_rel": 0.02, "m_times_error_spread": 0.04, "unbiased_se": 6.0, "byz_slack": 1.05,
+                "privacy_slack": 1.0001}
+THEOREM_UNBIASED = (32, 64)
+THEOREM_BYZ_M = 100
+THEOREM_BETAS = (0.1, 0.2, 0.4)
+THEOREM_EPS = (0.05, 0.1, 0.5, 1.0)
+STAT_M_GRID = (8, 16, 32, 64)
+STAT_SLOPE = (-1.35, -0.65)
+STAT_PER_CLIENT = 50
 
 
 def require(cond, msg: str) -> None:
@@ -839,6 +889,40 @@ def check_topk_pack(chk: Checker, dev) -> None:
             for kern, eng in ((True, "cuda"), (False, None))]
         chk.same("stoch_quant_pack", wires[0].packed, wires[1].packed, tag + " sparse wire vs plain compressor")
         require(torch.equal(wires[0].indices, wires[1].indices), f"{tag}: indices differ")
+
+
+def check_single_client(chk: Checker, dev) -> int:
+    """Phase 3: one client's ``kernels.stoch_quant_compress`` and
+    ``stoch_quant_pack`` on the kernel engine (B1; B2 with a residual given
+    or wanted) against the plain engine, bit for bit, at each d of
+    SINGLE_CLIENT_D; returns the number of comparisons."""
+    import torch
+
+    from repro_torch import kernels, prng
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    n = 0
+    for d in SINGLE_CLIENT_D:
+        delta = 0.02 * torch.randn(d, generator=gen, device=dev)
+        res = 0.005 * torch.randn(d, generator=gen, device=dev)
+        b = torch.full((d,), 0.01, device=dev)
+        b[:3] = torch.tensor([0.0, 1e-30, 3.0], device=dev)  # guards
+        delta[3] = 0.01  # |delta| == b exactly: p is 0 or 1
+        key = prng.fold_in(prng.key(11, dev), d)
+        for resid, want_res in ((None, False), (res, False), (None, True), (res, True)):
+            name = "stoch_quant_pack" if resid is None and not want_res else "stoch_quant_ef"
+            tag = f"single client d={d} residual={resid is not None} want_residual={want_res}"
+            kp, kr = kernels.stoch_quant_compress(key, delta, b, resid, want_residual=want_res, engine="cuda")
+            rp, rr = kernels.stoch_quant_compress(key, delta, b, resid, want_residual=want_res, engine="ref")
+            chk.same(name, kp, rp, tag + " wire")
+            n += 1
+            if want_res:
+                chk.same(name, kr, rr, tag + " residual")
+                n += 1
+        chk.same("stoch_quant_pack", kernels.stoch_quant_pack(key, delta, b, engine="cuda"),
+                 kernels.stoch_quant_pack(key, delta, b, engine="ref"), f"single client d={d} stoch_quant_pack")
+        n += 1
+    return n
 
 
 def _split_clients(x, y, n_clients: int):
@@ -1323,7 +1407,7 @@ def synchronous_dense(group, cfg) -> bool:
     return cfg.async_buffer == 0 and cfg.client_chunk == 0 and not group.client_chunk
 
 
-def campaign_expected_launches(group, cfgs, n_seeds: int) -> dict:
+def campaign_expected_launches(group, cfgs, n_seeds: int, per_client: int = MAIN["per_client"]) -> dict:
     """One group's launches: a synchronous dense group launches B1 once a
     round, B3 once a round (PRoBit+ without a mask; a fused group counts
     with the weighted plain count) and B4 once a local step, for all its
@@ -1331,7 +1415,7 @@ def campaign_expected_launches(group, cfgs, n_seeds: int) -> dict:
     run's own, no B3)."""
     cfg = cfgs[group.cell_idx[0]]
     runs = len(group.cell_idx) * n_seeds
-    steps = cfg.local_epochs * MAIN["per_client"] // cfg.batch_size
+    steps = cfg.local_epochs * per_client // cfg.batch_size
     probit = cfg.aggregator == "probit_plus"
     sync = synchronous_dense(group, cfg)
     per = 1 if sync else runs
@@ -1950,6 +2034,55 @@ def lm_leaf_times(dev, copy_gbs: float, d: int, m: int = 4) -> dict:
     return out
 
 
+def single_client_times(dev, copy_gbs: float, d: int) -> dict:
+    """Phase 5: B1 and B2 on one client's row of d coordinates, as the
+    single-client entry launches them (delta, b and u read once, and the
+    residual for B2; the packed row and B2's new residual written once),
+    each against its plain version; and the whole entry
+    ``kernels.stoch_quant_compress`` (its Threefry draw of the row's
+    uniforms and the padding included) on each engine."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import kernels, prng
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.stoch_quant import stoch_quant_ef, stoch_quant_pack
+
+    gen = torch.Generator(device=dev).manual_seed(93)
+    width = kernels.padded_len(d)
+    raw = 0.01 * torch.randn(d, generator=gen, device=dev)
+    raw_res = 0.005 * torch.randn(d, generator=gen, device=dev)
+    delta = F.pad(raw, (0, width - d), value=-1.0).reshape(1, width)
+    res = F.pad(raw_res, (0, width - d)).reshape(1, width)
+    u = F.pad(torch.rand(d, generator=gen, device=dev), (0, width - d), value=1.0).reshape(1, width)
+    b = torch.full((width,), 0.01, device=dev)
+    key = prng.fold_in(prng.key(12, dev), 3)
+    cases = {
+        "stoch_quant_pack": (lambda: stoch_quant_pack(delta, b, u), lambda: ref.stoch_quant_compress_ref(delta, b, u),
+                             12 * width + width // 8, 7 * width,
+                             lambda e: kernels.stoch_quant_compress(key, raw, b[:d], engine=e)),
+        "stoch_quant_ef": (lambda: stoch_quant_ef(delta, res, b, u),
+                           lambda: ref.stoch_quant_compress_ref(delta, b, u, res, want_residual=True),
+                           20 * width + width // 8, 9 * width,
+                           lambda e: kernels.stoch_quant_compress(key, raw, b[:d], raw_res, want_residual=True,
+                                                                  engine=e)),
+    }
+    out = {}
+    for name, (kern, plain, nbytes, ops_n, entry) in cases.items():
+        ms = timed_ms(kern)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops_n / PEAK_F32_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        out[name] = {"shape": f"M=1 d={d} d_pad={width}", "ms": ms, "plain_ms": timed_ms(plain, reps=10),
+                     "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
+                     "gbs": nbytes / (ms * 1e-3) / 1e9, "share_of_bound": bound / ms,
+                     "copy_bound_ms": nbytes / (copy_gbs * 1e9) * 1e3,
+                     "entry_ms": stream_ms(functools.partial(entry, "cuda")),
+                     "entry_plain_ms": stream_ms(functools.partial(entry, "ref"))}
+    del delta, res, u, cases
+    torch.cuda.empty_cache()
+    return out
+
+
 def b4_work(m: int, d: int) -> tuple[int, int]:
     """(bytes, operations) of B4 on an ``(m, d)`` cohort with one shared w0
     row: w, grad and momentum read and w' and m' written once, w0 read once;
@@ -1976,9 +2109,10 @@ def kernel_rows(runs: dict, chk: Checker, at_main: dict, at_resnet: dict, at_gro
     same at ResNet-18's and the batched call at E = 8 runs of the main
     path's cohort beside them, B1 at the top-k wire's shape, and B1 and B3
     at the largest leaves of qwen2-1.5b and of the MoE (``at_lm``, by
-    LM_LEAVES' keys); ``launches`` is the sum over every run of phases 4,
-    4b, 4c, 4d, 7, 8, 9 and 11 (each rank's) of each one's own count, by
-    run beside it."""
+    LM_LEAVES' keys) and B1 and B2 on one client's row (the single-client
+    entry); ``launches`` is the sum over every run of phases 4, 4b, 4c, 4d,
+    7, 8, 9, 11 (each rank's) and 13 of each one's own count, by run beside
+    it."""
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rows.append({
@@ -3356,6 +3490,274 @@ def mesh_phase(dev, cohort: dict, r0: dict, dry) -> dict:
         "model_axis/aa": {"launches": {n: sum(a["launches"][n] for a in aa) for n in KERNELS}}}
 
 
+def theorem_line(check: str, ok: bool, **fields) -> None:
+    """Print one phase-13 check as a JSON line, then raise if it missed."""
+    print(json.dumps({"phase": "theorems", "check": check, "ok": bool(ok), **fields}), flush=True)
+    require(ok, f"theorems {check}: {fields}")
+
+
+def hetero_updates(key, m: int, d: int, scale: float = 0.01):
+    """Heterogeneous client updates around a common theta (the reference
+    tests' model of paper Fig. 1): theta ~ scale N(0, 1), noise scale/2."""
+    from repro_torch import prng
+
+    theta = scale * prng.normal(key, (d,))
+    return theta + scale * 0.5 * prng.normal(prng.fold_in(key, 1), (m, d))
+
+
+def wire_codes(codes):
+    """(M, d) codes -> the (M, padded_len(d)/8) kernel wire (pad bits 0)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import pack_bits
+    from repro_torch.kernels import padded_len
+
+    m, d = codes.shape
+    return pack_bits(F.pad(codes, (0, padded_len(d) - d), value=-1)).view(m, -1)
+
+
+def theorem_checks(dev) -> dict:
+    """Phase 13 (cc): Theorems 1-3 at THEOREM_D through the functional
+    one-bit API on the card, every draw batched (all clients of a block of
+    repetitions in one Threefry pass), only estimates kept across blocks;
+    one JSON line a check. Returns the seconds a part."""
+    import torch
+
+    from repro_torch import kernels, prng
+    from repro_torch.core import (DPConfig, dp_b_floor, flip_codes, privacy_loss, probit_plus_aggregate,
+                                  probit_plus_from_updates, stochastic_binarize)
+    from repro_torch.core.quantizer import uniform_block_rows
+
+    d, reps, bars, secs = THEOREM_D, THEOREM_REPS, THEOREM_BARS, {}
+
+    # Theorem 1: every client at theta, so the only error is quantization.
+    # theta is clipped to [-b, b], the theorem's premise b >= |delta|: the
+    # 0.27% of coordinates past 3 sigma would add a clipping bias
+    # (|theta| - b)^2 that no M removes (+2.2% of the error at M = 512).
+    t0 = time.perf_counter()
+    key = prng.key(1, dev)
+    b = 0.06
+    theta0 = 0.02 * prng.normal(key, (d,))
+    theta = torch.clamp(theta0, -b, b)
+    clip_bias = float(((theta0.double().abs() - b).clamp(min=0.0) ** 2).sum())
+    bvec = torch.full((d,), b, device=dev)
+    m_err = {}
+    for m in THEOREM_MS:
+        upd = theta.expand(m, d)
+        keys = prng.split(prng.fold_in(key, m), reps)
+        est = probit_plus_from_updates(keys, upd, bvec)
+        errs = ((est.double() - theta.double()) ** 2).sum(-1)
+        expected = float((b * b - theta.double() ** 2).sum() / m)
+        measured = float(errs.mean())
+        rel = abs(measured - expected) / expected
+        # the wire cross-check: repetition 0's codes on the kernel wire
+        codes = stochastic_binarize(prng.split(keys[0], m), upd, bvec)
+        theta_k = kernels.bit_aggregate(wire_codes(codes), bvec, d, engine="cuda")
+        theta_c = probit_plus_aggregate(codes, bvec)
+        same = torch.equal(theta_k, theta_c) and torch.equal(theta_c, est[0])
+        diff = float((theta_k - theta_c).abs().max())
+        del codes
+        theorem_line(f"theorem1_error_M{m}", rel < bars["error_rel"], m=m, d=d, reps=reps, measured=measured,
+                     expected=expected, rel_err=rel, bar=bars["error_rel"], rep_rel_sd=float(errs.std() / errs.mean()))
+        theorem_line(f"wire_B3_M{m}", same, m=m, d=d, max_abs_diff=diff,
+                     note="B3 on the packed codes == probit_plus_aggregate == the batched estimate, bit for bit")
+        m_err[m] = m * measured
+    spread = max(m_err.values()) / min(m_err.values()) - 1.0
+    theorem_line("theorem1_rate_M_times_error", spread <= bars["m_times_error_spread"],
+                 m_times_error={str(k): v for k, v in m_err.items()}, spread=spread,
+                 bar=bars["m_times_error_spread"], coords_clipped=int((theta0.abs() > b).sum()),
+                 clip_bias_unclipped=clip_bias,
+                 clip_bias_over_error={str(k): clip_bias * k / v for k, v in m_err.items()})
+    m, u_reps = THEOREM_UNBIASED
+    key = prng.key(0, dev)
+    upd = hetero_updates(key, m, d)
+    b_u = float(upd.abs().max()) + 0.01
+    mean_est = probit_plus_from_updates(prng.split(prng.fold_in(key, 7), u_reps), upd,
+                                        torch.full((d,), b_u, device=dev)).double().mean(0)
+    se = b_u / math.sqrt(m * u_reps)
+    worst = float((mean_est - upd.double().mean(0)).abs().max())
+    theorem_line("theorem1_unbiased", worst < bars["unbiased_se"] * se, m=m, d=d, reps=u_reps,
+                 max_abs_dev=worst, se=se, bar_se=bars["unbiased_se"])
+    torch.cuda.synchronize()
+    secs["theorem1"] = time.perf_counter() - t0
+
+    # Theorem 2: the worst-case bit adversary on the same draws
+    t0 = time.perf_counter()
+    m = THEOREM_BYZ_M
+    key = prng.key(2, dev)
+    upd = hetero_updates(key, m, d)
+    bvec = torch.full((d,), float(upd.abs().max()) + 0.01, device=dev)
+    keys = prng.split(prng.fold_in(key, 3), reps)
+    clean = torch.zeros(d, dtype=torch.float64, device=dev)
+    att = {beta: torch.zeros_like(clean) for beta in THEOREM_BETAS}
+    step = uniform_block_rows(m * d)
+    for r0 in range(0, reps, step):
+        codes = stochastic_binarize(prng.split(keys[r0:r0 + step], m).movedim(-2, 0), upd.unsqueeze(1), bvec)
+        clean += probit_plus_aggregate(codes, bvec).sum(0, dtype=torch.float64)
+        for beta in THEOREM_BETAS:
+            att[beta] += probit_plus_aggregate(flip_codes(codes, int(m * beta)), bvec).sum(0, dtype=torch.float64)
+        del codes
+    for beta in THEOREM_BETAS:
+        dev_norm = float(torch.linalg.norm((clean - att[beta]) / reps))
+        bound = 2 * beta * float(torch.linalg.norm(bvec.double()))
+        theorem_line(f"theorem2_beta{beta}", dev_norm <= bound * bars["byz_slack"], m=m, d=d, reps=reps,
+                     n_byz=int(m * beta), deviation=dev_norm, bound=bound, slack=bars["byz_slack"])
+    # magnitude immunity: one client sends 1e9, the same keys
+    evil = upd.clone()
+    evil[0] = 1e9
+    keys = prng.split(prng.fold_in(key, 5), reps)
+    shift = (probit_plus_from_updates(keys, upd, bvec) - probit_plus_from_updates(keys, evil, bvec)).abs()
+    b_i = float(bvec[0])
+    bar = 2 * b_i / m + 2 * b_i * 2.0**-23  # 2b/M, up to two f32 ulps of b
+    fedavg = float((evil.mean(0) - upd.mean(0)).abs().max())
+    theorem_line("magnitude_immunity", float(shift.max()) <= bar and fedavg > 1e6, m=m, d=d, reps=reps,
+                 max_abs_shift=float(shift.max()), bar=bar, fedavg_shift=fedavg)
+    torch.cuda.synchronize()
+    secs["theorem2"] = time.perf_counter() - t0
+
+    # Theorem 3: b at the floor keeps the privacy loss within epsilon
+    t0 = time.perf_counter()
+    delta1 = 2e-4
+    for eps in THEOREM_EPS:
+        losses = []
+        for seed in range(4):
+            key = prng.key(seed, dev)
+            delta_a = 0.01 * prng.normal(key, (d,))
+            v = prng.normal(prng.fold_in(key, 1), (d,))
+            delta_b = delta_a + v / v.abs().sum() * delta1
+            floor = dp_b_floor(torch.maximum(delta_a.abs(), delta_b.abs()).max(), DPConfig(eps, delta1))
+            losses.append(float(privacy_loss(delta_a, delta_b, torch.full((d,), float(floor), device=dev))))
+        theorem_line(f"theorem3_eps{eps}", max(losses) <= eps * bars["privacy_slack"], d=d, seeds=4,
+                     privacy_loss=losses, bound=eps * bars["privacy_slack"])
+    secs["theorem3"] = time.perf_counter() - t0
+    return secs
+
+
+def statistical_task(dev):
+    """The reference's tests/test_statistical.py task on the card:
+    make_classification(0, 4,000 / 400), the MLP at hidden 16 from key 0,
+    label skew of STAT_PER_CLIENT samples a client (seed 1) for each M."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.data import make_classification, partition_label_skew
+    from repro_torch.models import accuracy, init_mlp, mlp_logits, xent_loss
+    from repro_torch.sim import Task
+
+    (xtr, ytr), (xte, yte) = make_classification(0, n_train=4000, n_test=400)
+    p0 = init_mlp(prng.key(0), hidden=16)
+
+    @functools.lru_cache(maxsize=None)
+    def task(m: int):
+        parts = partition_label_skew(ytr, m, 2, STAT_PER_CLIENT, seed=1)
+        return Task(p0, functools.partial(xent_loss, mlp_logits), functools.partial(accuracy, mlp_logits),
+                    np.stack([xtr[i] for i in parts]), np.stack([ytr[i] for i in parts]), {"x": xte, "y": yte},
+                    device=dev)
+
+    return lambda cfg: task(cfg.n_clients)
+
+
+def statistical_specs() -> dict:
+    """The three grids of tests/test_statistical.py, with the kernels."""
+    from repro_torch.sim import CampaignSpec
+
+    one_over_m = {
+        f"one_over_m_eps{eps}": CampaignSpec.from_grid(
+            {"rounds": 8, "local_epochs": 1, "b_mode": "fixed", "b_init": 0.1, "dp_epsilon": eps,
+             "use_kernels": True}, {"n_clients": STAT_M_GRID}, seeds=(0, 1, 2))
+        for eps in (0.0, 0.1)}
+    bit_flip = CampaignSpec.from_grid(
+        {"n_clients": 16, "rounds": 30, "local_epochs": 2, "attack": "bit_flip", "use_kernels": True},
+        {"byz_frac": [0.0, 0.2, 0.4]}, seeds=(0, 1))
+    straggler = CampaignSpec.from_grid(
+        {"n_clients": 16, "rounds": 30, "local_epochs": 2, "attack": "straggler+sign_flip", "async_buffer": 16,
+         "async_latency": 1.0, "use_kernels": True},
+        {"byz_frac": [0.0, 0.125, 0.25], "staleness_decay": [0.0, 0.5]}, seeds=(0, 1))
+    return {**one_over_m, "bit_flip": bit_flip, "straggler": straggler}
+
+
+def statistical_checks(dev) -> dict:
+    """Phase 13 (dd): each grid through run_campaign on the card, its
+    launches zeroed just before and read just after and equal to its plan's
+    (campaign_expected_launches), then the reference test's bars; one JSON
+    line a grid. Returns each grid's launches and seconds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.sim import plan_campaign, run_campaign
+    from repro_torch.sim.plan import CompileCache
+
+    task_fn = statistical_task(dev)
+    out = {}
+    for name, spec in statistical_specs().items():
+        plan = plan_campaign(spec)
+        cfgs = spec.configs()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        result = run_campaign(spec, task_fn, plan=plan, compile_cache=CompileCache())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: _build.launches[k] for k in KERNELS}
+        require(set(_build.launches) <= set(KERNELS), f"statistical {name}: unknown kernel {dict(_build.launches)}")
+        want = {k: 0 for k in KERNELS}
+        for group in plan.groups:
+            for k, v in campaign_expected_launches(group, cfgs, len(spec.seeds), STAT_PER_CLIENT).items():
+                want[k] += v
+        require(launches == want, f"statistical {name}: launches {launches} != expected {want}")
+        line = {"phase": "theorems", "check": f"statistical_{name}", "kernels": all(c.use_kernels for c in cfgs),
+                "groups": [g["cells"] for g in result.groups], "seconds": wall, "launches": launches}
+        if name.startswith("one_over_m"):
+            mses = [result.cell(f"n_clients={m}").mean_over_rounds("theta_mse") for m in STAT_M_GRID]
+            slope = float(np.polyfit(np.log(STAT_M_GRID), np.log(mses), 1)[0])
+            ok = STAT_SLOPE[0] <= slope <= STAT_SLOPE[1] and all(a > b for a, b in zip(mses, mses[1:]))
+            line.update(theta_mse=mses, slope=slope, window=STAT_SLOPE)
+        elif name == "bit_flip":
+            acc = {f: float(result.cell(f"byz_frac={f}").metrics["acc"][:, -5:].mean()) for f in (0.0, 0.2, 0.4)}
+            ok = acc[0.2] >= acc[0.0] - 0.1 and acc[0.4] >= acc[0.0] - 0.12
+            line.update(acc_last5={str(k): v for k, v in acc.items()}, bars=[0.1, 0.12])
+        else:
+            cells = {(f, dc): result.cell(f"byz_frac={f}|staleness_decay={dc}")
+                     for f in (0.0, 0.125, 0.25) for dc in (0.0, 0.5)}
+            acc = {k: float(c.metrics["acc"][:, -5:].mean()) for k, c in cells.items()}
+            ok = all(acc[(0.125, dc)] >= acc[(0.0, dc)] - 0.1 and acc[(0.25, dc)] >= acc[(0.0, dc)] - 0.15
+                     for dc in (0.0, 0.5))
+            fill = min(float(c.metrics["buf_fill"][:, -1].min()) for c in cells.values())
+            finite = all(bool(np.isfinite(c.metrics["mean_age"]).all()) for c in cells.values())
+            ok = ok and fill > 0.5 and finite
+            line.update(acc_last5={f"{f}|{dc}": v for (f, dc), v in acc.items()}, bars=[0.1, 0.15],
+                        buf_fill_last_min=fill, mean_age_finite=finite)
+        line["ok"] = bool(ok)
+        print(json.dumps(line), flush=True)
+        require(ok, f"statistical {name}: {line}")
+        out[name] = {"launches": launches, "seconds": wall}
+    return out
+
+
+def theorem_phase(dev) -> dict:
+    """Phase 13: (cc) then (dd), the launch counts zeroed just before and
+    read just after; every kernel of the path (B1, B3, B4) must have run."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    secs = theorem_checks(dev)
+    cc_launches = {k: _build.launches[k] for k in KERNELS}
+    require(cc_launches["bit_aggregate"] == len(THEOREM_MS), f"theorems (cc): launches {cc_launches}")
+    grids = statistical_checks(dev)
+    launches = {k: cc_launches[k] + sum(g["launches"][k] for g in grids.values()) for k in KERNELS}
+    for name in ("stoch_quant_pack", "bit_aggregate", "prox_sgd"):
+        require(launches[name], f"phase 13 never launched {name}")
+    line = {"phase": "theorems_done", "seconds": time.perf_counter() - t0, "cc_seconds": secs,
+            "dd_seconds": {k: g["seconds"] for k, g in grids.items()}, "launches": launches}
+    print(json.dumps(line), flush=True)
+    return {"theorems": {"launches": launches}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3395,8 +3797,10 @@ def main() -> int:
     check_prox_sgd(chk, dev)
     check_batched(chk, dev)
     check_topk_pack(chk, dev)
+    single = check_single_client(chk, dev)
     torch.cuda.synchronize()
     print(json.dumps({"phase": "kernels_vs_plain", "checked": sorted(chk.count), "comparisons": chk.count,
+                      "single_client_comparisons": single, "single_client_d": SINGLE_CLIENT_D,
                       "max_abs_err": chk.max_err, "seconds": time.perf_counter() - t0}), flush=True)
     require(sorted(chk.count) == sorted(KERNELS), f"not every kernel was checked: {sorted(chk.count)}")
 
@@ -3442,6 +3846,7 @@ def main() -> int:
     finally:
         dryrun_stop(dry)
     del r_round0
+    theorems = theorem_phase(dev)
 
     # Phase 5 times kernels, not allocations: under deterministic algorithms
     # every torch.empty is filled with NaN by a kernel of its own.
@@ -3452,13 +3857,15 @@ def main() -> int:
     at_group = kernel_times(dev, MAIN["n_clients"], 118_282, copy_gbs, elements=len(COHORT_SEEDS))
     at_topk = topk_pack_times(dev, copy_gbs)
     at_lm = {where: lm_leaf_times(dev, copy_gbs, d) for where, d in LM_LEAVES.items()}
-    rows = kernel_rows({**runs, **grid, **vision, **async_stream, **campaigns, **wires_trees, **lm, **mesh}, chk, at_main,
-                       at_resnet, at_group, at_topk, at_lm)
+    at_single = {f"single_client_d{d}": single_client_times(dev, copy_gbs, d) for d in (THEOREM_D, RESNET_D)}
+    rows = kernel_rows({**runs, **grid, **vision, **async_stream, **campaigns, **wires_trees, **lm, **mesh, **theorems},
+                       chk, at_main, at_resnet, at_group, at_topk, {**at_lm, **at_single})
     print(json.dumps({"phase": "times", "card": card, "copy_gbs": copy_gbs,
                       "round_seconds_a": [r["seconds"] for r in runs["a"]["rounds"]],
                       f"kernels_at_{RESNET_D}": at_resnet, "kernels_batched_E8_M100": at_group,
                       "stoch_quant_pack_at_topk_M100": at_topk,
-                      **{f"kernels_{where}": times for where, times in at_lm.items()}}), flush=True)
+                      **{f"kernels_{where}": times for where, times in at_lm.items()},
+                      **{f"kernels_{where}": times for where, times in at_single.items()}}), flush=True)
     print(json.dumps(stage_times(dev)), flush=True)
     print(json.dumps(b3_sweep(dev, copy_gbs)), flush=True)
     print(json.dumps(b4_sweep(dev, copy_gbs)), flush=True)

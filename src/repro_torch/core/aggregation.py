@@ -76,6 +76,7 @@ from .quantizer import (
     WIRE_BITS,
     _grid_step,
     _unpack_lastdim,
+    codes_to_counts,
     pack_levels,
     packed_binarize_batch,
     packed_counts,
@@ -83,6 +84,8 @@ from .quantizer import (
     packed_sign_batch,
     packed_weighted_counts,
     padded_dim,
+    stochastic_binarize,
+    uniform_block_rows,
     wire_bytes,
 )
 
@@ -93,8 +96,12 @@ __all__ = [
     "kbit_estimate_from_counts",
     "hetero_client_groups",
     "staleness_weights",
+    "probit_plus_aggregate",
+    "probit_plus_from_updates",
     "fedavg_aggregate",
     "geometric_median",
+    "signsgd_mv_aggregate",
+    "rsa_aggregate",
     "PackedWire",
     "HeteroWire",
     "SparseWire",
@@ -192,6 +199,35 @@ def staleness_weights(ages: torch.Tensor, decay: float, valid: torch.Tensor | No
     return w
 
 
+def probit_plus_aggregate(codes: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Eq. 13 from the one-bit codes of M clients: ``(M, d)`` int8 codes ->
+    theta_hat ``(d,)``, the ML estimate of their vote counts over the
+    leading (client) axis. Draws batched behind the client axis come out
+    batched: ``(M, R, d)`` codes give ``(R, d)``."""
+    return ml_estimate_from_counts(codes_to_counts(codes), codes.shape[0], b)
+
+
+def probit_plus_from_updates(key: torch.Tensor, updates: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The functional PRoBit+ round: client ``m`` binarizes its row of the
+    ``(M, d)`` updates with key ``split(key, M)[m]``
+    (:func:`~repro_torch.core.quantizer.stochastic_binarize`), then
+    :func:`probit_plus_aggregate`.
+
+    Keys ``(..., 2)`` give one estimate a key, ``(..., d)``, as
+    ``jax.vmap`` of the reference over them: every client of every key is
+    drawn in one pass, a block of keys at a time whose codes stay near
+    ``UNIFORM_BLOCK_WORDS`` bytes, so only the estimates outlive a block.
+    """
+    m = updates.shape[0]
+    keys = key.reshape(-1, 2)
+    out = torch.empty((keys.shape[0],) + updates.shape[1:], dtype=torch.float32, device=updates.device)
+    step = uniform_block_rows(updates.numel())
+    for r0 in range(0, keys.shape[0], step):
+        client_keys = prng.split(keys[r0:r0 + step], m).movedim(-2, 0)  # (M, block, 2)
+        out[r0:r0 + step] = probit_plus_aggregate(stochastic_binarize(client_keys, updates.unsqueeze(1), b), b)
+    return out.reshape(key.shape[:-1] + updates.shape[1:])
+
+
 def fedavg_aggregate(updates: torch.Tensor, weights: torch.Tensor | None = None) -> torch.Tensor:
     """FedAvg: the mean of the (M, d) client updates, or their weighted mean.
 
@@ -219,6 +255,19 @@ def geometric_median(
         w = 1.0 / dist if weights is None else weights / dist
         y = (updates * w[:, None]).sum(0) / torch.clamp(w.sum(), min=1e-12)
     return y
+
+
+def signsgd_mv_aggregate(codes: torch.Tensor, step: float = 0.01) -> torch.Tensor:
+    """signSGD with majority vote (Bernstein et al. 2019) from ``(M, d)``
+    codes: ``step`` times the sign of their f32 sum over the clients (0 at
+    a tie, as ``jnp.sign``)."""
+    return step * torch.sign(codes.float().sum(0))
+
+
+def rsa_aggregate(codes: torch.Tensor, step: float = 0.01) -> torch.Tensor:
+    """RSA's server step (Li et al. 2019) from ``(M, d)`` codes: ``step``
+    times the f32 sum of the client signs."""
+    return step * codes.float().sum(0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -764,6 +813,13 @@ class AggregatorPipeline:
         """Server half: theta_hat (d,) from the wire; ``weights``, one per
         row, selects the weighted estimate."""
         return self.server.aggregate(wire, weights)
+
+    def __call__(self, key: torch.Tensor, deltas: torch.Tensor, b_scalar: torch.Tensor, residuals: torch.Tensor,
+                 *, flip_n: int = 0, flip_gate=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """The whole synchronous step: :meth:`compress_wire` then
+        :meth:`estimate`; returns ``(theta_hat, residuals')``."""
+        wire, residuals = self.compress_wire(key, deltas, b_scalar, residuals, flip_n=flip_n, flip_gate=flip_gate)
+        return self.estimate(wire), residuals
 
 
 def _build_probit_plus(*, dp, b_mode, error_feedback, topk_frac, use_kernels, chunk, engine, rand_bits, wire_bits,

@@ -50,9 +50,12 @@ __all__ = [
     "is_wire_attack",
     "is_timing_attack",
     "parse_attack",
+    "available_attacks",
+    "get_attack",
     "apply_attack",
     "STREAM_ATTACKS",
     "apply_attack_stream",
+    "flip_codes",
     "flip_wire",
     "flip_wire_rows",
     "EDGE_ATTACK_IDS",
@@ -161,8 +164,24 @@ def parse_attack(name: str) -> tuple[str, bool]:
             raise ValueError(f"unknown straggler payload {payload!r}")
         return payload, True
     if name not in ATTACKS:
-        raise ValueError(f"unknown attack {name!r}; known: {tuple(sorted(ATTACKS))}")
+        raise ValueError(f"unknown attack {name!r}; available: {available_attacks()}")
     return name, False
+
+
+def available_attacks() -> tuple[str, ...]:
+    """Every accepted attack name, straggler compositions included, in the
+    reference's order."""
+    return tuple(sorted(ATTACKS)) + tuple(sorted(TIMING_ATTACKS)) + tuple(
+        _TIMING_PREFIX + p for p in sorted(ATTACKS) if p != "none"
+    )
+
+
+def get_attack(name: str) -> Callable:
+    """The delta-level ``attack(key, updates (M, d), n_byz) -> updates`` of
+    ``name``: the identity for a wire attack (``bit_flip``: the pipeline
+    flips the wire), the payload's stage for ``straggler+<payload>``."""
+    payload, _ = parse_attack(name)
+    return ATTACKS["none" if payload in WIRE_ATTACKS else payload]
 
 
 def attack_id(name: str) -> int:
@@ -211,6 +230,15 @@ def apply_attack_stream(idx: int, key: torch.Tensor, updates: torch.Tensor, n_by
         return _set_byz(updates, n, -5.0 * updates[:n])
     rows = torch.arange(row0, row0 + n, dtype=torch.int64, device=key.device)
     return _set_byz(updates, n, prng.normal(prng.fold_in(key, rows), (updates.shape[1],), scale=10.0))
+
+
+def flip_codes(codes: torch.Tensor, n_byz: int) -> torch.Tensor:
+    """The worst-case bit adversary on unpacked codes: a new tensor with the
+    first ``n_byz`` clients' (rows') codes negated; ``codes`` is left as it
+    is."""
+    out = codes.clone()
+    out[:n_byz] = -codes[:n_byz]
+    return out
 
 
 def flip_wire(wire, n_byz: int, runs=None):

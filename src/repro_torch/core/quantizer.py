@@ -40,6 +40,8 @@ certain.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -52,6 +54,9 @@ __all__ = [
     "binarize_prob",
     "pack_bits",
     "unpack_bits",
+    "stochastic_binarize",
+    "codes_to_counts",
+    "byte_popcount",
     "padded_dim",
     "client_uniforms",
     "client_bits16",
@@ -143,6 +148,51 @@ def unpack_bits(packed: torch.Tensor, n: int) -> torch.Tensor:
     """Inverse of :func:`pack_bits`; returns ±1 int8 codes of length ``n``."""
     bits = _unpack_lastdim(packed.reshape(-1))[:n]
     return bits.to(torch.int8) * 2 - 1
+
+
+def stochastic_binarize(key: torch.Tensor, delta: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The one-bit codes ``c in {-1, +1}`` (int8) of Eq. 5: the reference's
+    ``uniform(key, delta.shape) < binarize_prob(delta, b)``.
+
+    Keys ``(..., 2)`` draw many clients in one pass, as ``jax.vmap`` of the
+    reference over them: ``delta`` is ``key.shape[:-1] + shape`` (its
+    leading sizes may be 1, to broadcast) and key ``k`` draws the uniforms
+    of its own ``shape``-sized entry. The flat draw is not the packed
+    wire's chunked schedule (:func:`client_uniforms`): the two give
+    different bits by design. A long key batch is drawn in blocks along its
+    leading axis, each block's Threefry temporaries near
+    ``UNIFORM_BLOCK_WORDS`` words; a broadcast ``delta`` is never copied
+    out to the batch's size.
+    """
+    batch = key.shape[:-1]
+    shape = delta.shape[len(batch):]
+    p = binarize_prob(delta, b)
+    if not batch:
+        return torch.where(prng.uniform(key, shape) < p, 1, -1).to(torch.int8)
+    codes = torch.empty(batch + shape, dtype=torch.int8, device=delta.device)
+    step = max(1, UNIFORM_BLOCK_WORDS // max(1, math.prod(batch[1:] + shape)))
+    for r0 in range(0, batch[0], step):
+        r1 = min(r0 + step, batch[0])
+        p_blk = p if p.shape[0] == 1 else p[r0:r1]
+        codes[r0:r1] = torch.where(prng.uniform(key[r0:r1], shape) < p_blk, 1, -1)
+    return codes
+
+
+def codes_to_counts(codes: torch.Tensor) -> torch.Tensor:
+    """``N_i`` of Eq. 12: the number of +1 codes over the leading (client)
+    axis, int32."""
+    return (codes > 0).sum(0, dtype=torch.int32)
+
+
+# bin(i).count("1") of every byte: torch has no population count
+_POPCOUNT_LUT = tuple(bin(i).count("1") for i in range(256))
+
+
+def byte_popcount(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each byte (uint8 in, uint8 out), through the reference's
+    256-entry uint8 table."""
+    lut = torch.tensor(_POPCOUNT_LUT, dtype=torch.uint8, device=x.device)
+    return lut[x.to(torch.uint8).long()]
 
 
 def padded_dim(d: int, chunk: int = PACK_CHUNK) -> int:

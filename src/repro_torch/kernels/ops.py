@@ -17,7 +17,10 @@ The reference has no kernel for the k-bit wire (``bits > 1``): there
 as the reference routes it through plain JAX on every backend; that is the
 reference's structure, not a fallback. :func:`quant_pack_u` binarizes and
 packs values with uniforms the caller drew (the top-k wire's gathered
-values) through the pack kernel B1.
+values) through the pack kernel B1. :func:`stoch_quant_compress` and
+:func:`stoch_quant_pack` are the reference's single-client entries: one
+client's row, keyed by the client's own key, through the same row
+compressor as the batch entry (:func:`_compress_rows`).
 
 Wire format: the kernel wire is ``padded_len(d)/8`` bytes a row
 (1024-coordinate rows, the reference's TPU tile, kept because it defines
@@ -33,8 +36,17 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ..core.quantizer import PACK_CHUNK, cohort_uniforms, packed_binarize_batch, packed_quantize_batch, pad_rows
-from . import ref
+from ..core.quantizer import (
+    PACK_CHUNK,
+    client_uniforms,
+    cohort_uniforms,
+    draw_blocks,
+    packed_binarize_batch,
+    packed_quantize_batch,
+    pad_rows,
+    padded_dim,
+)
+from . import ref, stoch_quant
 
 __all__ = [
     "ENGINES",
@@ -43,6 +55,8 @@ __all__ = [
     "padded_len",
     "realign_wire",
     "prox_coeffs",
+    "stoch_quant_compress",
+    "stoch_quant_pack",
     "stoch_quant_compress_batch",
     "quant_pack_u",
     "bit_aggregate",
@@ -100,6 +114,66 @@ def _as_group(key: torch.Tensor, deltas: torch.Tensor, b: torch.Tensor):
         b = torch.as_tensor(b, dtype=torch.float32, device=deltas.device).reshape(1, -1)
     e, _, d = deltas.shape
     return key, deltas, torch.broadcast_to(b.float(), (e, d))
+
+
+def _compress_rows(u: torch.Tensor, deltas: torch.Tensor, b_rows: torch.Tensor, residual: torch.Tensor | None,
+                   want_residual: bool, engine: str) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Eq.-5 compress of the (R, d) rows ``deltas`` with uniforms already
+    drawn into ``u`` (R, width), its pad columns 1.0: the rows are padded to
+    ``width`` (delta -1, b 1, residual 0), then packed by B1, or by B2 when a
+    residual is given or wanted (the plain version on ``engine="ref"``).
+    ``b_rows`` (E, d) ranges the R rows as E elements. Returns (packed (R,
+    width/8) uint8, the next carry (R, d) or None)."""
+    width, d = u.shape[-1], deltas.shape[-1]
+    d_p, b_p = pad_rows(deltas, width, -1.0), pad_rows(b_rows, width, 1.0)
+    r_p = None if residual is None else pad_rows(residual, width, 0.0)
+    if engine == "ref":
+        packed, res = ref.stoch_quant_compress_ref(d_p, b_p, u, r_p, want_residual=want_residual)
+    elif r_p is None and not want_residual:
+        packed, res = stoch_quant.stoch_quant_pack(d_p, b_p, u), None
+    else:
+        packed, res = stoch_quant.stoch_quant_ef(d_p, torch.zeros_like(d_p) if r_p is None else r_p, b_p, u)
+    return packed, res[:, :d] if want_residual else None
+
+
+def stoch_quant_compress(
+    key: torch.Tensor,
+    delta: torch.Tensor,
+    b: torch.Tensor,
+    residual: torch.Tensor | None = None,
+    *,
+    chunk: int = PACK_CHUNK,
+    want_residual: bool = False,
+    engine: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Eq.-5 compress of one client onto the kernel wire: (N,) ``delta``, a
+    scalar or (N,) ``b`` -> (packed (padded_len(N)/8,) uint8, the next
+    error-feedback carry (N,) f32 or None).
+
+    ``key`` is the client's own key (the caller has folded in its cohort
+    position): the uniforms are ``client_uniforms(key, N, chunk)``, so the
+    bytes are :func:`stoch_quant_compress_batch`'s row of this client.
+    ``residual`` is added to ``delta`` first; ``want_residual`` returns the
+    next carry ``eff - c * b``. Pad coordinates get delta -1, b 1 and u 1.
+    On ``"cuda"`` one launch of B1, or of B2 with a residual given or
+    wanted; on ``"ref"`` the plain version.
+    """
+    engine = resolve_engine(engine, delta.device)
+    n = delta.shape[0]
+    u = torch.ones((1, padded_len(n)), dtype=torch.float32, device=delta.device)
+    for _, _, c0, c1 in draw_blocks(1, padded_dim(n, chunk), chunk):
+        u[0, c0:min(c1, n)] = client_uniforms(key, min(c1, n) - c0, chunk, col0=c0)
+    b_row = torch.broadcast_to(torch.as_tensor(b, dtype=torch.float32, device=delta.device), (n,)).reshape(1, n)
+    packed, res = _compress_rows(u, delta.reshape(1, n), b_row, None if residual is None else residual.reshape(1, n),
+                                 want_residual, engine)
+    return packed[0], None if res is None else res[0]
+
+
+def stoch_quant_pack(key: torch.Tensor, delta: torch.Tensor, b: torch.Tensor, *, chunk: int = PACK_CHUNK,
+                     engine: str | None = None) -> torch.Tensor:
+    """One client's (N,) ``delta`` -> packed (padded_len(N)/8,) uint8:
+    :func:`stoch_quant_compress` without error feedback (B1)."""
+    return stoch_quant_compress(key, delta, b, chunk=chunk, engine=engine)[0]
 
 
 def stoch_quant_compress_batch(
@@ -160,20 +234,12 @@ def stoch_quant_compress_batch(
         )
         packed = realign_wire(packed, target)
     else:
-        from .stoch_quant import stoch_quant_ef, stoch_quant_pack
-
-        width = 8 * target
-        u = torch.empty((e * m, width), dtype=torch.float32, device=deltas.device)
+        u = torch.empty((e * m, 8 * target), dtype=torch.float32, device=deltas.device)
         u[:, d:] = 1.0
         cohort_uniforms(keys, m, d, chunk, row_offset=row_offset, out=u)
-        d_p = pad_rows(group.reshape(e * m, d), width, -1.0)
-        b_p = pad_rows(b_rows, width, 1.0)
-        if residual is None and not want_residual:
-            packed, res = stoch_quant_pack(d_p, b_p, u), None
-        else:
-            r_p = torch.zeros_like(d_p) if residual is None else pad_rows(residual.reshape(e * m, d), width, 0.0)
-            packed, res = stoch_quant_ef(d_p, r_p, b_p, u)
-            res = res[:, :d].reshape(e, m, d) if want_residual else None
+        packed, res = _compress_rows(u, group.reshape(e * m, d), b_rows,
+                                     None if residual is None else residual.reshape(e * m, d), want_residual, engine)
+        res = None if res is None else res.reshape(e, m, d)
         packed = packed.view(e, m, target)
     if single:
         return packed[0], None if res is None else res[0]
@@ -190,18 +256,9 @@ def quant_pack_u(delta: torch.Tensor, b: torch.Tensor, uniforms: torch.Tensor, *
     -1, b 1 and u 1.0, so the first ``ceil(K/8)`` bytes of a row are
     ``pack_bits`` of its codes."""
     engine = resolve_engine(engine, delta.device)
-    single = delta.dim() == 1
     d2, b2, u2 = (t.reshape(-1, t.shape[-1]) for t in (delta, torch.broadcast_to(b, delta.shape), uniforms))
-    width = padded_len(d2.shape[-1])
-    d_p, b_p, u_p = pad_rows(d2, width, -1.0), pad_rows(b2, width, 1.0), pad_rows(u2, width, 1.0)
-    b_rows = b_p[0] if single else b_p
-    if engine == "ref":
-        packed = ref.stoch_quant_compress_ref(d_p, b_rows, u_p)[0]
-    else:
-        from .stoch_quant import stoch_quant_pack
-
-        packed = stoch_quant_pack(d_p, b_rows, u_p)
-    return packed[0] if single else packed
+    packed, _ = _compress_rows(pad_rows(u2, padded_len(d2.shape[-1]), 1.0), d2, b2, None, False, engine)
+    return packed[0] if delta.dim() == 1 else packed
 
 
 def bit_aggregate(packed: torch.Tensor, b: torch.Tensor, n: int, *, engine: str | None = None) -> torch.Tensor:

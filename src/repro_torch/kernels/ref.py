@@ -23,7 +23,7 @@ import torch
 
 from ..core.quantizer import _pack_bool_lastdim, _unpack_lastdim, binarize_prob
 
-__all__ = ["element_rows", "stoch_quant_compress_ref", "bit_aggregate_ref", "kbit_quant_compress_ref",
+__all__ = ["element_rows", "stoch_quant_compress_ref", "stoch_quant_pack_ref", "bit_aggregate_ref", "kbit_quant_compress_ref",
            "kbit_aggregate_ref", "prox_sgd_ref"]
 
 
@@ -61,6 +61,11 @@ def stoch_quant_compress_ref(
     if not want_residual:
         return packed, None
     return packed, eff - torch.where(bits, b, -b)
+
+
+def stoch_quant_pack_ref(delta: torch.Tensor, b: torch.Tensor, uniforms: torch.Tensor) -> torch.Tensor:
+    """Eq.-5 binarize + pack without error feedback (kernel B1)."""
+    return stoch_quant_compress_ref(delta, b, uniforms)[0]
 
 
 def bit_aggregate_ref(packed: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

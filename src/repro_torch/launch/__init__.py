@@ -8,5 +8,6 @@ mesh of a fake process group, with :mod:`.flopcount` and
 :mod:`.analysis`)."""
 
 from .fl_step import DistFLConfig, make_fl_train_step
+from .mesh import make_host_mesh, make_production_mesh
 
-__all__ = ["DistFLConfig", "make_fl_train_step"]
+__all__ = ["make_production_mesh", "make_host_mesh", "DistFLConfig", "make_fl_train_step"]

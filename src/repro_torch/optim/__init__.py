@@ -1,5 +1,5 @@
-"""Local solvers."""
+"""SGD with momentum and the local solvers."""
 
-from .sgd import local_prox_train
+from .sgd import local_prox_train, sgd_momentum_init, sgd_momentum_step
 
-__all__ = ["local_prox_train"]
+__all__ = ["sgd_momentum_init", "sgd_momentum_step", "local_prox_train"]

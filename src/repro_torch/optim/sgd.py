@@ -1,6 +1,9 @@
-"""The prox-regularized local solver (paper Eq. 4), batched over clients.
+"""SGD with momentum over parameter trees, and the prox-regularized local
+solver (paper Eq. 4), batched over clients.
 
-Counterpart of ``repro/optim/sgd.py: local_prox_train``. Clients minimize
+Counterpart of ``repro/optim/sgd.py``. :func:`sgd_momentum_init` and
+:func:`sgd_momentum_step` map the reference's tree functions over the
+port's trees (:func:`repro_torch.tree.tree_map`). Clients minimize
 ``f_m(w) + (lam/2) ||w - w_g||^2`` with momentum SGD. The reference vmaps
 one client's ``lax.scan`` (and its campaign engine vmaps that over (cell,
 seed) elements); here every client row of one or more runs steps together:
@@ -27,8 +30,22 @@ from typing import Callable
 import torch
 
 from ..kernels import ops as kops
+from ..tree import tree_map
 
-__all__ = ["local_prox_train"]
+__all__ = ["sgd_momentum_init", "sgd_momentum_step", "local_prox_train"]
+
+
+def sgd_momentum_init(params):
+    """Zero momentum of the tree ``params``."""
+    return tree_map(torch.zeros_like, params)
+
+
+def sgd_momentum_step(params, moms, grads, lr: float, mu: float):
+    """One momentum step: ``m' = mu m + g``, ``p' = p - lr m'``; returns
+    ``(params', moms')`` as new trees."""
+    new_moms = tree_map(lambda m, g: mu * m + g, moms, grads)
+    new_params = tree_map(lambda p, m: p - lr * m, params, new_moms)
+    return new_params, new_moms
 
 
 def local_prox_train(

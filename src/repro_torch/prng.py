@@ -52,22 +52,25 @@ _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & _MASK
-
-
 def threefry2x32(k0, k1, x0, x1):
-    """The Threefry-2x32 block (20 rounds) on broadcastable int64 words."""
+    """The Threefry-2x32 block (20 rounds) on broadcastable int64 words.
+
+    The two words are updated in place in fresh buffers of the broadcast
+    shape: on the CPU a new allocation a step costs more than the step.
+    """
     k2 = k0 ^ k1 ^ 0x1BD11BDA
     ks = (k0, k1, k2)
-    x0 = (x0 + k0) & _MASK
-    x1 = (x1 + k1) & _MASK
+    shape = torch.broadcast_shapes(k0.shape, k1.shape, x0.shape, x1.shape)
+    x0 = (x0 + k0).broadcast_to(shape).contiguous().bitwise_and_(_MASK)
+    x1 = (x1 + k1).broadcast_to(shape).contiguous().bitwise_and_(_MASK)
+    t = torch.empty_like(x1)
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & _MASK
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+            x0.add_(x1).bitwise_and_(_MASK)
+            torch.bitwise_left_shift(x1, r, out=t)  # rotl(x1, r) ^ x0
+            x1.bitwise_right_shift_(32 - r).bitwise_or_(t).bitwise_and_(_MASK).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_MASK)
+        x1.add_(ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(_MASK)
     return x0, x1
 
 

@@ -147,6 +147,28 @@ def test_ops_engines_agree_on_card(dev):
         assert torch.equal(theta, ops.bit_aggregate(k[0], b, d, engine="ref"))
 
 
+@pytest.mark.parametrize("d", [997, 118_282])
+def test_single_client_entries_equal_plain_versions(dev, d):
+    """One client's ``stoch_quant_compress`` / ``stoch_quant_pack`` through
+    B1 and B2 equal the plain engine bit for bit, without a residual, with
+    one and with ``want_residual``; each call launches its one kernel."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    delta = 0.02 * torch.randn(d, generator=gen, device=dev)
+    res = 0.005 * torch.randn(d, generator=gen, device=dev)
+    b = torch.full((d,), 0.01, device=dev)
+    b[:2] = 0.0
+    key = prng.fold_in(prng.key(5, dev), 7)
+    for resid, want_res, kernel in ((None, False, "stoch_quant_pack"), (res, False, "stoch_quant_ef"),
+                                    (None, True, "stoch_quant_ef"), (res, True, "stoch_quant_ef")):
+        _build.reset_launches()
+        kp, kr = ops.stoch_quant_compress(key, delta, b, resid, want_residual=want_res)
+        assert dict(_build.launches) == {kernel: 1}
+        rp, rr = ops.stoch_quant_compress(key, delta, b, resid, want_residual=want_res, engine="ref")
+        assert torch.equal(kp, rp) and kp.shape == (ops.padded_len(d) // 8,)
+        assert (kr is None and rr is None) if not want_res else torch.equal(kr, rr)
+    assert torch.equal(ops.stoch_quant_pack(key, delta, b), ops.stoch_quant_pack(key, delta, b, engine="ref"))
+
+
 def test_bit_aggregate_padded_tail_on_card(dev):
     n, m = 997, 5
     pbytes = ops.padded_len(n) // 8

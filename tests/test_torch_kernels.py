@@ -6,6 +6,8 @@ JAX side: ``engine="ref"``, which the repo's own kernel tests hold
 bit-identical to Pallas, and ``engine="interpret"`` at tiny sizes only.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 
@@ -123,7 +125,7 @@ def test_bit_aggregate_geometry_tiles_and_streams(m, n):
     stays at one block a tile until a row stream would take more than
     STREAM_ROWS rows, and then is the smallest that keeps it there (or
     MAX_CLUSTER)."""
-    from repro_torch.kernels import bit_aggregate as b3
+    b3 = importlib.import_module("repro_torch.kernels.bit_aggregate")  # the binding, not kernels.bit_aggregate
 
     tiles, cluster = b3.launch_geometry(m, n)
     assert tiles * b3.TILE_BYTES >= -(-n // 8) > (tiles - 1) * b3.TILE_BYTES

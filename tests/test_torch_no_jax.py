@@ -40,3 +40,14 @@ def test_the_mesh_modules_are_checked():
             "src/repro_torch/models/spec.py"} <= names
     hits = FORBIDDEN.findall((ROOT / "tests" / "_torch_ranks.py").read_text())
     assert not hits, f"tests/_torch_ranks.py imports {hits}"
+
+
+def test_the_theorem_layer_is_checked():
+    """The modules of the functional one-bit API, the attack registry, the
+    partitioners, the momentum step and the single-client kernel entries
+    are among the files held."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"src/repro_torch/core/quantizer.py", "src/repro_torch/core/aggregation.py",
+            "src/repro_torch/core/attacks.py", "src/repro_torch/data/partition.py",
+            "src/repro_torch/optim/sgd.py", "src/repro_torch/kernels/ops.py",
+            "src/repro_torch/kernels/ref.py", "src/repro_torch/launch/__init__.py"} <= names
