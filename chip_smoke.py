@@ -93,12 +93,16 @@ Phases (any failure raises and exits non-zero before the result line):
 7. campaign (``repro_torch.sim``, phase 7) on the main path's MLP with the
    kernels, 3 rounds: (h) Table I's 28 cells (4 attacks x 7 methods, the
    async row included) and (i) Fig. 4's 11 cells (fused M-sweeps of PRoBit+
-   and FedAvg, eps at M = 20), each over seeds 0 and 1, and (j) (a) with
-   seeds 0-7 as one group of 8 runs. Each grid runs through
+   and FedAvg, eps at M = 20), each over seeds 0 and 1, (i1) the groups a
+   campaign still runs one run at a time (phase 8's (k) on the 2-bit wire
+   and (o) its sum tree, at the main path's cohort, seeds 0 and 1), and (j)
+   (a) with seeds 0-7 as one group of 8 runs. Each grid runs through
    ``run_campaign`` (launch counts zeroed just before, read just after);
-   each group's prepared runner again, with its own launch counts (one B1,
-   one B3 unless masked, one B4 a local step for a whole synchronous
-   group), equal to the campaign's trajectories and to its
+   each group's prepared runner again, with its own launch counts and
+   seconds (one B1 a round, one B3 a round unless masked or asynchronous,
+   one B4 a local step for a whole group; Table I's asynchronous row runs
+   as one group; (i1)'s runs each launch phase 8's counts), equal to the
+   campaign's trajectories and to its
    ``engine="ref"`` rerun exactly; every run against its sequential
    ``FLSimulation`` run (b exact, loss within rtol 1e-6, accuracy within
    1e-6), counting the runs equal bit for bit. (j) also reports its steady
@@ -256,7 +260,10 @@ Phases (any failure raises and exits non-zero before the result line):
    theta_mse over M in {8, 16, 32, 64} in [-1.35, -0.65] and falling, with
    no DP and at epsilon 0.1; accuracy under bit_flip within 0.1 / 0.12 of
    the clean run; the straggler+sign_flip grid within 0.1 / 0.15 with
-   buf_fill > 0.5 and finite mean_age. Nothing is written to the repo;
+   buf_fill > 0.5 and finite mean_age, its asynchronous groups (one a
+   byz_frac, 4 runs each) each run as one group, with its own launches and
+   seconds, and every run held to its sequential ``FLSimulation`` run (b
+   exact, loss rtol 1e-6, accuracy 1e-6). Nothing is written to the repo;
 6. with ``--profile`` only: (a) on the MLP and on ``resnet18w64-m100``:
    the device busy share as nvidia-smi reads it over unprofiled rounds and
    as the union of the kernels' records of one round under
@@ -1359,6 +1366,8 @@ TABLE1_METHODS = (
 )
 FIG4_CLIENTS = (5, 10, 20, 40)
 FIG4_EPSILONS = (1.0, 0.1, 0.01)
+# Phase 7 (i1): phase 8's runs whose campaign groups run one run at a time.
+UNBATCHED_CELLS = ("k", "o")
 CAMPAIGN_SEEDS = (0, 1)
 COHORT_SEEDS = tuple(range(8))
 
@@ -1381,10 +1390,13 @@ def campaign_specs() -> dict:
                     for m in FIG4_CLIENTS for short, agg in (("probit", "probit_plus"), ("fedavg", "fedavg")))
         + tuple(CellSpec(f"eps={eps}", {"n_clients": 20, "dp_epsilon": eps}) for eps in FIG4_EPSILONS),
         seeds=CAMPAIGN_SEEDS)
+    one_at_a_time = CampaignSpec(
+        base={**common, "n_clients": MAIN["n_clients"], "aggregator": "probit_plus", "b_mode": "dynamic"},
+        cells=tuple(CellSpec(name, WIRES_TREES[name]) for name in UNBATCHED_CELLS), seeds=CAMPAIGN_SEEDS)
     cohort = CampaignSpec(
         base={**common, "n_clients": MAIN["n_clients"], "aggregator": "probit_plus", "b_mode": "dynamic"},
         cells=(CellSpec("a"),), seeds=COHORT_SEEDS)
-    return {"table1": table1, "fig4": fig4, "cohort": cohort}
+    return {"table1": table1, "fig4": fig4, "one_at_a_time": one_at_a_time, "cohort": cohort}
 
 
 def campaign_task(dev, engine=None):
@@ -1400,59 +1412,81 @@ def campaign_task(dev, engine=None):
     return lambda cfg: task(cfg.n_clients)
 
 
-def synchronous_dense(group, cfg) -> bool:
-    """Does the group's config call for the synchronous dense round, which
-    a campaign runs as one group? (Read from the config and the plan here,
-    not from the code under test.)"""
-    return cfg.async_buffer == 0 and cfg.client_chunk == 0 and not group.client_chunk
+def group_form(cfg) -> bool:
+    """Does the group's config call for the round's group form, which a
+    campaign runs as one group (synchronous, streamed or asynchronous, on
+    the one-bit or dense wires; not a tree, a sharded streamed cohort or
+    the k-bit, mixed-width or top-k wires)? Read from the config here, not
+    from the code under test."""
+    return (cfg.tree_edges == 0 and not cfg.stream_shard and cfg.wire_bits == 1 and cfg.client_bits is None
+            and cfg.topk_frac >= 1.0)
 
 
 def campaign_expected_launches(group, cfgs, n_seeds: int, per_client: int = MAIN["per_client"]) -> dict:
-    """One group's launches: a synchronous dense group launches B1 once a
-    round, B3 once a round (PRoBit+ without a mask; a fused group counts
-    with the weighted plain count) and B4 once a local step, for all its
-    runs; an asynchronous group runs one run at a time (B1 and B4 each
-    run's own, no B3)."""
+    """One group's launches. A group in the group form launches, for all
+    its runs, B1 once a round (a streamed group: once a chunk of each
+    round) and B4 once a local step (of each chunk), and B3 once a round
+    only when synchronous, unstreamed and unmasked (PRoBit+; a fused
+    group's, an asynchronous group's and a streamed group's estimates count
+    with the plain weighted or streamed counts); any other group runs one
+    run at a time, each run with phase 8's counts
+    (:func:`wires_trees_expected_launches`, for the main path's cohort)."""
+    import dataclasses
+
     cfg = cfgs[group.cell_idx[0]]
     runs = len(group.cell_idx) * n_seeds
+    if not group_form(cfg):
+        require((cfg.n_clients, cfg.rounds, cfg.local_epochs, cfg.batch_size, per_client)
+                == tuple(MAIN[k] for k in ("n_clients", "rounds", "local_epochs", "batch_size", "per_client")),
+                "a group run one run at a time is counted at the main path's cohort")
+        one = wires_trees_expected_launches(dataclasses.asdict(cfg))
+        return {k: v * runs for k, v in one.items()}
     steps = cfg.local_epochs * per_client // cfg.batch_size
+    chunk = group.client_chunk or cfg.client_chunk
+    chunks = -(-group.m_pad // chunk) if chunk else 1
     probit = cfg.aggregator == "probit_plus"
-    sync = synchronous_dense(group, cfg)
-    per = 1 if sync else runs
-    return {"stoch_quant_pack": cfg.rounds * per if probit else 0, "stoch_quant_ef": 0,
-            "bit_aggregate": cfg.rounds if probit and sync and not group.fused else 0,
-            "prox_sgd": cfg.rounds * steps * per}
+    dense_sync = cfg.async_buffer == 0 and not chunk and not group.fused
+    return {"stoch_quant_pack": cfg.rounds * chunks if probit else 0, "stoch_quant_ef": 0,
+            "bit_aggregate": cfg.rounds if probit and dense_sync else 0, "prox_sgd": cfg.rounds * steps * chunks}
 
 
-def group_run(dev, group, cfgs, spec, engine=None) -> dict:
+def group_run(dev, group, cfgs, spec, engine=None, task_fn=None) -> dict:
     """One plan group through its prepared runner (the one run_campaign
-    calls): the trajectories, each run's final global model, the group's
-    own launches and whether the runner ran it as one group."""
+    calls) on ``task_fn``'s tasks (phase 7's by default): the
+    trajectories, each run's final global model, the group's own launches,
+    its seconds and whether the runner ran it as one group."""
     import torch
 
     from repro_torch.kernels import _build
     from repro_torch.sim import campaign
     from repro_torch.sim.plan import CompileCache
 
-    prepare, args, *_ = campaign._prepare_group(group, cfgs, spec, campaign_task(dev, engine), with_acc=True,
-                                                shard=False, cache=CompileCache())
+    task_fn = task_fn or campaign_task(dev, engine)
+    prepare, args, *_ = campaign._prepare_group(group, cfgs, spec, task_fn, with_acc=True, shard=False,
+                                                cache=CompileCache())
     runner = prepare(*args)
     torch.cuda.synchronize()
     _build.reset_launches()
+    t0 = time.perf_counter()
     traj, final = runner.run()
     torch.cuda.synchronize()
     return {"traj": {k: v.cpu() for k, v in traj.items()}, "final": final, "launches": dict(_build.launches),
-            "batched": runner.batched}
+            "seconds": time.perf_counter() - t0, "batched": runner.batched}
 
 
-def sequential_run(dev, cfg) -> dict:
-    """One cell and seed through FLSimulation on the card: each round's
-    loss, b, accuracy and wall time, and the final global model."""
+def sequential_run(dev, cfg, task_fn=None) -> dict:
+    """One cell and seed through FLSimulation on the card, on ``task_fn``'s
+    task (phase 7's by default): each round's loss, b, accuracy and wall
+    time, and the final global model."""
     import torch
 
     from repro_torch.fl import FLSimulation
 
-    p0, cx, cy, test, loss_fn, acc_fn = _task("mlp128-m100", None, cfg.n_clients)
+    if task_fn is None:
+        p0, cx, cy, test, loss_fn, acc_fn = _task("mlp128-m100", None, cfg.n_clients)
+    else:
+        t = task_fn(cfg)
+        p0, loss_fn, acc_fn, cx, cy, test = t.init_params, t.loss_fn, t.acc_fn, t.client_x, t.client_y, t.test
     sim = FLSimulation(cfg, p0, loss_fn, acc_fn, cx, cy, test, device=dev)
     recs = []
     torch.cuda.synchronize()
@@ -1465,19 +1499,78 @@ def sequential_run(dev, cfg) -> dict:
     return {"rounds": recs, "final": sim.w_global}
 
 
-def campaign_phase(dev, name: str, spec, keep: bool = False) -> dict:
-    """Phase 7, one grid: its plan; run_campaign through the kernels, its
-    launches zeroed just before and read just after; each group's prepared
-    runner again, with its own launch counts, equal to the campaign's
-    trajectories and to its engine="ref" rerun exactly; every cell and seed
-    against its sequential FLSimulation run (b exact, loss within rtol
-    1e-6, accuracy within 1e-6), counting the runs equal bit for bit in the
-    final model and every loss. With ``keep`` the result also holds the
-    campaign's result and each group's final models (phase 11 holds its
-    sharded campaign to them)."""
+def hold_groups(dev, tag: str, spec, plan, result, task_fn=None, per_client: int = MAIN["per_client"],
+                with_ref: bool = True) -> dict:
+    """Each plan group of a campaign already run (``result``) through its
+    prepared runner again on ``task_fn``'s tasks (phase 7's by default),
+    with its own launch counts (:func:`campaign_expected_launches`) and
+    seconds, run as one group where its config calls for it, its
+    trajectories equal to the campaign's; with ``with_ref`` equal to its
+    engine="ref" rerun exactly; every cell and seed against its sequential
+    FLSimulation run (b exact, loss within rtol 1e-6, accuracy within
+    1e-6), counting the runs equal bit for bit in the final model and every
+    loss."""
     import dataclasses
 
     import numpy as np
+    import torch
+
+    cfgs = spec.configs()
+    n_seeds = len(spec.seeds)
+    groups, finals, seq_s, exact, n_runs = [], [], 0.0, 0, 0
+    for group, stats in zip(plan.groups, result.groups):
+        names = [spec.cells[i].name for i in group.cell_idx]
+        require(stats["cells"] == names, f"{tag}: group order {stats['cells']} != {names}")
+        run = group_run(dev, group, cfgs, spec, task_fn=task_fn)
+        want = campaign_expected_launches(group, cfgs, n_seeds, per_client)
+        got = {k: run["launches"].get(k, 0) for k in KERNELS}
+        require(got == want, f"{tag} {names}: launches {got} != expected {want}")
+        one = group_form(cfgs[group.cell_idx[0]])
+        require(run["batched"] == one, f"{tag} {names}: ran as one group {run['batched']}, its config calls for {one}")
+        if with_ref:
+            ref = group_run(dev, group, cfgs, spec, "ref")
+            require(ref["batched"] == one, f"{tag} {names}: the engine='ref' rerun ran as one group {ref['batched']}")
+            require(not ref["launches"], f"{tag} {names}: the engine='ref' run launched {ref['launches']}")
+            require(torch.equal(run["final"], ref["final"]) and set(run["traj"]) == set(ref["traj"])
+                    and all(torch.equal(run["traj"][k], ref["traj"][k]) for k in run["traj"]),
+                    f"{tag} {names}: differs from its engine='ref' rerun")
+        group_seq_s = 0.0
+        for j, i in enumerate(group.cell_idx):
+            cell = result.cell(spec.cells[i].name)
+            for s, seed in enumerate(spec.seeds):
+                e = j * n_seeds + s
+                for metric, values in run["traj"].items():
+                    require(np.array_equal(cell.metrics[metric][s], values[e].numpy()),
+                            f"{tag} {names[j]} seed {seed}: the runner's {metric} differs from the campaign's")
+                seq = sequential_run(dev, dataclasses.replace(cfgs[i], seed=seed), task_fn)
+                group_seq_s += sum(r["seconds"] for r in seq["rounds"])
+                loss, b, acc = (np.asarray([r[k] for r in seq["rounds"]]) for k in ("loss", "b", "acc"))
+                run_tag = f"{tag} {names[j]} seed {seed}"
+                require(np.array_equal(cell.metrics["b"][s], b.astype(np.float32)),
+                        f"{run_tag}: b {cell.metrics['b'][s]} != {b}")
+                require(np.allclose(cell.metrics["loss"][s], loss, rtol=1e-6, atol=0), f"{run_tag}: loss differs")
+                require(np.allclose(cell.metrics["acc"][s], acc, rtol=0, atol=1e-6), f"{run_tag}: acc differs")
+                require(bool(np.isfinite(cell.metrics["loss"][s]).all()), f"{run_tag}: loss not finite")
+                n_runs += 1
+                exact += int(torch.equal(run["final"][e], seq["final"])
+                             and np.array_equal(cell.metrics["loss"][s], loss.astype(np.float32)))
+        seq_s += group_seq_s
+        finals.append(run["final"].cpu())
+        groups.append({"cells": names, "fused": stats["fused"], "m_pad": stats["m_pad"], "n_elems": stats["n_elems"],
+                       "wall_s": stats["wall_s"], "compile_s": stats["compile_s"],
+                       "cells_per_sec": stats["cells_per_sec"], "launches": got, "batched": run["batched"],
+                       "runner_seconds": run["seconds"], "sequential_round_seconds_sum": group_seq_s})
+    return {"groups": groups, "finals": finals, "sequential_round_seconds_sum": seq_s, "runs": n_runs,
+            "bit_exact_runs": exact}
+
+
+def campaign_phase(dev, name: str, spec, keep: bool = False) -> dict:
+    """Phase 7, one grid: its plan; run_campaign through the kernels, its
+    launches zeroed just before and read just after; then each group held
+    (:func:`hold_groups`) to its own launches, the campaign's trajectories,
+    its engine="ref" rerun and its runs' sequential FLSimulation runs.
+    With ``keep`` the result also holds the campaign's result and each
+    group's final models (phase 11 holds its sharded campaign to them)."""
     import torch
 
     from repro_torch.kernels import _build
@@ -1485,8 +1578,6 @@ def campaign_phase(dev, name: str, spec, keep: bool = False) -> dict:
     from repro_torch.sim.plan import CompileCache
 
     plan = plan_campaign(spec)
-    cfgs = spec.configs()
-    n_seeds = len(spec.seeds)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
@@ -1496,53 +1587,16 @@ def campaign_phase(dev, name: str, spec, keep: bool = False) -> dict:
     launches = {k: _build.launches[k] for k in KERNELS}
     require(set(_build.launches) <= set(KERNELS), f"campaign {name}: unknown kernel {dict(_build.launches)}")
     peak = torch.cuda.max_memory_allocated(dev)
-    groups, finals, seq_s, exact, n_runs = [], [], 0.0, 0, 0
-    for group, stats in zip(plan.groups, result.groups):
-        names = [spec.cells[i].name for i in group.cell_idx]
-        require(stats["cells"] == names, f"campaign {name}: group order {stats['cells']} != {names}")
-        run, ref = group_run(dev, group, cfgs, spec), group_run(dev, group, cfgs, spec, "ref")
-        want = campaign_expected_launches(group, cfgs, n_seeds)
-        got = {k: run["launches"].get(k, 0) for k in KERNELS}
-        require(got == want, f"campaign {name} {names}: launches {got} != expected {want}")
-        sync = synchronous_dense(group, cfgs[group.cell_idx[0]])
-        require(run["batched"] == sync and ref["batched"] == sync,
-                f"campaign {name} {names}: ran as one group {run['batched']}, its config calls for {sync}")
-        require(not ref["launches"], f"campaign {name} {names}: the engine='ref' run launched {ref['launches']}")
-        require(torch.equal(run["final"], ref["final"]) and set(run["traj"]) == set(ref["traj"])
-                and all(torch.equal(run["traj"][k], ref["traj"][k]) for k in run["traj"]),
-                f"campaign {name} {names}: differs from its engine='ref' rerun")
-        for j, i in enumerate(group.cell_idx):
-            cell = result.cell(spec.cells[i].name)
-            for s, seed in enumerate(spec.seeds):
-                e = j * n_seeds + s
-                for metric, values in run["traj"].items():
-                    require(np.array_equal(cell.metrics[metric][s], values[e].numpy()),
-                            f"campaign {name} {names[j]} seed {seed}: the runner's {metric} differs from the campaign's")
-                seq = sequential_run(dev, dataclasses.replace(cfgs[i], seed=seed))
-                seq_s += sum(r["seconds"] for r in seq["rounds"])
-                loss, b, acc = (np.asarray([r[k] for r in seq["rounds"]]) for k in ("loss", "b", "acc"))
-                tag = f"campaign {name} {names[j]} seed {seed}"
-                require(np.array_equal(cell.metrics["b"][s], b.astype(np.float32)), f"{tag}: b {cell.metrics['b'][s]} != {b}")
-                require(np.allclose(cell.metrics["loss"][s], loss, rtol=1e-6, atol=0), f"{tag}: loss differs")
-                require(np.allclose(cell.metrics["acc"][s], acc, rtol=0, atol=1e-6), f"{tag}: acc differs")
-                require(bool(np.isfinite(cell.metrics["loss"][s]).all()), f"{tag}: loss not finite")
-                n_runs += 1
-                exact += int(torch.equal(run["final"][e], seq["final"])
-                             and np.array_equal(cell.metrics["loss"][s], loss.astype(np.float32)))
-        finals.append(run["final"].cpu())
-        groups.append({"cells": names, "fused": stats["fused"], "m_pad": stats["m_pad"], "n_elems": stats["n_elems"],
-                       "wall_s": stats["wall_s"], "compile_s": stats["compile_s"],
-                       "cells_per_sec": stats["cells_per_sec"], "launches": got,
-                       "batched": run["batched"]})
+    held = hold_groups(dev, f"campaign {name}", spec, plan, result)
     out = {"phase": "campaign", "grid": name, "describe": plan.describe(), "cells": len(spec.cells),
-           "seeds": list(spec.seeds), "runs": n_runs, "programs": plan.n_programs, "wall_s": wall,
+           "seeds": list(spec.seeds), "runs": held["runs"], "programs": plan.n_programs, "wall_s": wall,
            "result_wall_s": result.wall_s, "cells_per_sec": result.cells_per_sec,
-           "sequential_round_seconds_sum": seq_s, "peak_gb": peak / 1e9, "launches": launches,
-           "equal_to_ref_groups": len(groups), "equal_to_sequential_runs": n_runs,
-           "bit_exact_runs_final_model_and_loss": exact, "groups": groups,
+           "sequential_round_seconds_sum": held["sequential_round_seconds_sum"], "peak_gb": peak / 1e9,
+           "launches": launches, "equal_to_ref_groups": len(held["groups"]), "equal_to_sequential_runs": held["runs"],
+           "bit_exact_runs_final_model_and_loss": held["bit_exact_runs"], "groups": held["groups"],
            "final_acc": {c.name: c.final("acc")[0] for c in result.cells}}
     print(json.dumps(out), flush=True)
-    return {"launches": launches, "stats": out, **({"result": result, "finals": finals} if keep else {})}
+    return {"launches": launches, "stats": out, **({"result": result, "finals": held["finals"]} if keep else {})}
 
 
 def cohort_phase(dev, spec, main_a: dict) -> dict:
@@ -1670,10 +1724,18 @@ def campaign_runs(dev, main: dict) -> dict:
     specs = campaign_specs()
     t0 = time.perf_counter()
     print(json.dumps(model_rows(dev)), flush=True)
-    runs = {f"campaign/{name}": campaign_phase(dev, name, specs[name]) for name in ("table1", "fig4")}
+    runs = {f"campaign/{name}": campaign_phase(dev, name, specs[name]) for name in ("table1", "fig4", "one_at_a_time")}
+    require(not any(g["batched"] for g in runs["campaign/one_at_a_time"]["stats"]["groups"]),
+            "phase 7 (i1): a tree or k-bit group ran as one group")
     runs["campaign/cohort"] = cohort_phase(dev, specs["cohort"], main["a"])
     for name in ("stoch_quant_pack", "bit_aggregate", "prox_sgd"):
-        require(all(run["launches"][name] for run in runs.values()), f"phase 7 never launched {name} in a grid")
+        require(all(run["launches"][name] for grid, run in runs.items() if grid != "campaign/one_at_a_time"),
+                f"phase 7 never launched {name} in a grid")
+    # (i1): the tree's B1 a chunk and every run's B4; no B3 (the k-bit and tree estimates have no kernel)
+    one = runs["campaign/one_at_a_time"]
+    want = {k: sum(g["launches"][k] for g in one["stats"]["groups"]) for k in KERNELS}
+    require(one["launches"] == want and want["stoch_quant_pack"] and want["prox_sgd"] and not want["bit_aggregate"],
+            f"phase 7 (i1): launches {one['launches']}, its groups' {want}")
     print(json.dumps({"phase": "campaign_done", "seconds": time.perf_counter() - t0,
                       "launches": {k: run["launches"] for k, run in runs.items()}}), flush=True)
     return runs
@@ -2338,7 +2400,8 @@ def lm_run(dev, name: str, argv: list, with_ref: bool, cut: dict | None = None, 
     torch.cuda.empty_cache()
     return {"rounds": recs, "launches": launches, "expected_launches": want, "d": d, "leaves": n_leaves,
             "wire": wire, "init_seconds": init_s, "busy_last_round": busy,
-            "stage_stream_ms_next_to_last_round": stages, "with_ref": with_ref,
+            "stage_stream_ms_next_to_last_round": stages,
+            "forward_backward_ms": None if stages is None else stages["forward_backward"], "with_ref": with_ref,
             **({"served": served} if keep else {}), **({"round0": round0} if keep_round0 else {}),
             **({"remat_probe": probe} if remat_probe else {})}
 
@@ -3264,7 +3327,7 @@ def dryrun_finish(run: dict) -> dict:
     require(lo <= dots <= hi, f"phase 12 (bb): {dots:.4e} dot FLOPs, outside [{lo:.4e}, {hi:.4e}]")
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     keys = ("arch", "shape", "mesh", "engine", "device", "status", "t_lower_s", "traces", "extrapolated",
-            "global_flops", "flops_per_device", "dot_flops_per_device", "bytes_per_device", "collective_link_bytes",
+            "fit_wire_row_remainder_bytes", "global_flops", "flops_per_device", "dot_flops_per_device", "bytes_per_device", "collective_link_bytes",
             "cross_pod_link_bytes", "n_collectives", "collectives_by_kind", "collectives_by_dim",
             "collective_calls_by_dim", "t_compute_s", "t_memory_s", "t_memory_measured_s", "t_collective_s",
             "bottleneck", "arg_bytes_per_device", "temp_bytes_per_device", "peak_bytes_per_device", "hardware")
@@ -3708,6 +3771,13 @@ def statistical_checks(dev) -> dict:
         require(launches == want, f"statistical {name}: launches {launches} != expected {want}")
         line = {"phase": "theorems", "check": f"statistical_{name}", "kernels": all(c.use_kernels for c in cfgs),
                 "groups": [g["cells"] for g in result.groups], "seconds": wall, "launches": launches}
+        if name == "straggler":
+            # the asynchronous groups, each run as one group: each group's
+            # own launches and seconds, and each run against its sequential run
+            held = hold_groups(dev, f"statistical {name}", spec, plan, result, task_fn, STAT_PER_CLIENT,
+                               with_ref=False)
+            line.update(held_groups=held["groups"], equal_to_sequential_runs=held["runs"],
+                        bit_exact_runs_final_model_and_loss=held["bit_exact_runs"])
         if name.startswith("one_over_m"):
             mses = [result.cell(f"n_clients={m}").mean_over_rounds("theta_mse") for m in STAT_M_GRID]
             slope = float(np.polyfit(np.log(STAT_M_GRID), np.log(mses), 1)[0])

@@ -794,10 +794,13 @@ class AggregatorPipeline:
         wire, residuals = self.compressor.compress(key, deltas, b_scalar, residuals, row_offset=row_offset)
         gate = True if flip_gate is None else flip_gate
         if flip_n and deltas.dim() == 3:
-            from .attacks import flip_wire
+            from .attacks import flip_wire, flip_wire_rows
 
             runs = np.flatnonzero(np.broadcast_to(gate, deltas.shape[:1]))
-            if runs.size:
+            if runs.size and row_offset:
+                rows = row_offset + torch.arange(deltas.shape[1], device=deltas.device)
+                wire = flip_wire_rows(wire, rows < flip_n, runs=runs.tolist())
+            elif runs.size:
                 wire = flip_wire(wire, flip_n, runs=runs.tolist())
         elif flip_n and gate:
             from .attacks import flip_wire, flip_wire_rows

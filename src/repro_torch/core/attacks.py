@@ -259,10 +259,17 @@ def flip_wire(wire, n_byz: int, runs=None):
     return dataclasses.replace(wire, packed=_set_byz(wire.packed, n_byz, torch.bitwise_not(wire.packed[:n_byz])))
 
 
-def flip_wire_rows(wire, row_mask: torch.Tensor):
+def flip_wire_rows(wire, row_mask: torch.Tensor, runs=None):
     """:func:`flip_wire` on the rows where ``row_mask`` is True: the
-    streaming round's chunks straddle the Byzantine boundary."""
+    streaming round's chunks straddle the Byzantine boundary. On a group's
+    wire, those rows of each run (element) listed in ``runs``."""
     mask = row_mask[:, None]
+    if runs is not None:
+        dense = isinstance(wire, DenseWire)
+        out = (wire.updates if dense else wire.packed).clone()
+        for e in runs:
+            out[e] = torch.where(mask, -out[e] if dense else torch.bitwise_not(out[e]), out[e])
+        return DenseWire(updates=out) if dense else dataclasses.replace(wire, packed=out)
     if isinstance(wire, DenseWire):
         return DenseWire(updates=torch.where(mask, -wire.updates, wire.updates))
     return dataclasses.replace(wire, packed=torch.where(mask, torch.bitwise_not(wire.packed), wire.packed))

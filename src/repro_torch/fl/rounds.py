@@ -46,14 +46,17 @@ A masked context (a fused heterogeneous-M campaign group, ``masked=True``)
 pads the client axis to the group's largest cohort; the run's own cohort
 ``CellParams.m_active`` enters as a 0/1 row mask (:func:`client_mask`) on
 the weighted count path of the estimate, on the b-vote and on the metric
-means, so one context serves every M of the group. :func:`fl_round` also
-takes a group of E runs at once, with a leading E on the keys, the state
-and the batches: each kernel is launched once a step for the group.
-:func:`run_rounds` runs ``rounds`` rounds on ``FLSimulation``'s key
+means, so one context serves every M of the group. :func:`fl_round`,
+:func:`stream_fl_round` and :func:`async_fl_round` also take a group of E
+runs at once, with a leading E on the keys, the state and the batches:
+each kernel is launched once a step (a streamed round: once a chunk's
+step) for the group, and each run's draws, gates and float sums are its
+own. :func:`run_rounds` runs ``rounds`` rounds on ``FLSimulation``'s key
 schedule and returns the final state and each metric's trajectory; the
-campaign engine (:mod:`repro_torch.sim`) runs a synchronous dense group
-through it as one group, and every other group (asynchronous, streamed,
-tree, or on the k-bit, mixed-width or top-k wires) one run at a time.
+campaign engine (:mod:`repro_torch.sim`) runs a synchronous, streamed or
+asynchronous group on the one-bit or dense wires through it as one group,
+and every other group (tree, a sharded streamed cohort, or on the k-bit,
+mixed-width or top-k wires) one run at a time.
 
 Each step runs under a ``torch.profiler.record_function`` range
 (``round.batches``, ``round.sample`` under partial participation,
@@ -398,10 +401,20 @@ def _client_batch_idx(ctx: RoundContext, key: torch.Tensor, client_ids: torch.Te
     return prng.randint(keys, (_batch_steps(ctx), ctx.cfg.batch_size), 0, ctx.client_x.shape[1])
 
 
-def _gather_batches(ctx: RoundContext, key: torch.Tensor, ids: torch.Tensor) -> dict:
-    idx = _client_batch_idx(ctx, key, ids)
-    rows = (ids - ctx.data_offset).view(-1, 1, 1)
-    return {"x": ctx.client_x[rows, idx], "y": ctx.client_y[rows, idx]}
+def _gather_batches(ctx: RoundContext, key: torch.Tensor, ids: torch.Tensor, data=None) -> dict:
+    """The batches of clients ``ids`` (C,); for a group, keys (E, 2) and ids
+    (E, C), each run's from its own key (and, with a fused group's
+    ``data``, its own cell's rows): leaves ``(E, C, steps, batch, ...)``."""
+    if key.dim() == 1:
+        idx = _client_batch_idx(ctx, key, ids)
+        rows = (ids - ctx.data_offset).view(-1, 1, 1)
+        return {"x": ctx.client_x[rows, idx], "y": ctx.client_y[rows, idx]}
+    idx = _client_batch_idx(ctx, key.unsqueeze(-2), ids)
+    rows = (ids - ctx.data_offset).view(ids.shape + (1, 1))
+    if data is None:
+        return {"x": ctx.client_x[rows, idx], "y": ctx.client_y[rows, idx]}
+    cell = data.data_idx.view(-1, 1, 1, 1)
+    return {"x": data.client_x[cell, rows, idx], "y": data.client_y[cell, rows, idx]}
 
 
 def round_batches(ctx: RoundContext, key: torch.Tensor, data=None) -> dict:
@@ -410,9 +423,9 @@ def round_batches(ctx: RoundContext, key: torch.Tensor, data=None) -> dict:
     leading E for a group's keys (E, 2). ``data`` is a fused group's client
     data (``repro_torch.sim.batched.GroupData``): each run reads its own
     cell's rows. A streaming round draws each chunk's batches itself and
-    gets ``{"key": key}``."""
+    gets ``{"key": key}`` (and a fused group's ``"data"``)."""
     if ctx.cfg.client_chunk:
-        return {"key": key}
+        return {"key": key} if data is None else {"key": key, "data": data}
     with record_function("round.batches"):
         ids = torch.arange(ctx.cfg.n_clients, dtype=torch.int64, device=ctx.device)
         idx = _client_batch_idx(ctx, key.unsqueeze(-2), ids)
@@ -554,7 +567,8 @@ def fl_round(
         return _finish_round(ctx, state, w_new, loss_before, loss_after, res_new, theta, deltas_att, sel, mask)
 
 
-def _stream_chunks(ctx, params, kb, k_att, k_q, state, sel, n_byz, weighted, limit, *, row0=0, planes=None):
+def _stream_chunks(ctx, params, kb, k_att, k_q, state, sel, n_byz, weighted, limit, *, row0=0, planes=None,
+                   data=None):
     """The streaming round's chunk loop over the cohort rows ``sel``, the
     first of which is cohort position ``row0`` (a tree's edge passes its
     slice of the cohort): every chunk of ``cfg.client_chunk`` rows trains,
@@ -564,38 +578,56 @@ def _stream_chunks(ctx, params, kb, k_att, k_q, state, sel, n_byz, weighted, lim
     round wrote back; None starts from the state's own, copied before the
     first write. Returns the carries, the loss as each chunk's own sum (add
     them with :func:`_add_in_order`), with the written-back planes (the
-    state's own when stateless)."""
+    state's own when stateless).
+
+    A group of E runs passes keys (E, 2), ``sel`` (E, n), a state with a
+    leading E, ``params`` one value a run (``limit`` an (E,) tensor under a
+    masked context) and a fused group's ``data``: every carry then has a
+    leading E, each chunk launches each kernel once for the group, and each
+    run's float sums are taken on its own rows."""
     cfg, d, dev = ctx.cfg, ctx.d, ctx.device
-    C, n = cfg.client_chunk, sel.shape[0]
+    C, n = cfg.client_chunk, sel.shape[-1]
+    lead = tuple(kb.shape[:-1])
+    e = lead[0] if lead else None
     server = ctx.pipeline.server
     kind = server.stream_kind
     n_pad = -(-n // C) * C
     # pad rows wrap onto earlier clients; they weigh 0 and are not written back
-    sel_p = sel[torch.arange(n_pad, device=dev) % n]
+    sel_p = sel[..., torch.arange(n_pad, device=dev) % n]
     if kind == "counts":
         acc = server.init_counts(ctx.pipeline.compressor.wire_bytes(d), dev, weighted=weighted)
     elif kind == "sum":
         acc = server.init_stream_sum(d, dev)
     else:  # "buffer": Fed-GM reads every row in each Weiszfeld step
-        acc = torch.empty((n_pad, d), dtype=torch.float32, device=dev)
-    zero = torch.zeros((), device=dev)
-    vote, wsum, dsum, losses = zero, zero, torch.zeros(d, device=dev), []
+        acc = torch.empty(lead + (n_pad, d), dtype=torch.float32, device=dev)
+    if lead and kind != "buffer":
+        acc = tuple(a.repeat(lead + (1,) * a.dim()) for a in acc) if kind == "sum" else acc.repeat(e, 1)
+    zero = torch.zeros(lead, device=dev)
+    vote, wsum, dsum, losses = zero, zero, torch.zeros(lead + (d,), device=dev), []
     if planes is not None:
         w_locals, residuals = planes
     else:
         w_locals, residuals = state.w_locals, state.residuals
         if not cfg.stateless_clients:
             w_locals = w_locals.clone()  # the incoming state stays as it was
+    m_rows = state.w_locals.shape[-2]
     for g0 in range(0, n_pad, C):
         with record_function("round.chunk"):
             k = min(C, n - g0)  # real rows of the chunk, then pad rows
-            sel_c = sel_p[g0:g0 + C]
-            w_c = (torch.arange(C, device=dev) < min(k, limit - row0 - g0)).float()
+            sel_c = sel_p[..., g0:g0 + C]
+            w_c = _chunk_weights(C, k, limit - row0 - g0, lead, dev)
             with record_function("round.batches"):
-                batches = _gather_batches(ctx, kb, sel_c)
+                batches = _gather_batches(ctx, kb, sel_c, data)
+            if lead:
+                batches = {name: v.flatten(0, 1) for name, v in batches.items()}
+                # the chunk's rows in the (E * M, d) view of the client planes
+                flat = (sel_c + torch.arange(e, device=dev).unsqueeze(-1) * m_rows).flatten()
             if cfg.stateless_clients:
-                w_start = state.w_global.expand(C, d)
-                res_c = torch.zeros((1, d), device=dev).expand(C, d)
+                w_start = state.w_global.unsqueeze(-2).expand(lead + (C, d)).reshape(-1, d)
+                res_c = torch.zeros((1, d), device=dev).expand(lead + (C, d))
+            elif lead:
+                w_start = w_locals.reshape(-1, d).index_select(0, flat)
+                res_c = residuals.reshape(-1, d).index_select(0, flat).view(lead + (C, d))
             else:
                 # gathered copies: training and compressing never write the planes
                 w_start, res_c = w_locals.index_select(0, sel_c), residuals.index_select(0, sel_c)
@@ -606,28 +638,78 @@ def _stream_chunks(ctx, params, kb, k_att, k_q, state, sel, n_byz, weighted, lim
                     use_kernel=cfg.use_kernels, engine=ctx.engine,
                 )
             with record_function("round.compress"):
-                deltas = apply_attack_stream(params.attack_id, k_att, w_new - state.w_global, n_byz, row0 + g0)
+                w_rows = w_new.view(lead + (C, d))
+                deltas = _attack_stream(params.attack_id, k_att, w_rows - state.w_global.unsqueeze(-2) if lead
+                                        else w_rows - state.w_global, n_byz, row0 + g0)
                 wire, res_new = ctx.pipeline.compress_wire(
                     k_q, deltas, state.b.b, res_c, flip_n=ctx.flip_n, flip_gate=params.flip_gate,
                     row_offset=row0 + g0,
                 )
-                if kind == "counts":
-                    acc = server.accumulate_counts(acc, wire.packed, w_c if weighted else None)
-                elif kind == "sum":
-                    acc = server.accumulate_sum(acc, wire.updates, w_c)
-                else:
-                    acc[g0:g0 + C] = wire.updates
-                vote = vote + (loss_bit(loss_before, loss_after).float() * w_c).sum()
-                losses.append((loss_after * w_c).sum())
-                dsum = dsum + (deltas * w_c[:, None]).sum(0)
-                wsum = wsum + w_c.sum()
+                acc = _accumulate(server, kind, acc, wire, w_c if weighted or kind == "sum" else None, g0, lead)
+                vote = vote + (loss_bit(loss_before, loss_after).float().view(lead + (C,)) * w_c).sum(-1)
+                losses.append(_per_run(lambda la, wc: (la * wc).sum(), lead, loss_after.view(lead + (C,)), w_c))
+                dsum = dsum + _per_run(lambda dl, wc: (dl * wc[:, None]).sum(0), lead, deltas, w_c)
+                wsum = wsum + w_c.sum(-1)
                 if not cfg.stateless_clients:
-                    w_locals.index_copy_(0, sel_c[:k], w_new[:k])
+                    if lead:
+                        rows = flat.view(lead + (C,))[:, :k].flatten()
+                        w_locals.view(-1, d).index_copy_(0, rows, w_new.view(lead + (C, d))[:, :k].reshape(-1, d))
+                    else:
+                        w_locals.index_copy_(0, sel_c[:k], w_new[:k])
                     if res_new is not res_c:  # error feedback changed them
                         if residuals is state.residuals:
                             residuals = residuals.clone()
-                        residuals.index_copy_(0, sel_c[:k], res_new[:k])
-    return acc, vote, torch.stack(losses), dsum, wsum, w_locals, residuals
+                        if lead:
+                            residuals.view(-1, d).index_copy_(0, rows, res_new[:, :k].reshape(-1, d))
+                        else:
+                            residuals.index_copy_(0, sel_c[:k], res_new[:k])
+    return acc, vote, torch.stack(losses, -1), dsum, wsum, w_locals, residuals
+
+
+def _chunk_weights(C: int, k: int, room, lead: tuple, dev) -> torch.Tensor:
+    """The 0/1 f32 weights of a chunk's C rows: the first ``min(k, room)``
+    count, where ``room`` is an int or, for a masked group, an (E,)
+    tensor; a group's weights have its leading E."""
+    if torch.is_tensor(room):
+        return (torch.arange(C, device=dev) < torch.clamp(room, max=k).unsqueeze(-1)).float()
+    w_c = (torch.arange(C, device=dev) < min(k, room)).float()
+    return w_c.expand(lead + (C,)) if lead else w_c
+
+
+def _per_run(fn, lead: tuple, *args):
+    """``fn`` of one run's arguments, or stacked over a group's runs, each
+    run's taken on its own rows (a float reduction over one axis of a
+    group's tensor may round otherwise than over one run's)."""
+    return torch.stack([fn(*run) for run in zip(*args)]) if lead else fn(*args)
+
+
+def _attack_stream(attack_id, k_att, deltas, n_byz, row0):
+    """:func:`~repro_torch.core.apply_attack_stream` on one run's (C, d)
+    chunk, or on each run's own rows of a group's (E, C, d) with the run's
+    own id and key (written into ``deltas``)."""
+    if deltas.dim() == 2:
+        return apply_attack_stream(attack_id, k_att, deltas, n_byz, row0)
+    for i, rows in enumerate(deltas):
+        attacked = apply_attack_stream(int(attack_id[i]), k_att[i], rows, n_byz, row0)
+        if attacked is not rows:
+            rows.copy_(attacked)
+    return deltas
+
+
+def _accumulate(server, kind, acc, wire, w_c, g0, lead):
+    """Fold a chunk's wire into the carry (each run's into its own)."""
+    if kind == "buffer":
+        acc[..., g0:g0 + wire.updates.shape[-2], :] = wire.updates
+        return acc
+    if not lead:
+        if kind == "counts":
+            return server.accumulate_counts(acc, wire.packed, w_c)
+        return server.accumulate_sum(acc, wire.updates, w_c)
+    if kind == "counts":
+        return torch.stack([server.accumulate_counts(acc[i], wire.packed[i], None if w_c is None else w_c[i])
+                            for i in range(lead[0])])
+    parts = [server.accumulate_sum((acc[0][i], acc[1][i]), wire.updates[i], w_c[i]) for i in range(lead[0])]
+    return tuple(torch.stack(p) for p in zip(*parts))
 
 
 def _add_in_order(parts: torch.Tensor) -> torch.Tensor:
@@ -652,24 +734,38 @@ def stream_fl_round(
     weight sum. A masked context weighs cohort positions at or past the
     run's ``m_active`` 0, as the dense round's mask does. A sharded context
     (``ctx.group``) scans this rank's block of the cohort and sums the
-    carries over the ranks (module docstring)."""
+    carries over the ranks (module docstring).
+
+    A group of E runs, as :func:`fl_round`'s (a fused group's client data
+    in ``batches["data"]``): each run draws its own cohort and chunks'
+    batches, each kernel is launched once a chunk for the group, and each
+    run's estimate and metric means are its single round's."""
     cfg, d, dev = ctx.cfg, ctx.d, ctx.device
     n, C = cfg.n_active, cfg.client_chunk
+    lead = tuple(key.shape[:-1])
     server = ctx.pipeline.server
     if cfg.participation < 1.0:
         with record_function("round.sample"):
-            sel = prng.choice(prng.fold_in(key, 99), cfg.n_clients, (n,))
+            sel = torch.stack([prng.choice(prng.fold_in(k, 99), cfg.n_clients, (n,)) for k in key.view(-1, 2)])
+            sel = sel.view(lead + (n,))
     else:
-        sel = torch.arange(cfg.n_clients, dtype=torch.int64, device=dev)
-    k_att, k_q = prng.split(prng.fold_in(key, 1), 2)
-    limit = min(n, int(params.m_active)) if ctx.masked else n
+        sel = torch.arange(cfg.n_clients, dtype=torch.int64, device=dev).expand(lead + (cfg.n_clients,))
+    k_att, k_q = prng.split(prng.fold_in(key, 1), 2).unbind(-2)
+    if not ctx.masked:
+        limit = n
+    elif lead:
+        limit = torch.clamp(params.m_active, max=n)
+    else:
+        limit = min(n, int(params.m_active))
     group = ctx.group if cfg.stream_shard else None
+    if group is not None and lead:
+        raise ValueError("a group of runs cannot shard its streamed cohort over the ranks")
     n_loc = n // distributed.group_size(group)
     row0 = distributed.group_rank(group) * n_loc
     weighted = ctx.masked or n_loc % C != 0
     acc, vote, losses, dsum, wsum, w_locals, residuals = _stream_chunks(
-        ctx, params, batches["key"], k_att, k_q, state, sel[row0:row0 + n_loc], int(n * cfg.byz_frac), weighted,
-        limit, row0=row0,
+        ctx, params, batches["key"], k_att, k_q, state, sel[..., row0:row0 + n_loc], int(n * cfg.byz_frac),
+        weighted, limit, row0=row0, data=batches.get("data"),
     )
     if group is not None:
         with record_function("round.collectives"):
@@ -679,19 +775,19 @@ def stream_fl_round(
             sums = distributed.all_reduce_sum(torch.cat([vote.view(1), wsum.view(1), dsum]), group)
             vote, wsum, dsum = sums[0], sums[1], sums[2:]
             losses = distributed.all_gather_rows(losses, group).flatten()
-    loss = _add_in_order(losses)
+    loss = _per_run(_add_in_order, lead, losses)
     with record_function("round.estimate"):
         if server.stream_kind == "counts":
             b_vec = ctx.pipeline.compressor.b_vector(d, state.b.b)
             if weighted:
-                theta = server.finalize_weighted(acc, wsum, b_vec)
+                theta = _per_run(server.finalize_weighted, lead, acc, wsum, b_vec)
             else:
-                theta = server.finalize(acc, n, b_vec)
+                theta = _per_run(lambda a, b: server.finalize(a, n, b), lead, acc, b_vec)
         elif server.stream_kind == "sum":
-            theta = server.finalize_sum(acc)
+            theta = _per_run(lambda s_, w_: server.finalize_sum((s_, w_)), lead, *acc)
         else:
-            w_all = (torch.arange(acc.shape[0], device=dev) < limit).float()
-            theta = server.from_dense(acc, w_all if weighted else None)
+            w_all = _chunk_weights(acc.shape[-2], acc.shape[-2], limit, lead, dev)
+            theta = _per_run(lambda a, w: server.from_dense(a, w if weighted else None), lead, acc, w_all)
     with record_function("round.finish"):
         b_new = update_b_from_vote(state.b, vote, cfg.bctrl)
         new_state = RoundState(w_global=state.w_global + theta, w_locals=w_locals, b=b_new, residuals=residuals)
@@ -699,10 +795,33 @@ def stream_fl_round(
         metrics = {
             "loss": loss * recip,
             "b": b_new.b,
-            "theta_mse": mean_rows((theta - dsum * recip) ** 2),
+            "theta_mse": _per_run(lambda t, ds, r: mean_rows((t - ds * r) ** 2), lead, theta, dsum, recip),
             "theta": theta,
         }
     return new_state, metrics
+
+
+def _arrivals(key: torch.Tensor, latency, m: int) -> torch.Tensor:
+    """Which of the ``m`` clients deliver this round: client ``i`` with
+    probability ``1 / (1 + latency)``, the uniform of ``fold_in(key, 7)``
+    compared with it in f32 as the reference's weakly typed scalar is
+    (one latency a run for a group's (E, 2) keys)."""
+    u = prng.uniform(prng.fold_in(key, 7), (m,))
+    p_arrive = np.float32(1.0 / (1.0 + np.asarray(latency, np.float64)))
+    if p_arrive.ndim == 0:
+        return u < float(p_arrive)
+    return u < torch.as_tensor(p_arrive, device=key.device).unsqueeze(-1)
+
+
+def _staleness(age: torch.Tensor, decay, valid: torch.Tensor) -> torch.Tensor:
+    """The buffer's staleness weights with the decay as an f32 device
+    tensor (one a run for a group, each run's weights taken on its own
+    row, so a group's equal its runs' own)."""
+    if not torch.is_tensor(decay):
+        decay = torch.tensor(decay, dtype=torch.float32, device=age.device)
+    if age.dim() == 1:
+        return staleness_weights(age, decay, valid)
+    return torch.stack([staleness_weights(a, dc, v) for a, dc, v in zip(age, decay, valid)])
 
 
 def async_fl_round(
@@ -711,35 +830,43 @@ def async_fl_round(
     """One buffered-asynchronous round: the client side of :func:`fl_round`,
     then the arrivals fold into the buffer and the server estimates from
     it with staleness weights. Extra metrics: ``buf_fill`` (share of valid
-    slots) and ``mean_age`` (mean age of the valid slots)."""
+    slots) and ``mean_age`` (mean age of the valid slots).
+
+    A group of E runs, as :func:`fl_round`'s, with the buffer planes'
+    leading E: each run draws its own arrivals with its own latency, arms
+    its own straggler gate and weighs its slots with its own decay (an (E,)
+    f32 device tensor, as ``lr``); the client side launches each kernel
+    once a step for the group."""
     cfg, dev = ctx.cfg, ctx.device
     m, n_buf = cfg.n_active, cfg.async_buffer
+    lead = tuple(key.shape[:-1])
     sel, w_new, loss_before, loss_after, deltas_att, wire, res_new = _client_uploads(
         ctx, params, key, state, batches
     )
     with record_function("round.estimate"):
         rows = wire.updates if isinstance(wire, DenseWire) else wire.packed
-        # arrivals: client m delivers with probability 1 / (1 + latency),
-        # compared in f32 as the reference's weakly typed scalar is
-        p_arrive = float(np.float32(1.0 / (1.0 + params.latency)))
-        delivered = prng.uniform(prng.fold_in(key, 7), (m,)) < p_arrive
+        delivered = _arrivals(key, params.latency, m)
         n_byz = int(m * cfg.byz_frac)
-        if params.straggler_gate and n_byz:
+        gate = np.asarray(params.straggler_gate)
+        if gate.any() and n_byz:
             # a Byzantine delivers only while no Byzantine upload sits in its slot
-            owner = state.buf_owner[torch.arange(n_byz, device=dev) % n_buf]
-            byz_resident = (owner >= 0) & (owner < n_byz)
-            delivered = torch.cat([~byz_resident, delivered[n_byz:]])
+            owner = state.buf_owner[..., torch.arange(n_byz, device=dev) % n_buf]
+            byz_delivered = ~((owner >= 0) & (owner < n_byz))
+            if lead:
+                armed = torch.as_tensor(gate, device=dev).view(lead + (1,))
+                byz_delivered = torch.where(armed, byz_delivered, delivered[..., :n_byz])
+            delivered = torch.cat([byz_delivered, delivered[..., n_byz:]], -1)
         # fold the M rows into the B slots, later clients winning a shared slot
         buf, owner, hit = state.buf_rows.clone(), state.buf_owner.clone(), torch.zeros_like(state.buf_valid)
         for g0 in range(0, m, n_buf):
-            got = delivered[g0:g0 + n_buf]
-            k = got.shape[0]
-            buf[:k] = torch.where(got.view((k,) + (1,) * (rows.dim() - 1)), rows[g0:g0 + k], buf[:k])
-            owner[:k] = torch.where(got, torch.arange(g0, g0 + k, dtype=torch.int32, device=dev), owner[:k])
-            hit[:k] |= got
+            got = delivered[..., g0:g0 + n_buf]
+            k = got.shape[-1]
+            buf[..., :k, :] = torch.where(got.unsqueeze(-1), rows[..., g0:g0 + k, :], buf[..., :k, :])
+            owner[..., :k] = torch.where(got, torch.arange(g0, g0 + k, dtype=torch.int32, device=dev), owner[..., :k])
+            hit[..., :k] |= got
         age = torch.where(hit, torch.zeros_like(state.buf_age), state.buf_age + 1)
         valid = state.buf_valid | hit
-        weights = staleness_weights(age, params.staleness_decay, valid)
+        weights = _staleness(age, params.staleness_decay, valid)
         buf_wire = DenseWire(updates=buf) if isinstance(wire, DenseWire) else dataclasses.replace(wire, packed=buf)
         theta = ctx.pipeline.estimate(buf_wire, weights=weights)
     with record_function("round.finish"):
@@ -747,9 +874,9 @@ def async_fl_round(
             ctx, state, w_new, loss_before, loss_after, res_new, theta, deltas_att, sel,
             buf_rows=buf, buf_age=age, buf_valid=valid, buf_owner=owner,
         )
-        n_valid = valid.float().sum()
+        n_valid = valid.float().sum(-1)
         metrics["buf_fill"] = n_valid * recip32(n_buf)
-        metrics["mean_age"] = (age.float() * valid).sum() / n_valid.clamp(min=1.0)
+        metrics["mean_age"] = (age.float() * valid).sum(-1) / n_valid.clamp(min=1.0)
     return new_state, metrics
 
 
@@ -783,9 +910,10 @@ def run_rounds(
     ``key, kb, kr = split(key, 3)``; batches from ``kb``, the round from
     ``kr``), so at a fixed seed this is the sequential driver's run.
 
-    Keys (E, 2) with a state of leading E run a group of E synchronous
-    dense runs at once (:func:`fl_round`'s group form; ``data``, a fused
-    group's client data, see :func:`round_batches`). Returns the final
+    Keys (E, 2) with a state of leading E run a group of E runs at once
+    (the group form of :func:`fl_round`, :func:`stream_fl_round` or
+    :func:`async_fl_round`; ``data``, a fused group's client data, see
+    :func:`round_batches`). Returns the final
     state and each metric's trajectory, a ``(rounds,)`` tensor (``(E,
     rounds)`` for a group) on the context's device (``acc`` included when
     ``with_acc``; the (d,) ``theta`` is not kept). Nothing waits for the
@@ -793,8 +921,8 @@ def run_rounds(
     """
     rounds = rounds or ctx.cfg.rounds
     step = round_fn(ctx)
-    if key.dim() > 1 and step is not fl_round:
-        raise ValueError("only the synchronous dense round runs a group of runs at once")
+    if key.dim() > 1 and step not in (fl_round, stream_fl_round, async_fl_round):
+        raise ValueError("a tree round runs one run at a time, not a group of runs")
     traj: dict[str, list] = {}
     for _ in range(rounds):
         key, kb, kr = prng.split(key, 3).unbind(-2)

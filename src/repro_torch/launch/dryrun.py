@@ -19,13 +19,26 @@ its plain pipeline too, and a kernel's launch cannot take a fake tensor.
 
 Depth and cohort: the port's loops over layers and clients run as Python
 loops, each iteration traced. A full-depth model with 8 clients a rank
-would take many minutes, so by default a case is traced at 1 and 2
-pattern units (and, for training, 1 and 2 clients a pod), and every
-reported quantity, which grows linearly in each (FLOPs, bytes,
-collectives, the live bytes of parameters, gradients and checkpoints),
-is extrapolated bilinearly to the whole case; ``traces`` in the report
-lists the traced points, and ``--exact`` traces the whole case instead. A
-case of at most 2 units and 2 clients a pod is always traced whole. Rank 0
+would take many minutes, so by default a case is traced at 2 and 3
+pattern units (and, for training, 2 and 3 clients a pod; :func:`trace_points`),
+and every reported quantity, which grows linearly in each past the first
+(FLOPs, bytes, collectives, the live bytes of parameters, gradients and
+checkpoints; the backward writes each stacked gradient once), is
+extrapolated bilinearly to the whole case; ``traces`` in the report lists
+the traced points, and ``--exact`` traces the whole case instead;
+``--check-fit`` does both and prints the fields where they differ
+(:func:`check_fit`; ``--layers`` cuts a published config to a depth whose
+exact trace is quick). A depth or cohort of at most 3 is traced whole.
+The fit's one remainder is the wire rows' padding: the compressor packs
+each leaf's shard to whole bytes, padded, which is not linear in depth
+where a unit's shard is not a multiple of the padding. A training report
+fitted in depth carries one row's remainder at the whole depth,
+``fit_wire_row_remainder_bytes`` (0 where there is none); the fitted
+cross-pod gather of the rows is off by it times the rows it moves. On the
+reduced qwen2 (remainder 0) the fit equals an exact trace in dot FLOPs and
+collectives, on the reduced qwen3-moe it does but for that gather, and on
+both it is within 0.1% in peak and bytes a device
+(``tests/test_torch_dryrun_depth.py``). Rank 0
 of a training step on several pods traces its own pod's clients, so the
 FLOPs and bytes are those times the pods, which each do the same work.
 
@@ -50,6 +63,7 @@ import traceback
 import torch
 
 from .. import configs, distributed
+from ..core import build_pipeline
 from ..models import SHAPES, build_specs, cache_logical, init_cache, prefill, serve_step
 from ..models.config import ModelConfig, ShapeConfig
 from ..models.inputs import batch_structure
@@ -60,7 +74,7 @@ from .fl_step import DistFLConfig, make_fl_train_step
 from .flopcount import FlopCounter
 from .mesh import fake_world, make_mesh, make_production_mesh
 
-__all__ = ["SKIPS", "LONG_WINDOW", "cache_plan", "build_case", "run_case", "main"]
+__all__ = ["SKIPS", "LONG_WINDOW", "cache_plan", "build_case", "trace_points", "run_case", "check_fit", "main"]
 
 SKIPS: dict[tuple[str, str], str] = {
     ("hubert-xlarge", "decode_32k"): "encoder-only: no autoregressive decode step",
@@ -93,6 +107,30 @@ def _empty_shard(shape: tuple, dtype, device, mesh, placements):
     return distributed.from_shard(torch.empty(local, dtype=dtype, device=device), mesh, placements, shape)
 
 
+def _param_layout(cfg: ModelConfig, shape: ShapeConfig, mesh, fsdp: bool):
+    """The parameter specs, the mesh they live on and each leaf's placements.
+    A training step's parameters live on each pod's ("data", "model") part
+    of the mesh: the pods train their own clients, and only the wire rows,
+    votes and losses cross them."""
+    specs = build_specs(cfg)
+    n_pods = distributed.mesh_sizes(mesh).get("pod", 1)
+    p_mesh = mesh["data", "model"] if shape.kind == "train" and n_pods > 1 else mesh
+    pl = leaves(param_placements(specs, p_mesh, "data" if fsdp else None), is_leaf=lambda x: isinstance(x, tuple))
+    return specs, p_mesh, pl
+
+
+def _wire_row_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh, fsdp: bool, fl_agg: str, rand_bits: int) -> int:
+    """One client's wire row on rank 0 (its shard of every leaf), packed as
+    the round's compressor packs each leaf: to whole bytes, padded, so not
+    linear in depth where a unit's shard is not a multiple of the padding."""
+    specs, p_mesh, pl = _param_layout(cfg, shape, mesh, fsdp)
+    dims = [math.prod(distributed.shard_bounds(s.shape, p_mesh, p)[0]) for s, p in zip(leaves(specs, is_leaf=is_spec), pl)]
+    if fl_agg != "probit_plus":
+        return 4 * sum(dims)
+    compressor = build_pipeline("probit_plus", rand_bits=rand_bits, use_kernels=rand_bits == 32, engine="ref").compressor
+    return sum(compressor.wire_bytes(d) for d in dims)
+
+
 def build_case(cfg: ModelConfig, shape: ShapeConfig, mesh, fl_clients: int = 16, fl_agg: str = "probit_plus",
                rand_bits: int = 32, fsdp: bool = True, device: str = "cuda", m_seq: int | None = None):
     """``(fn, args)`` of one case, to be called inside ``FakeTensorMode``
@@ -100,14 +138,8 @@ def build_case(cfg: ModelConfig, shape: ShapeConfig, mesh, fl_clients: int = 16,
     placements, and the train step's cohort batch, the prefill batch or
     the decode cache and token. ``m_seq`` cuts the cohort to that many
     clients a pod (the dry run's extrapolation)."""
-    sizes = distributed.mesh_sizes(mesh)
-    n_pods = sizes.get("pod", 1)
-    specs = build_specs(cfg)
-    # a training step's parameters live on each pod's ("data", "model") part
-    # of the mesh: the pods train their own clients, and only the wire rows,
-    # votes and losses cross them
-    p_mesh = mesh["data", "model"] if shape.kind == "train" and n_pods > 1 else mesh
-    pl = leaves(param_placements(specs, p_mesh, "data" if fsdp else None), is_leaf=lambda x: isinstance(x, tuple))
+    n_pods = distributed.mesh_sizes(mesh).get("pod", 1)
+    specs, p_mesh, pl = _param_layout(cfg, shape, mesh, fsdp)
     params = unflatten(specs, [_empty_shard(s.shape, s.dtype, device, p_mesh, p)
                                for s, p in zip(leaves(specs, is_leaf=is_spec), pl)], is_leaf=is_spec)
     if shape.kind == "train":
@@ -162,21 +194,36 @@ def _trace(cfg, shape, mesh, device, pod_stride: int, **kw) -> dict:
     return q
 
 
+def trace_points(reps: int, m_full: int, exact: bool = False) -> list[tuple[int, int]]:
+    """The (units, clients a pod) points a case is traced at: the whole case
+    when ``exact``, else each of depth and cohort whole up to 3 and at 2
+    and 3 past it. The first unit is not a typical unit (its live bytes
+    peak lower), nor is a one-client cohort (its row plane's reshapes are
+    views where a larger cohort's copy), so neither is traced to fit."""
+    if exact:
+        return [(reps, m_full)]
+    units = (reps,) if reps <= 3 else (2, 3)
+    clients = (m_full,) if m_full <= 3 else (2, 3)
+    return [(r, m) for r in units for m in clients]
+
+
 def _bilinear(q: dict, reps: int, m: int) -> dict:
     """Each quantity at (reps, m) from its values at the traced points
-    ``q[(r, c)]`` (r, c in 1, 2), linear in each."""
+    ``q[(r, c)]``, linear in each of r and c from its two traced values,
+    one apart (one value: that coordinate is traced whole)."""
+    rs, cs = sorted({r for r, _ in q}), sorted({c for _, c in q})
+
+    def along(f0, f1, lo, hi, at):
+        return f0 if hi == lo else f0 + (at - lo) * (f1 - f0)
+
     keys = set().union(*(v.keys() for v in q.values()))
     out = {}
     for k in keys:
         f = {pt: v.get(k, 0) for pt, v in q.items()}
-        val = f[(1, 1)]
-        if (2, 1) in f:
-            val += (reps - 1) * (f[(2, 1)] - f[(1, 1)])
-        if (1, 2) in f:
-            val += (m - 1) * (f[(1, 2)] - f[(1, 1)])
-        if (2, 2) in f:
-            val += (reps - 1) * (m - 1) * (f[(2, 2)] - f[(2, 1)] - f[(1, 2)] + f[(1, 1)])
-        out[k] = val
+        r0, r1, c0, c1 = rs[0], rs[-1], cs[0], cs[-1]
+        at_c0 = along(f[(r0, c0)], f[(r1, c0)], r0, r1, reps)
+        at_c1 = along(f[(r0, c1)], f[(r1, c1)], r0, r1, reps)
+        out[k] = along(at_c0, at_c1, c0, c1, m)
     return out
 
 
@@ -206,11 +253,13 @@ def run_case(
     mesh_shape: tuple | None = None,
     reduced: bool = False,
     exact: bool = False,
+    layers: int = 0,
 ) -> dict:
     """The reference's report of one case (its variants and fields), traced
     on a fake world of the mesh's size. ``mesh_shape`` replaces the
     production mesh (e.g. ``(2, 2, 2)``, axes named as the production
     mesh's last ones); ``reduced`` takes the registry's reduced config;
+    ``layers`` cuts the config to that many layers (0: all);
     ``shape_name`` may be a ``ShapeConfig`` of its own (a small one for
     tests)."""
     from ..models.model import inner_remat, remat_policy
@@ -241,6 +290,9 @@ def run_case(
     cfg = configs.get_config(arch)
     if reduced:
         cfg = configs.reduced(cfg)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        report["n_layers"] = layers
     multi = len(dims) == 3
     t0 = time.perf_counter()
     try:
@@ -263,10 +315,7 @@ def run_case(
             n_pods = distributed.mesh_sizes(mesh).get("pod", 1)
             m_full = fl_clients // n_pods if shape.kind == "train" else 1
             reps = cfg.reps
-            if exact or (reps <= 2 and m_full <= 2):
-                points = [(reps, m_full)]
-            else:
-                points = [(r, m) for r in (1, 2) if r <= reps for m in (1, 2) if m <= m_full]
+            points = trace_points(reps, m_full, exact)
             pod_stride = math.prod(dims[1:]) if multi else math.prod(dims)
             traced = {}
             with distributed.set_mesh(mesh), rules_ctx, inner_remat(layer_remat), remat_policy(remat), \
@@ -277,6 +326,13 @@ def run_case(
                     if shape.kind == "train":
                         kw["m_seq"] = m
                     traced[(r, m)] = _trace(cut, shape, mesh, device, pod_stride, **kw)
+                units = sorted({r for r, _ in points})
+                if shape.kind == "train" and len(units) > 1:
+                    # the fit's one remainder: each leaf's packed row rounds up
+                    rows = {r: _wire_row_bytes(cfg if r == reps else dataclasses.replace(cfg, n_layers=r * cfg.unit),
+                                               shape, mesh, fsdp, fl_agg, rand_bits) for r in (*units, reps)}
+                    fitted = rows[units[0]] + (reps - units[0]) * (rows[units[1]] - rows[units[0]])
+                    report["fit_wire_row_remainder_bytes"] = rows[reps] - fitted
             t_lower = time.perf_counter() - t0
             q = traced[points[0]] if len(points) == 1 else _bilinear(traced, reps, m_full)
             if shape.kind == "train" and n_pods > 1:
@@ -309,6 +365,20 @@ def run_case(
     return report
 
 
+def check_fit(*args, **kwargs) -> dict:
+    """One case (:func:`run_case`'s arguments) fitted and traced exactly:
+    both reports and each field of the exact one that the fit does not
+    equal, with the fit's relative gap where the field is a number."""
+    fit, whole = (run_case(*args, **kwargs, exact=exact) for exact in (False, True))
+    apart = {}
+    for k, v in whole.items():
+        if k in ("t_lower_s", "traces", "extrapolated") or fit.get(k) == v:
+            continue
+        number = isinstance(v, (int, float)) and not isinstance(v, bool) and v
+        apart[k] = {"fit": fit.get(k), "exact": v, "relative": (fit[k] - v) / v if number else None}
+    return {"fit": fit, "exact": whole, "apart": apart}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -333,20 +403,29 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None, help="a mesh shape such as 2x2x2 in place of the production mesh")
     ap.add_argument("--reduced", action="store_true", help="the registry's reduced config of --arch")
     ap.add_argument("--exact", action="store_true", help="trace the whole depth and cohort (no extrapolation)")
+    ap.add_argument("--layers", type=int, default=0, help="cut the config to this many layers (0: all)")
+    ap.add_argument("--check-fit", action="store_true",
+                    help="trace each case fitted and exactly, and print the fields where the fit differs")
     args = ap.parse_args(argv)
 
     cases = [(a, s) for a in configs.ARCH_IDS for s in SHAPES] if args.all else [(args.arch, args.shape)]
     mesh_shape = tuple(int(x) for x in args.mesh.split("x")) if args.mesh else None
     results = []
     for arch, shape in cases:
-        rep = run_case(
-            arch, shape, args.multi_pod, args.fl_clients,
+        kw = dict(
             indexed=args.indexed_params, tag=args.tag,
             fl_agg=args.fl_agg, rand_bits=args.rand_bits, serve_2d=args.serve_2d,
             layer_remat=args.layer_remat, remat=args.remat, ssm_dtype=args.ssm_dtype,
             pure_dp=args.pure_dp, device=args.device, mesh_shape=mesh_shape, reduced=args.reduced,
-            exact=args.exact,
+            layers=args.layers,
         )
+        if args.check_fit:
+            fit = check_fit(arch, shape, args.multi_pod, args.fl_clients, **kw)
+            rep = dict(fit["exact"], fit_traces=fit["fit"]["traces"], fit_t_lower_s=fit["fit"].get("t_lower_s"),
+                       fit_wire_row_remainder_bytes=fit["fit"].get("fit_wire_row_remainder_bytes"),
+                       fields_apart=fit["apart"])
+        else:
+            rep = run_case(arch, shape, args.multi_pod, args.fl_clients, **kw, exact=args.exact)
         results.append(rep)
         if args.out:
             os.makedirs(args.out, exist_ok=True)

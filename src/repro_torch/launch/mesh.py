@@ -57,11 +57,12 @@ def fake_world(n: int):
         dist.destroy_process_group()
 
 
-def make_mesh(shape, axes, device_type: str | None = None):
+def make_mesh(shape, axes, device_type: str = "cuda"):
     """``init_device_mesh(device_type, shape, mesh_dim_names=axes)`` over the
-    default group, whose world must be ``prod(shape)``. ``device_type``
-    defaults to ``"cuda"`` when the card is there, else ``"cpu"``; on the
-    card each rank takes ``cuda:{LOCAL_RANK % device_count}``."""
+    default group, whose world must be ``prod(shape)``. The mesh is on the
+    card unless ``device_type="cpu"`` asks for the CPU: without a card it
+    raises, as every entry of the port does. On the card each rank takes
+    ``cuda:{LOCAL_RANK % device_count}``."""
     from torch.distributed.device_mesh import init_device_mesh
 
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
@@ -70,14 +71,14 @@ def make_mesh(shape, axes, device_type: str | None = None):
     world, n = _world(), math.prod(shape)
     if world != n:
         raise ValueError(f"a {shape} mesh needs {n} ranks; the process group has {world}")
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: a mesh is on the card unless device_type='cpu' is given")
     if device_type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)) % torch.cuda.device_count())
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = None):
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     """16 x 16 = 256 ranks a pod; ``multi_pod`` doubles them along a leading
     "pod" axis. The default group must have exactly that many ranks, real
     or fake (:func:`fake_world`); otherwise it raises, naming the size."""
@@ -92,13 +93,13 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = N
     return make_mesh(shape, axes, device_type)
 
 
-def make_host_mesh(model: int = 1):
+def make_host_mesh(model: int = 1, device_type: str = "cuda"):
     """The degenerate ``(1, model)`` mesh named ("data", "model"), the
     production mesh's names, over a world of ``model`` ranks."""
-    return make_mesh((1, model), ("data", "model"))
+    return make_mesh((1, model), ("data", "model"), device_type)
 
 
-def make_campaign_mesh(n: int | None = None):
+def make_campaign_mesh(n: int | None = None, device_type: str = "cuda"):
     """A 1-D ("data",) mesh over ``n`` ranks (None: the whole world), on
     which the client axis and campaign runs spread."""
-    return make_mesh((_world() if n is None else n,), ("data",))
+    return make_mesh((_world() if n is None else n,), ("data",), device_type)

@@ -110,7 +110,7 @@ def setup(args: argparse.Namespace, cfg: ModelConfig | None = None, mesh=None) -
     mesh current (``distributed.set_mesh(run.mesh)``)."""
     dev = _device(args.device)
     if mesh is None and args.production_mesh:
-        mesh = make_production_mesh()
+        mesh = make_production_mesh(device_type=dev.type)
     if cfg is None:
         cfg = configs.get_config(args.arch)
         if args.reduced:

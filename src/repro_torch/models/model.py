@@ -3,7 +3,7 @@
 Counterpart of ``repro/models/model.py``. A model is ``reps`` repetitions
 of a pattern unit; the parameters of each pattern position are stacked
 over ``reps`` (leading axis), and :func:`backbone` loops over the reps,
-indexing the stacked leaves, where the reference scans. The port builds
+each stacked leaf taken apart once a call, where the reference scans. The port builds
 every architecture of the registry, full size and reduced: the attention
 mixer with the dense or MoE FFN, the mLSTM and sLSTM mixers, the Mamba
 mixer in Jamba's hybrid pattern, the encoder-only head over the audio
@@ -79,8 +79,9 @@ def remat_policy(name: str):
 def indexed_params(on: bool = True):
     """The reference's lever: its scan then indexes the stacked tree inside
     the body, so one pattern unit's parameters are gathered at a time. The
-    port's layer loop always indexes each rep's parameters, so the context
-    is kept for the reference's callers (the dry run's variant) and changes
+    port's layer loop always takes each rep's parameters as views of its
+    shards and gathers them where the unit uses them, so the context is
+    kept for the reference's callers (the dry run's variant) and changes
     nothing here."""
     yield
 
@@ -221,14 +222,60 @@ def _apply_unit(unit_params: list, x: torch.Tensor, cfg: ModelConfig, positions:
     return x
 
 
+def _unstack(tree, reps: int) -> list:
+    """The ``reps`` units of a stacked parameter tree, each leaf taken apart
+    once along its leading axis (views): the backward then writes each
+    stacked gradient once, as one stack, where a unit's index would write a
+    zero tensor of the whole leaf for every unit and add them up. On a
+    DTensor leaf the stacked gradient keeps the leaf's placements."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, reps) for k, v in tree.items()}
+        return [{k: v[r] for k, v in per.items()} for r in range(reps)]
+    if distributed.is_dtensor(tree):
+        return list(_UnbindKeepingPlacements.apply(tree))
+    return list(torch.unbind(tree))
+
+
+class _UnbindKeepingPlacements(torch.autograd.Function):
+    """``torch.unbind`` of a DTensor along dim 0 whose backward stacks the
+    parts' gradients, each laid out as its part, into the leaf's own
+    placements. DTensor's own unbind leaves them pending sums over the
+    FSDP axis: every rank would hold each stacked gradient whole along
+    that axis until one reduction of the whole leaf. A leaf sharded along
+    its layer axis (FSDP's rule where that is the only dimension the axis
+    divides) is gathered whole along it first (such leaves are the
+    mixers' per-channel vectors); the stack of its parts' gradients is
+    then whole along it, and each rank keeps its own layers of it."""
+
+    @staticmethod
+    def forward(ctx, stacked):
+        from torch.distributed.tensor import Replicate
+
+        ctx.mesh, ctx.placements, ctx.shape = stacked.device_mesh, tuple(stacked.placements), tuple(stacked.shape)
+        ctx.whole = tuple(Replicate() if p.is_shard(0) else p for p in ctx.placements)
+        if ctx.whole != ctx.placements:
+            stacked = stacked.redistribute(ctx.mesh, ctx.whole)
+        parts = stacked.unbind(0)
+        ctx.part_placements = parts[0].placements
+        return parts
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # a part the loss does not read comes as zeros (materialized grads)
+        pieces = [g.redistribute(ctx.mesh, ctx.part_placements).to_local() for g in grads]
+        grad = distributed.from_shard(torch.stack(pieces), ctx.mesh, ctx.whole, ctx.shape)
+        return grad if ctx.whole == ctx.placements else grad.redistribute(ctx.mesh, ctx.placements)
+
+
 def backbone(params: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
              remat: bool = True) -> torch.Tensor:
     """The reps of the pattern unit, each unit under a checkpoint unless
     ``remat`` is off (or :func:`unit_remat` turns it off), then the final
-    norm."""
+    norm. Each stacked leaf is taken apart once a call (:func:`_unstack`),
+    so the backward's traffic is linear in depth, as the reference's scan."""
     remat = remat and _UNIT_REMAT.get()
-    for r in range(cfg.reps):
-        unit = [_index(stacked, r) for stacked in params["blocks"]]
+    for unit in zip(*(_unstack(stacked, cfg.reps) for stacked in params["blocks"])):
+        unit = list(unit)
         if remat:
             x = _checkpoint(functools.partial(_apply_unit, cfg=cfg, positions=positions), unit, x)
         else:

@@ -27,13 +27,15 @@ prepared runner:
 * each group is prepared once — its round contexts and stacked inputs on
   the device — through a process-wide :class:`~repro_torch.sim.plan.CompileCache`,
   so a repeated campaign prepares nothing;
-* a synchronous dense group runs all its E = cells x seeds runs at once
-  through the round's group form (:func:`~repro_torch.fl.rounds.fl_round`
-  with a leading E; its inputs from :mod:`repro_torch.sim.batched`): each
-  kernel is launched once a step for the whole group. Asynchronous,
-  streamed and tree groups, and groups on the k-bit, mixed-width or top-k
-  wires, run one run at a time through
-  :func:`~repro_torch.fl.rounds.run_rounds`;
+* a synchronous, streamed or asynchronous group on the one-bit or dense
+  wires runs all its E = cells x seeds runs at once through the round's
+  group form (:func:`~repro_torch.fl.rounds.fl_round`,
+  :func:`~repro_torch.fl.rounds.stream_fl_round` or
+  :func:`~repro_torch.fl.rounds.async_fl_round` with a leading E; its
+  inputs from :mod:`repro_torch.sim.batched`): each kernel is launched
+  once a step for the whole group. Tree groups, sharded streamed cohorts
+  and groups on the k-bit, mixed-width or top-k wires run one run at a
+  time through :func:`~repro_torch.fl.rounds.run_rounds`;
 * dispatch is **overlapped**: every group's rounds are queued on the device
   before the first group's results are read, and nothing inside a group's
   rounds waits for the device;
@@ -187,8 +189,7 @@ def group_signature(cfg: FLConfig) -> tuple:
 def _batched_inputs(ctx, cfgs: list[FLConfig], seeds: Sequence[int], *, masked: bool = False):
     """Stack per-(cell, seed) CellParams (numpy (E,) arrays), PRNG keys
     ((E, 2) on the context's device) and initial states: one state with a
-    leading E for a batchable (synchronous dense) context, a list of the
-    runs' own otherwise."""
+    leading E for a batchable context, a list of the runs' own otherwise."""
     params, keys, b_inits = _cell_inputs(ctx, cfgs, seeds, masked=masked)
     return params, keys, _initial_states(ctx, b_inits)
 
@@ -202,7 +203,8 @@ def _cell_inputs(ctx, cfgs: list[FLConfig], seeds: Sequence[int], *, masked: boo
         lam=np.asarray([c.lam for c, _ in elems], np.float32),
         attack_id=np.asarray([R.cell_params(c).attack_id for c, _ in elems], np.int32),
         flip_gate=np.asarray([is_wire_attack(c.attack) for c, _ in elems], np.bool_),
-        latency=np.asarray([c.async_latency for c, _ in elems], np.float32),
+        # f64, as one run's Python float: its f32 arrival probability is made from it
+        latency=np.asarray([c.async_latency for c, _ in elems], np.float64),
         staleness_decay=np.asarray([c.staleness_decay for c, _ in elems], np.float32),
         straggler_gate=np.asarray([is_timing_attack(c.attack) for c, _ in elems], np.bool_),
         # Real (unpadded) client count; only masked (fused) groups read it.

@@ -6,8 +6,9 @@ anything runs; the executor (:func:`repro_torch.sim.campaign.run_campaign`)
 walks the plan. Three decisions are encoded per group:
 
 1. **Bucketing.** Cells sharing a static signature share one group: one
-   prepared runner, and for synchronous dense rounds one batched pass over
-   all their (cell, seed) runs. Cells that additionally satisfy
+   prepared runner, and for synchronous, streamed and asynchronous rounds
+   on the one-bit or dense wires one batched pass over all their (cell,
+   seed) runs (:func:`repro_torch.sim.batched.batchable`). Cells that additionally satisfy
    :func:`fusable` are bucketed by :func:`fused_signature` — the static
    signature *minus* ``n_clients`` — so a whole M-sweep lands in one bucket.
 2. **Fusion.** A bucket spanning several ``n_clients`` values becomes a
@@ -249,8 +250,10 @@ def plan_campaign(
 
 
 def default_backend() -> str:
-    """The device a campaign runs on unless its tasks say otherwise."""
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    """The device a campaign runs on unless its tasks say otherwise: the
+    card, whether or not there is one (without one, such a campaign
+    refuses to run; a task asks for the CPU with ``device="cpu"``)."""
+    return "cuda"
 
 
 class CompileCache:

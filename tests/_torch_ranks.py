@@ -136,16 +136,38 @@ def several(**jobs) -> dict:
     return {name: globals()[job](**kwargs) for name, (job, kwargs) in jobs.items()}
 
 
+def stacked_grads(cfg, specs, batch: dict, mesh_shape: tuple) -> dict:
+    """The gradient of ``batch``'s loss with respect to each stacked leaf,
+    ``specs`` initialized as DTensors on a ("data", "model") mesh of
+    ``mesh_shape`` on the CPU (FSDP over "data"): each leaf's placements
+    beside its gradient's, and each gradient whole."""
+    from repro_torch import distributed, prng, tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import train_loss
+    from repro_torch.models.spec import init_params
+
+    mesh = make_mesh(tuple(mesh_shape), ("data", "model"), "cpu")
+    params = init_params(specs, prng.key(0), mesh=mesh, fsdp_axis="data")
+    stacked = [w.detach().requires_grad_(True) for w in tree.leaves(params["blocks"])]
+    grad_tree = dict(params, blocks=tree.unflatten(params["blocks"], stacked))
+    with distributed.set_mesh(mesh), distributed.mesh_context(grad_tree):
+        grads = torch.autograd.grad(train_loss(grad_tree, batch, cfg), stacked)
+    return {"placements": [(str(w.placements), str(g.placements)) for w, g in zip(stacked, grads)],
+            "grads": [g.full_tensor() for g in grads]}
+
+
 def model_axis(cfg, specs, batch: dict, step_batch: dict, b: float, key: torch.Tensor, fl: dict,
                wire_leaf: int, wire_delta: torch.Tensor, engine: str | None = None,
-               mesh_shape: tuple | None = None, moe_cfg=None, moe_tokens: torch.Tensor | None = None) -> dict:
-    """The model axis on a ("data", "model") mesh of every rank, of
-    ``mesh_shape`` (by default (1, world)): ``specs`` initialized as
+               mesh_shape: tuple | None = None, moe_cfg=None, moe_tokens: torch.Tensor | None = None,
+               device_type: str = "cpu") -> dict:
+    """The model axis on a ("data", "model") mesh of every rank on
+    ``device_type``, of ``mesh_shape`` (by default (1, world)): ``specs`` initialized as
     DTensors (FSDP over "data"); the prefill logits of ``batch``; for an
     MoE config the first MoE block's expert-parallel f32 sum before its
     rounding on the embedded ``moe_tokens`` (by default the prefill
     tokens), under ``moe_cfg`` (by default ``cfg``); one LM round of ``step_batch`` (new parameters, b, metrics,
-    launches); and the shard of leaf ``wire_leaf`` that this rank packs
+    launches); the placements of each stacked leaf and of its gradient at
+    the new parameters; and the shard of leaf ``wire_leaf`` that this rank packs
     from the whole ``wire_delta``, unpacked to its bits, with the shard's
     offset. Everything comes back whole, on the CPU."""
     from repro_torch import distributed, prng, tree
@@ -153,13 +175,13 @@ def model_axis(cfg, specs, batch: dict, step_batch: dict, b: float, key: torch.T
     from repro_torch.kernels import _build
     from repro_torch.launch import fl_step
     from repro_torch.launch.mesh import make_host_mesh, make_mesh
-    from repro_torch.models import layers, moe, prefill
+    from repro_torch.models import layers, moe, prefill, train_loss
     from repro_torch.models.spec import init_params
 
     if mesh_shape is None:
-        mesh = make_host_mesh(dist.get_world_size())
+        mesh = make_host_mesh(dist.get_world_size(), device_type)
     else:
-        mesh = make_mesh(tuple(mesh_shape), ("data", "model"))
+        mesh = make_mesh(tuple(mesh_shape), ("data", "model"), device_type)
     dev = torch.device(mesh.device_type, torch.cuda.current_device()) if mesh.device_type == "cuda" else "cpu"
     params = init_params(specs, prng.key(0, dev), mesh=mesh, fsdp_axis="data")
     batch, step_batch = (tree.tree_map(lambda x: x.to(dev), t) for t in (batch, step_batch))
@@ -182,6 +204,14 @@ def model_axis(cfg, specs, batch: dict, step_batch: dict, b: float, key: torch.T
         new, b_new, metrics = step(params, torch.tensor(b, device=dev), step_batch, key.to(dev))
     out.update(params_new=[w.full_tensor().cpu() for w in tree.leaves(new)], b=float(b_new),
                metrics={k: float(v) for k, v in metrics.items()}, launches=dict(_build.launches))
+    # the stacked leaves' own gradients (before any redistribution) of the
+    # first client's loss at the new parameters, against their placements
+    stacked = [w.detach().requires_grad_(True) for w in tree.leaves(new["blocks"])]
+    grad_tree = dict(new, blocks=tree.unflatten(new["blocks"], stacked))
+    first = {k: v.flatten(0, 2)[0] for k, v in step_batch.items()}  # (m, pods, steps, ...) -> one batch
+    with distributed.set_mesh(mesh), distributed.mesh_context(grad_tree):
+        grads = torch.autograd.grad(train_loss(grad_tree, first, cfg), stacked)
+    out["stacked_placements"] = [(str(w.placements), str(g.placements)) for w, g in zip(stacked, grads)]
     leaf = tree.leaves(params)[wire_leaf]
     local, off = distributed.shard_bounds(tuple(leaf.shape), mesh, leaf.placements)
     piece = wire_delta.to(dev)[tuple(slice(o, o + n) for o, n in zip(off, local))].float()

@@ -283,12 +283,13 @@ def test_batched_round_leaves_its_state_and_reads_per_run_knobs():
 
 def test_group_state_is_the_runs_init_state():
     """init_group_state makes each run's init_state, stacked, and a group
-    of runs is refused by the rounds that run one run at a time."""
+    of runs is refused by the round that runs one run at a time (the
+    tree's)."""
     ctx = _sims()[1].ctx
     b_inits = np.asarray([0.01, 0.02], np.float32)
     group = batched.init_group_state(ctx, b_inits)
     for i, b0 in enumerate(b_inits):
         _same_state(_run(group, i), tr.init_state(ctx, b0))
-    sctx = _sims(client_chunk=3)[1].ctx
+    sctx = _sims(client_chunk=3, tree_edges=2)[1].ctx
     with pytest.raises(ValueError, match="group of runs"):
         tr.run_rounds(sctx, tr.cell_params(sctx.cfg), torch.stack([tr.prng.key(0)] * 2), group, rounds=1)

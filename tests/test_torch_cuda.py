@@ -573,7 +573,12 @@ def test_campaign_on_kernels_equals_plain_versions(dev):
     final global model), and each batched synchronous group launches B1
     (B2 with error feedback) and B3 once a round and B4 once a local step
     for all its runs; the fused M-sweep counts with the weighted plain
-    count (no B3), the asynchronous group runs one run at a time."""
+    count (no B3), and so do the asynchronous group (B1 once a round, B4
+    once a local step, for all its runs) and the streamed group (chunks of
+    4 of 6: B1 once a chunk, B4 once a local step of each chunk); the
+    2-bit wire's group and the sum tree's (2 edges of 3) run one run at a
+    time, each run with its own launches (no B1 on the 2-bit wire, B1 once
+    an edge on the tree, B4 once a local step of each edge)."""
     from repro_torch.data import make_classification, partition_label_skew
     from repro_torch.models import accuracy, init_mlp, mlp_logits, xent_loss
     from repro_torch.sim import CampaignSpec, CellSpec, Task, plan_campaign
@@ -594,12 +599,18 @@ def test_campaign_on_kernels_equals_plain_versions(dev):
                CellSpec("flip", {"n_clients": 6, "byz_frac": 0.34, "attack": "bit_flip", "lr": 0.02}),
                CellSpec("ef", {"n_clients": 6, "error_feedback": True}),
                CellSpec("M4", {"n_clients": 4}), CellSpec("M5", {"n_clients": 5}),
-               CellSpec("async", {"n_clients": 6, "async_buffer": 6, "async_latency": 1.0})),
+               CellSpec("async", {"n_clients": 6, "async_buffer": 6, "async_latency": 1.0}),
+               CellSpec("async_decay", {"n_clients": 6, "async_buffer": 6, "async_latency": 1.0,
+                                        "staleness_decay": 0.5}),
+               CellSpec("stream", {"n_clients": 6, "client_chunk": 4, "byz_frac": 0.34, "attack": "bit_flip"}),
+               CellSpec("stream2", {"n_clients": 6, "client_chunk": 4, "byz_frac": 0.34, "attack": "gaussian"}),
+               CellSpec("kbit", {"n_clients": 6, "wire_bits": 2}),
+               CellSpec("tree", {"n_clients": 6, "tree_edges": 2, "client_chunk": 3})),
         seeds=(0, 1))
     plan = plan_campaign(spec)
     cfgs = spec.configs()
     steps = 2 * 20 // 10
-    runs = {}
+    runs, batched = {}, {}
     for engine in (None, "ref"):
         def task_fn(cfg):
             cx, cy = data(cfg.n_clients)
@@ -614,6 +625,7 @@ def test_campaign_on_kernels_equals_plain_versions(dev):
             traj, final = runner.run()
             torch.cuda.synchronize()
             runs[engine, group.cell_idx] = (traj, final, dict(_build.launches))
+            batched[group.cell_idx] = runner.batched
     for group in plan.groups:
         (kt, kf, kl), (rt, rf, rl) = runs[None, group.cell_idx], runs["ref", group.cell_idx]
         assert rl == {}
@@ -628,8 +640,15 @@ def test_campaign_on_kernels_equals_plain_versions(dev):
             assert kl == {"stoch_quant_ef": 2, "bit_aggregate": 2, "prox_sgd": 2 * steps}
         elif names == {"M4", "M5"}:
             assert group.fused and kl == {"stoch_quant_pack": 2, "prox_sgd": 2 * steps}
+        elif names == {"stream", "stream2"}:
+            assert kl == {"stoch_quant_pack": 2 * 2, "prox_sgd": 2 * steps * 2}
+        elif names == {"kbit"}:
+            assert not batched[group.cell_idx] and kl == {"prox_sgd": 2 * steps * e}
+        elif names == {"tree"}:
+            assert not batched[group.cell_idx] and kl == {"stoch_quant_pack": 2 * 2 * e, "prox_sgd": 2 * steps * 2 * e}
         else:
-            assert kl == {"stoch_quant_pack": 2 * e, "prox_sgd": 2 * steps * e}
+            assert names == {"async", "async_decay"} and e == 4
+            assert kl == {"stoch_quant_pack": 2, "prox_sgd": 2 * steps}
 
 
 def test_campaign_cache_keeps_no_client_planes_on_card(dev):
@@ -989,7 +1008,7 @@ def test_model_axis_step_on_card_equals_one_process(dev, deterministic, tmp_path
     n = sum(w.numel() for w in tree.leaves(new))
     ranks = run_ranks(2, tmp_path, "model_axis", timeout=600, backend=distributed.STAGED_BACKEND, cfg=cfg,
                       specs=specs, batch=batch, step_batch=step_batch, b=0.01, key=key, fl=fl, wire_leaf=li,
-                      wire_delta=delta)
+                      wire_delta=delta, device_type="cuda")
     gaps = [{"logits": float((r["logits"] - logits).abs().max() / logits.abs().max()),
              "moe_sum": float((r["moe_sum"] - moe_sum).abs().max() / moe_sum.abs().max()),
              **{k: abs(r["metrics"][k] / float(met[k]) - 1) for k in ("loss_first", "loss_last")},

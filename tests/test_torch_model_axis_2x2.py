@@ -12,7 +12,8 @@ and each token shard alike, so no token is dropped and the two compute
 the same function), the prefill logits within rtol 1e-5 (of the largest
 logit), one LM round (each pattern unit checkpointed on the ranks, not
 in the one process) with b exact, losses within rtol 1e-5 and at most
-0.1% of the coordinates apart, and a shard's wire equal to the unsharded
+0.1% of the coordinates apart, each stacked leaf's gradient after the
+round laid out as the leaf, and a shard's wire equal to the unsharded
 wire's bits coordinate for coordinate.
 
 At the reduced qwen3-moe's own capacity factor, ``cap_local`` drops other
@@ -183,6 +184,17 @@ def test_mesh_2x2_step_equals_one_process(runs, arch):
         apart = sum(int((a != c).sum()) for a, c in zip(got["params_new"], tree.leaves(new)))
         assert apart <= 1e-3 * n
         assert not any(got["launches"].values())
+
+
+@pytest.mark.parametrize("arch", RANK_ARCHS)
+def test_mesh_2x2_stacked_gradients_keep_placements(runs, arch):
+    """After one LM round, each stacked leaf's gradient comes out of the
+    backward laid out as the leaf (none replicated or pending a sum), so no
+    rank gathers a stacked gradient whole."""
+    for got in (r[arch] for r in runs[0]):
+        assert got["stacked_placements"]
+        for param, grad in got["stacked_placements"]:
+            assert grad == param
 
 
 @pytest.mark.parametrize("arch", RANK_ARCHS)
