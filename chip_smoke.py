@@ -69,7 +69,8 @@ Phases (any failure raises and exits non-zero before the result line):
    (g) streamed in chunks of 25 (theta and b equal to (a)'s, the count of
    differing coordinates printed) and (g1) in one chunk (equal to (a)). Then
    ``resnet18w64-m300-stream``: ResNet-18 at full width, 300 stateless
-   clients streamed 50 at a time, 2 rounds, printing its peak memory beside
+   clients streamed 50 at a time, 1 round (2 before phase 7's grid (i1)
+   of wire and tree groups), printing its peak memory beside
    the dense round's, reckoned from 4c's peak at 100 clients. Each run has
    its own launch counts (B1 once a chunk, B4 once a local step of each
    chunk, B3 never) and equals its ``engine="ref"`` rerun in every round;
@@ -93,15 +94,18 @@ Phases (any failure raises and exits non-zero before the result line):
 7. campaign (``repro_torch.sim``, phase 7) on the main path's MLP with the
    kernels, 3 rounds: (h) Table I's 28 cells (4 attacks x 7 methods, the
    async row included) and (i) Fig. 4's 11 cells (fused M-sweeps of PRoBit+
-   and FedAvg, eps at M = 20), each over seeds 0 and 1, (i1) the groups a
-   campaign still runs one run at a time (phase 8's (k) on the 2-bit wire
-   and (o) its sum tree, at the main path's cohort, seeds 0 and 1), and (j)
-   (a) with seeds 0-7 as one group of 8 runs. Each grid runs through
-   ``run_campaign`` (launch counts zeroed just before, read just after);
-   each group's prepared runner again, with its own launch counts and
-   seconds (one B1 a round, one B3 a round unless masked or asynchronous,
-   one B4 a local step for a whole group; Table I's asynchronous row runs
-   as one group; (i1)'s runs each launch phase 8's counts), equal to the
+   and FedAvg, eps at M = 20), each over seeds 0 and 1, (i1) phase 8's
+   (k) 2-bit wire, (l-dp) 4-bit wire under DP, (m) mixed widths, (n-ef)
+   top-k with error feedback, and its (o) sum, (o-med) median and (o-buf)
+   buffered trees, each a group of seeds 0 and 1 at the main path's
+   cohort, and (j) (a) with seeds 0-7 as one group of 8 runs. Each grid
+   runs through ``run_campaign`` (launch counts zeroed just before, read
+   just after); each group's prepared runner again, with its own launch
+   counts and seconds (one B1 a round, one B3 a round unless masked or
+   asynchronous, one B4 a local step for a whole group; Table I's
+   asynchronous row runs as one group; each (i1) group launches one run's
+   phase-8 counts, once for the group, and prints its ``wall_s`` beside
+   its runs' sequential seconds), equal to the
    campaign's trajectories and to its
    ``engine="ref"`` rerun exactly; every run against its sequential
    ``FLSimulation`` run (b exact, loss within rtol 1e-6, accuracy within
@@ -143,7 +147,8 @@ Phases (any failure raises and exits non-zero before the result line):
    ``stream_aggregate_pytree`` in chunks of 2 and to ``engine="ref"``
    (the ``"phase": "lm"`` lines). Then the MoE and xLSTM families, each
    two rounds of PRoBit+ on the kernel wire beside their ``engine="ref"``
-   steps, with the same clients and local steps: (r) Qwen3-30B-A3B at its
+   steps ((s) one round since phase 7's grid (i1) of wire and tree
+   groups), with the same clients and local steps: (r) Qwen3-30B-A3B at its
    published widths (d_model 2,048, 128 experts, top-8, expert width 768,
    vocab 151,936) cut to 2 of its 48 layers (13 leaves, d =
    1,868,572,672; B1 104, B3 26; 4 layers until phase 12 took the time;
@@ -151,7 +156,7 @@ Phases (any failure raises and exits non-zero before the result line):
    widths cut to 8 of its 24 layers, one 7:1 pattern of mLSTM and sLSTM
    blocks (92 leaves, d = 241,634,360; whole until phase 11 took the time)
    at 512 tokens a sequence, so the mLSTM carries its state across two
-   chunks of 256 (B1 736, B3 184). Then the
+   chunks of 256 (B1 368, B3 92). Then the
    Mamba hybrid and the frontends (ROADMAP A12c, A12e), the same way: (t)
    HuBERT-XLarge whole (48 layers, non-causal, layernorm, tanh-GELU, the
    encoder-only head; 15 leaves, d = 945,258,240) on the trainer's stub of
@@ -335,9 +340,11 @@ ASYNC_STREAM = {
     "g1": {"client_chunk": 100},
 }
 # ... then ResNet-18 at full width with 300 stateless clients, streamed 50 at
-# a time: a cohort whose dense round would not fit in the card's memory.
+# a time: a cohort whose dense round would not fit in the card's memory; 1
+# round (2 until phase 7's grid (i1) of wire and tree groups pushed the
+# script past the 1,000 s ceiling).
 RESNET_STREAM = ("resnet18w64-m300-stream", "resnet18w64-m100",
-                 {"n_clients": 300, "client_chunk": 50, "stateless_clients": True, "rounds": 2})
+                 {"n_clients": 300, "client_chunk": 50, "stateless_clients": True, "rounds": 1})
 # Phase 8: the k-bit, mixed-width and top-k wires and the count trees on the
 # main path's model and cohort: (k), (l) k-bit; (l-dp) the randomized-
 # response wire; (m) mixed widths and (m1) all one bit, both without the
@@ -410,7 +417,9 @@ REMAT_PROBE_REPS = 3
 # xLSTM-350M keeps 8 of its 24 layers, one whole 7:1 pattern (7 mLSTM, 1
 # sLSTM), at 512 tokens a sequence: two mLSTM chunks of 256. It ran whole
 # until phase 11 (the mesh) pushed the script past the 1,000 s ceiling: its
-# sLSTM loop over time is the slowest per parameter of phase 9.
+# sLSTM loop over time is the slowest per parameter of phase 9. It runs 1
+# round (2 until phase 7's grid (i1) of wire and tree groups pushed the
+# script past the 1,000 s ceiling; (r) covers a second round).
 # (t), (u) and (v): the frontends and the Mamba hybrid (ROADMAP A12e,
 # A12c). HuBERT-XLarge runs whole on the trainer's stub frames, 1 round (2
 # until phase 12 and the unit checkpoint, now off in phase 9, pushed the
@@ -424,7 +433,7 @@ REMAT_PROBE_REPS = 3
 LM_FAMILIES = {
     "r": ("qwen3-moe-30b-a3b-l2-m4", "qwen3-moe-30b-a3b", {"n_layers": 2}, ["--rounds", "2"],
           {"d": 1_868_572_672, "leaves": 13}),
-    "s": ("xlstm-350m-l8-m4", "xlstm-350m", {"n_layers": 8}, ["--rounds", "2", "--seq", "512"],
+    "s": ("xlstm-350m-l8-m4", "xlstm-350m", {"n_layers": 8}, ["--rounds", "1", "--seq", "512"],
           {"d": 241_634_360, "leaves": 92}),
     "t": ("hubert-xlarge-m4", "hubert-xlarge", {}, ["--rounds", "1"], {"d": 945_258_240, "leaves": 15}),
     "u": ("pixtral-12b-l2-m4", "pixtral-12b", {"n_layers": 2}, ["--rounds", "1", "--seq", "1024"],
@@ -1366,8 +1375,10 @@ TABLE1_METHODS = (
 )
 FIG4_CLIENTS = (5, 10, 20, 40)
 FIG4_EPSILONS = (1.0, 0.1, 0.01)
-# Phase 7 (i1): phase 8's runs whose campaign groups run one run at a time.
-UNBATCHED_CELLS = ("k", "o")
+# Phase 7 (i1): phase 8's runs on the k-bit (with DP), mixed-width and top-k
+# (with error feedback) wires and its sum, median and buffered trees, each a
+# campaign group of its seeds.
+WIRE_GROUP_CELLS = ("k", "l-dp", "m", "n-ef", "o", "o-med", "o-buf")
 CAMPAIGN_SEEDS = (0, 1)
 COHORT_SEEDS = tuple(range(8))
 
@@ -1390,13 +1401,13 @@ def campaign_specs() -> dict:
                     for m in FIG4_CLIENTS for short, agg in (("probit", "probit_plus"), ("fedavg", "fedavg")))
         + tuple(CellSpec(f"eps={eps}", {"n_clients": 20, "dp_epsilon": eps}) for eps in FIG4_EPSILONS),
         seeds=CAMPAIGN_SEEDS)
-    one_at_a_time = CampaignSpec(
+    wire_groups = CampaignSpec(
         base={**common, "n_clients": MAIN["n_clients"], "aggregator": "probit_plus", "b_mode": "dynamic"},
-        cells=tuple(CellSpec(name, WIRES_TREES[name]) for name in UNBATCHED_CELLS), seeds=CAMPAIGN_SEEDS)
+        cells=tuple(CellSpec(name, WIRES_TREES[name]) for name in WIRE_GROUP_CELLS), seeds=CAMPAIGN_SEEDS)
     cohort = CampaignSpec(
         base={**common, "n_clients": MAIN["n_clients"], "aggregator": "probit_plus", "b_mode": "dynamic"},
         cells=(CellSpec("a"),), seeds=COHORT_SEEDS)
-    return {"table1": table1, "fig4": fig4, "one_at_a_time": one_at_a_time, "cohort": cohort}
+    return {"table1": table1, "fig4": fig4, "wire_groups": wire_groups, "cohort": cohort}
 
 
 def campaign_task(dev, engine=None):
@@ -1412,35 +1423,33 @@ def campaign_task(dev, engine=None):
     return lambda cfg: task(cfg.n_clients)
 
 
-def group_form(cfg) -> bool:
-    """Does the group's config call for the round's group form, which a
-    campaign runs as one group (synchronous, streamed or asynchronous, on
-    the one-bit or dense wires; not a tree, a sharded streamed cohort or
-    the k-bit, mixed-width or top-k wires)? Read from the config here, not
-    from the code under test."""
-    return (cfg.tree_edges == 0 and not cfg.stream_shard and cfg.wire_bits == 1 and cfg.client_bits is None
-            and cfg.topk_frac >= 1.0)
+def wire_or_tree(cfg) -> bool:
+    """Is the group's config a tree or on the k-bit, mixed-width or top-k
+    wire (phase 8's variants)? Read from the config here, not from the code
+    under test."""
+    return bool(cfg.tree_edges or cfg.wire_bits > 1 or cfg.client_bits is not None or cfg.topk_frac < 1.0)
 
 
 def campaign_expected_launches(group, cfgs, n_seeds: int, per_client: int = MAIN["per_client"]) -> dict:
-    """One group's launches. A group in the group form launches, for all
-    its runs, B1 once a round (a streamed group: once a chunk of each
-    round) and B4 once a local step (of each chunk), and B3 once a round
-    only when synchronous, unstreamed and unmasked (PRoBit+; a fused
-    group's, an asynchronous group's and a streamed group's estimates count
-    with the plain weighted or streamed counts); any other group runs one
-    run at a time, each run with phase 8's counts
-    (:func:`wires_trees_expected_launches`, for the main path's cohort)."""
+    """One group's launches, for all its runs at once: B1 once a round (a
+    streamed group: once a chunk of each round) and B4 once a local step
+    (of each chunk), and B3 once a round only when synchronous, unstreamed
+    and unmasked (PRoBit+; a fused group's, an asynchronous group's and a
+    streamed group's estimates count with the plain weighted or streamed
+    counts). A tree or a k-bit, mixed-width or top-k group launches what
+    one of its runs does in phase 8 (:func:`wires_trees_expected_launches`,
+    at the main path's cohort), once for the group: a tree B1 (B2 with
+    error feedback) once an edge's chunk and B4 once a local step of each
+    chunk, a top-k group B1 once a round, a k-bit or mixed-width group no
+    B1, and none of them B3."""
     import dataclasses
 
     cfg = cfgs[group.cell_idx[0]]
-    runs = len(group.cell_idx) * n_seeds
-    if not group_form(cfg):
+    if wire_or_tree(cfg):
         require((cfg.n_clients, cfg.rounds, cfg.local_epochs, cfg.batch_size, per_client)
                 == tuple(MAIN[k] for k in ("n_clients", "rounds", "local_epochs", "batch_size", "per_client")),
-                "a group run one run at a time is counted at the main path's cohort")
-        one = wires_trees_expected_launches(dataclasses.asdict(cfg))
-        return {k: v * runs for k, v in one.items()}
+                "a tree or wire group is counted at the main path's cohort")
+        return wires_trees_expected_launches(dataclasses.asdict(cfg))
     steps = cfg.local_epochs * per_client // cfg.batch_size
     chunk = group.client_chunk or cfg.client_chunk
     chunks = -(-group.m_pad // chunk) if chunk else 1
@@ -1453,8 +1462,9 @@ def campaign_expected_launches(group, cfgs, n_seeds: int, per_client: int = MAIN
 def group_run(dev, group, cfgs, spec, engine=None, task_fn=None) -> dict:
     """One plan group through its prepared runner (the one run_campaign
     calls) on ``task_fn``'s tasks (phase 7's by default): the
-    trajectories, each run's final global model, the group's own launches,
-    its seconds and whether the runner ran it as one group."""
+    trajectories, each run's final global model (one row a run: the
+    rounds ran once for the group), the group's own launches and its
+    seconds."""
     import torch
 
     from repro_torch.kernels import _build
@@ -1471,7 +1481,7 @@ def group_run(dev, group, cfgs, spec, engine=None, task_fn=None) -> dict:
     traj, final = runner.run()
     torch.cuda.synchronize()
     return {"traj": {k: v.cpu() for k, v in traj.items()}, "final": final, "launches": dict(_build.launches),
-            "seconds": time.perf_counter() - t0, "batched": runner.batched}
+            "seconds": time.perf_counter() - t0, "runs": final.shape[0] if final.dim() == 2 else 1}
 
 
 def sequential_run(dev, cfg, task_fn=None) -> dict:
@@ -1525,11 +1535,10 @@ def hold_groups(dev, tag: str, spec, plan, result, task_fn=None, per_client: int
         want = campaign_expected_launches(group, cfgs, n_seeds, per_client)
         got = {k: run["launches"].get(k, 0) for k in KERNELS}
         require(got == want, f"{tag} {names}: launches {got} != expected {want}")
-        one = group_form(cfgs[group.cell_idx[0]])
-        require(run["batched"] == one, f"{tag} {names}: ran as one group {run['batched']}, its config calls for {one}")
+        e_runs = len(group.cell_idx) * n_seeds
+        require(run["runs"] == e_runs, f"{tag} {names}: {run['runs']} runs in one group, {e_runs} in the plan")
         if with_ref:
             ref = group_run(dev, group, cfgs, spec, "ref")
-            require(ref["batched"] == one, f"{tag} {names}: the engine='ref' rerun ran as one group {ref['batched']}")
             require(not ref["launches"], f"{tag} {names}: the engine='ref' run launched {ref['launches']}")
             require(torch.equal(run["final"], ref["final"]) and set(run["traj"]) == set(ref["traj"])
                     and all(torch.equal(run["traj"][k], ref["traj"][k]) for k in run["traj"]),
@@ -1558,8 +1567,12 @@ def hold_groups(dev, tag: str, spec, plan, result, task_fn=None, per_client: int
         finals.append(run["final"].cpu())
         groups.append({"cells": names, "fused": stats["fused"], "m_pad": stats["m_pad"], "n_elems": stats["n_elems"],
                        "wall_s": stats["wall_s"], "compile_s": stats["compile_s"],
-                       "cells_per_sec": stats["cells_per_sec"], "launches": got, "batched": run["batched"],
-                       "runner_seconds": run["seconds"], "sequential_round_seconds_sum": group_seq_s})
+                       "cells_per_sec": stats["cells_per_sec"], "launches": got, "runner_seconds": run["seconds"],
+                       "sequential_round_seconds_sum": group_seq_s,
+                       # the runner's own rounds (synchronized) against the
+                       # same runs one at a time; the campaign's wall_s
+                       # also holds the dispatch of the groups after it
+                       "group_speedup": group_seq_s / run["seconds"]})
     return {"groups": groups, "finals": finals, "sequential_round_seconds_sum": seq_s, "runs": n_runs,
             "bit_exact_runs": exact}
 
@@ -1620,7 +1633,7 @@ def cohort_phase(dev, spec, main_a: dict) -> dict:
     prepare, args, *_ = campaign._prepare_group(group, cfgs, spec, campaign_task(dev), with_acc=True, shard=False,
                                                 cache=CompileCache())
     runner = prepare(*args)
-    require(runner.batched, "the cohort group did not batch")
+    require(runner.keys.shape == (len(spec.seeds), 2), "the cohort group is not one group of its runs")
     state, keys = batched.init_group_state(runner.ctx, runner.b_inits), runner.keys
 
     def rounds(n: int, timed: bool) -> list:
@@ -1724,18 +1737,19 @@ def campaign_runs(dev, main: dict) -> dict:
     specs = campaign_specs()
     t0 = time.perf_counter()
     print(json.dumps(model_rows(dev)), flush=True)
-    runs = {f"campaign/{name}": campaign_phase(dev, name, specs[name]) for name in ("table1", "fig4", "one_at_a_time")}
-    require(not any(g["batched"] for g in runs["campaign/one_at_a_time"]["stats"]["groups"]),
-            "phase 7 (i1): a tree or k-bit group ran as one group")
+    runs = {f"campaign/{name}": campaign_phase(dev, name, specs[name]) for name in ("table1", "fig4", "wire_groups")}
     runs["campaign/cohort"] = cohort_phase(dev, specs["cohort"], main["a"])
     for name in ("stoch_quant_pack", "bit_aggregate", "prox_sgd"):
-        require(all(run["launches"][name] for grid, run in runs.items() if grid != "campaign/one_at_a_time"),
+        require(all(run["launches"][name] for grid, run in runs.items()
+                    if grid != "campaign/wire_groups" or name != "bit_aggregate"),
                 f"phase 7 never launched {name} in a grid")
-    # (i1): the tree's B1 a chunk and every run's B4; no B3 (the k-bit and tree estimates have no kernel)
-    one = runs["campaign/one_at_a_time"]
-    want = {k: sum(g["launches"][k] for g in one["stats"]["groups"]) for k in KERNELS}
-    require(one["launches"] == want and want["stoch_quant_pack"] and want["prox_sgd"] and not want["bit_aggregate"],
-            f"phase 7 (i1): launches {one['launches']}, its groups' {want}")
+    # (i1): the trees' and the top-k group's B1, every group's B4, once for
+    # the group; no B3 (the k-bit, mixed-width, sparse and tree estimates
+    # have no kernel)
+    wire = runs["campaign/wire_groups"]
+    want = {k: sum(g["launches"][k] for g in wire["stats"]["groups"]) for k in KERNELS}
+    require(wire["launches"] == want and want["stoch_quant_pack"] and want["prox_sgd"] and not want["bit_aggregate"],
+            f"phase 7 (i1): launches {wire['launches']}, its groups' {want}")
     print(json.dumps({"phase": "campaign_done", "seconds": time.perf_counter() - t0,
                       "launches": {k: run["launches"] for k, run in runs.items()}}), flush=True)
     return runs

@@ -470,8 +470,9 @@ class ClientCompressor:
     ):
         """(M, d) updates -> (wire, residuals'). Residuals pass through
         unchanged unless PRoBit+'s error feedback is on (never under DP).
-        A group (one-bit dense wires only): keys (E, 2), updates and
-        residuals (E, M, d), b (E,)."""
+        A group of E runs, on every wire: keys (E, 2), updates and
+        residuals (E, M, d), b (E,); the wire and the residuals then have
+        a leading E, and each run's rows are drawn from its own key."""
         d = deltas.shape[-1]
         if self.mode == "dense":
             return DenseWire(updates=deltas), residuals
@@ -524,48 +525,53 @@ class ClientCompressor:
 
     def _compress_hetero(self, key, deltas, b_scalar, residuals, row_offset):
         """Each contiguous group of equal width through a homogeneous
-        compressor, its rows keyed by their cohort positions."""
-        if len(self.client_bits) != deltas.shape[0]:
+        compressor, its rows keyed by their cohort positions (each width
+        group of a campaign group's runs in one call, with the runs'
+        keys)."""
+        if len(self.client_bits) != deltas.shape[-2]:
             raise ValueError(
-                f"client_bits has {len(self.client_bits)} entries for a {deltas.shape[0]}-client cohort"
+                f"client_bits has {len(self.client_bits)} entries for a {deltas.shape[-2]}-client cohort"
             )
         wires, res_parts = [], []
         for start, stop, gbits in hetero_client_groups(self.client_bits):
             sub = dataclasses.replace(self, client_bits=None, wire_bits=gbits)
-            w, r = sub.compress(key, deltas[start:stop], b_scalar, residuals[start:stop], row_offset=row_offset + start)
+            w, r = sub.compress(key, deltas[..., start:stop, :], b_scalar, residuals[..., start:stop, :],
+                                row_offset=row_offset + start)
             wires.append(w)
             res_parts.append(r)
-        return HeteroWire(wires=tuple(wires)), torch.cat(res_parts, dim=0)
+        return HeteroWire(wires=tuple(wires)), torch.cat(res_parts, dim=-2)
 
     def _compress_topk(self, key, eff, b_vec, residuals, use_ef):
         """The top-k wire: client ``m`` (key ``split(key, M)[m]``) sends the
         Eq.-5 bits of its ``k`` largest ``|eff|`` and their indices; with
         ``use_kernels`` the gathered values are packed by the pack kernel
-        (one launch for the cohort). Under error feedback the unreported
-        coordinates carry their whole value forward."""
+        (one launch for the cohort, or for a group's E * M rows). Under
+        error feedback the unreported coordinates carry their whole value
+        forward. A group's (E, M, d) ``eff`` with keys (E, 2) and ``b_vec``
+        (E, d): each run's clients split from its own key."""
         from .sparse import topk_binarize, topk_indices
 
-        m, d = eff.shape
+        m, d = eff.shape[-2:]
         k = max(int(d * self.topk_frac), 1)
         keys = prng.split(key, m)
+        b_rows = b_vec.unsqueeze(-2).expand(eff.shape)
         if self.use_kernels:
             from ..kernels import ops as kops
 
             idx = topk_indices(eff, k)
-            packed = kops.quant_pack_u(eff.gather(1, idx), b_vec[idx], prng.uniform(keys, (k,)),
-                                       engine=self.engine)[:, : (k + 7) // 8].contiguous()
+            packed = kops.quant_pack_u(eff.gather(-1, idx), b_rows.gather(-1, idx), prng.uniform(keys, (k,)),
+                                       engine=self.engine)[..., : (k + 7) // 8].reshape(idx.shape[:-1] + (-1,))
             idx, codes = idx.to(torch.int32), None
         else:
-            idx, codes = topk_binarize(keys, eff, b_vec, k)
+            idx, codes = topk_binarize(keys, eff, b_rows, k)
             packed = pack_levels((codes > 0).to(torch.uint8), 1)
         if use_ef:
             if codes is None:
                 codes = _unpack_codes(packed, k)
-            sent = torch.zeros_like(eff)
-            sent[torch.arange(m, device=eff.device)[:, None], idx.long()] = codes.float()
+            sent = torch.zeros_like(eff).scatter_(-1, idx.long(), codes.float())
             # unreported coordinates carry their full delta forward
-            residuals = eff - sent * b_vec
-        return SparseWire(indices=idx, packed=packed, b=b_vec, d=d, k=k), residuals
+            residuals = eff - sent * b_rows
+        return SparseWire(indices=idx, packed=packed.contiguous(), b=b_vec, d=d, k=k), residuals
 
 
 @dataclasses.dataclass(frozen=True)
@@ -681,6 +687,10 @@ class ProBitPlusServer(ServerAggregator):
 
         if isinstance(wire, PackedWire) and wire.bits != self.wire_bits:
             return dataclasses.replace(self, wire_bits=wire.bits).aggregate(wire, weights)
+        if wire.elements is not None and not isinstance(wire, PackedWire):
+            # a group's mixed-width or sparse wire: each run's estimate its own
+            return torch.stack([self.aggregate(wire.element(e), None if weights is None else weights[e])
+                                for e in range(wire.elements)])
         if isinstance(wire, HeteroWire):
             return self._aggregate_hetero(wire, weights)
         if isinstance(wire, SparseWire):

@@ -292,15 +292,16 @@ def apply_edge_attack(idx: int, counts: torch.Tensor, mass: torch.Tensor, prev_c
     ``(E,)`` masses before the root merge; ``prev_*`` is what the root's
     buffer held for each edge's slot before this round's deliveries, and
     ``byz_mask`` (E,) marks the compromised edges. Honest edges pass
-    through untouched."""
+    through untouched. A campaign group's tensors carry its runs before
+    the edge axis, ``(R, E, 8P)`` and ``(R, E)``."""
     name = EDGE_ATTACK_IDS[idx]
     if name == "edge_sign_flip":
-        c_att, m_att = mass[:, None] - counts, mass
+        c_att, m_att = mass.unsqueeze(-1) - counts, mass
     elif name == "edge_inflate":
-        c_att, m_att = torch.broadcast_to(mass[:, None], counts.shape), mass
+        c_att, m_att = torch.broadcast_to(mass.unsqueeze(-1), counts.shape), mass
     elif name == "edge_replay":
-        c_att = torch.where(prev_valid[:, None], prev_counts, counts)
+        c_att = torch.where(prev_valid.unsqueeze(-1), prev_counts, counts)
         m_att = torch.where(prev_valid, prev_mass, mass)
     else:
         return counts, mass
-    return torch.where(byz_mask[:, None], c_att, counts), torch.where(byz_mask, m_att, mass)
+    return torch.where(byz_mask.unsqueeze(-1), c_att, counts), torch.where(byz_mask, m_att, mass)

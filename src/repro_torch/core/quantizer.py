@@ -490,51 +490,65 @@ def packed_quantize_batch(
     gamma: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """k-bit quantize + plane pack: (M, d) f32 -> (M, bits * padded_dim(d)/8)
-    uint8; ``bits = 1`` without ``gamma`` is :func:`packed_binarize_batch`.
+    uint8; or a group of E cohorts, keys (E, 2), deltas (E, M, d), b and
+    ``gamma`` (E, d) (or broadcastable to it) -> (E, M, bits *
+    padded_dim(d)/8). ``bits = 1`` without ``gamma`` is
+    :func:`packed_binarize_batch`.
 
     The rounding uniforms are the one-bit wire's: chunk ``j`` of client
-    ``m`` from ``kj = fold_in(fold_in(key, row_offset + m), j)``. ``gamma``
-    (a scalar or ``(d,)``) arms L-level randomized response: where the
-    uniform of ``fold_in(kj, 1)`` is below ``gamma`` the level is replaced
-    by ``randint(fold_in(kj, 2), 0, L)`` (the reference draws it as uint8,
+    ``m`` from ``kj = fold_in(fold_in(key, row_offset + m), j)`` (its
+    element's key in a group). ``gamma`` (a scalar or ``(d,)``, one row a
+    run in a group) arms L-level randomized response: where the uniform of
+    ``fold_in(kj, 1)`` is below ``gamma`` the level is replaced by
+    ``randint(fold_in(kj, 2), 0, L)`` (the reference draws it as uint8,
     the low byte of the same 32-bit word, which for a span dividing 256 is
     the int32 draw). Pad coordinates get delta -1, b 1 and gamma 0, so
     every plane of theirs is 0. With ``want_residual`` the error-feedback
-    residual ``delta - v(level)`` of the emitted level comes back too. The
-    rows are drawn :func:`uniform_block_rows` at a time.
+    residual ``delta - v(level)`` of the emitted level comes back too.
+    Every step is a function of one coordinate, so a group's rows are its
+    runs' own; the group's rows are drawn :func:`uniform_block_rows` at a
+    time.
     """
     if bits not in WIRE_BITS:
         raise ValueError(f"bits must be one of {WIRE_BITS}, got {bits}")
     if bits == 1 and gamma is None:
         return packed_binarize_batch(key, deltas, b, chunk=chunk, want_residual=want_residual,
                                      row_offset=row_offset)
-    m, d = deltas.shape
+    single = key.dim() == 1
+    keys = key.reshape(-1, 2)
+    e = keys.shape[0]
+    m, d = deltas.shape[-2:]
     dev = deltas.device
     d_pad = padded_dim(d, chunk)
-    b_full = pad_rows(torch.broadcast_to(torch.as_tensor(b, dtype=torch.float32, device=dev), (d,)).reshape(1, d),
-                      d_pad, 1.0)[0]
-    g_full = None
-    if gamma is not None:
-        g = torch.broadcast_to(torch.as_tensor(gamma, dtype=torch.float32, device=dev), (d,))
-        g_full = pad_rows(g.reshape(1, d), d_pad, 0.0)[0]
-    packed = torch.empty((m, bits * d_pad // 8), dtype=torch.uint8, device=dev)
-    res = torch.empty((m, d), dtype=torch.float32, device=dev) if want_residual else None
+    flat = deltas.reshape(e * m, d)
+
+    def per_run(x, pad):
+        x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        x = torch.broadcast_to(torch.broadcast_to(x, (d,)) if single else x, (e, d))
+        return pad_rows(x, d_pad, pad)
+
+    b_full = per_run(b, 1.0)
+    g_full = None if gamma is None else per_run(gamma, 0.0)
+    packed = torch.empty((e * m, bits * d_pad // 8), dtype=torch.uint8, device=dev)
+    res = torch.empty((e * m, d), dtype=torch.float32, device=dev) if want_residual else None
     chunks = torch.arange(d_pad // chunk, dtype=torch.int64, device=dev)
     block = uniform_block_rows(d_pad)
-    for r0 in range(0, m, block):
-        r1 = min(r0 + block, m)
+    for r0 in range(0, e * m, block):
+        r1 = min(r0 + block, e * m)
         rows = torch.arange(r0, r1, dtype=torch.int64, device=dev)
-        kj = prng.fold_in(prng.fold_in(key, row_offset + rows).unsqueeze(-2), chunks)  # (rows, chunks, 2)
-        deltas_p = pad_rows(deltas[r0:r1], d_pad, -1.0)
-        lvl = quantize_levels(prng.uniform(kj, (chunk,)).reshape(r1 - r0, d_pad), deltas_p, b_full, bits)
+        kj = prng.fold_in(_row_keys(keys, m, rows, row_offset).unsqueeze(-2), chunks)  # (rows, chunks, 2)
+        deltas_p = pad_rows(flat[r0:r1], d_pad, -1.0)
+        b_rows = b_full[0] if e == 1 else b_full[rows // m]
+        lvl = quantize_levels(prng.uniform(kj, (chunk,)).reshape(r1 - r0, d_pad), deltas_p, b_rows, bits)
         if g_full is not None:
             gate = prng.uniform(prng.fold_in(kj, 1), (chunk,)).reshape(r1 - r0, d_pad)
             rand = prng.randint(prng.fold_in(kj, 2), (chunk,), 0, 1 << bits).reshape(r1 - r0, d_pad)
-            lvl = torch.where(gate < g_full, rand.to(torch.uint8), lvl)
+            lvl = torch.where(gate < (g_full[0] if e == 1 else g_full[rows // m]), rand.to(torch.uint8), lvl)
         packed[r0:r1] = pack_levels(lvl, bits)
         if want_residual:
-            res[r0:r1] = (deltas_p - dequantize_levels(lvl, b_full, bits))[:, :d]
-    return packed, res
+            res[r0:r1] = (deltas_p - dequantize_levels(lvl, b_rows, bits))[:, :d]
+    shape = deltas.shape[:-1]
+    return packed.view(shape + (packed.shape[-1],)), None if res is None else res.view(deltas.shape)
 
 
 def packed_sign_batch(deltas: torch.Tensor, *, chunk: int = PACK_CHUNK) -> torch.Tensor:

@@ -27,8 +27,9 @@ the synchronous heartbeat (the b-vote and metric sums).
   mass.
 * **Sharded edges** (``tree_shard``): rank ``k`` of the client group runs
   edges ``[k E/n, (k+1) E/n)`` over its block of the clients' data, and one
-  gather a tensor of the stacked per-edge tensors, in rank order, gives
-  every rank the whole edge axis, the reference's sharded ``out_specs``.
+  gather a tensor of the stacked per-edge tensors, in rank order (for a
+  campaign group, one gather a tensor for all its runs), gives every rank
+  the whole edge axis, the reference's sharded ``out_specs``.
   Every rank then merges at the root as one process would: no sum crosses
   ranks, so the round equals the unsharded tree bit for bit, metrics too.
 
@@ -42,21 +43,26 @@ root's estimate multiplies by the reciprocal of the merged mass, as every
 weighted estimate of the port does. None of this has a kernel in the
 reference; the edges' chunks launch the port's pack (or EF) kernel once a
 chunk and the prox kernel once a local step.
+
+A campaign group of E runs (:mod:`repro_torch.sim`) runs the round once,
+with a leading E on the keys, the state, the root buffer and every
+per-edge tensor: the chunks launch each kernel once for the group, and
+every float step above is a function of one run's own values.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 from torch.profiler import record_function
 
 from .. import distributed, prng
-from ..core import staleness_weights, update_b_from_vote
+from ..core import update_b_from_vote
 from ..core.aggregation import mean_rows, recip32
 from ..core.attacks import apply_edge_attack, edge_attack_id
-from .rounds import CellParams, RoundContext, RoundState, _add_in_order, _stream_chunks, init_state
+from .rounds import (CellParams, RoundContext, RoundState, _add_in_order, _arrivals, _per_run, _staleness,
+                     _stream_chunks, init_state)
 
 __all__ = [
     "EDGE_MERGES",
@@ -115,35 +121,40 @@ def tree_shard_devices(ctx: RoundContext) -> int:
     return distributed.group_size(ctx.group) if ctx.cfg.tree_shard else 1
 
 
-def _sum_rows(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the leading (edge) axis, the rows added in order."""
-    out = x[0]
-    for row in x[1:]:
-        out = out + row
+def _sum_edges(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Sum over the edge axis ``dim``, the edges added in order (a group's
+    tensors carry their runs before it, each run's sum its own)."""
+    out = x.select(dim, 0)
+    for j in range(1, x.shape[dim]):
+        out = out + x.select(dim, j)
     return out
 
 
 def _root_merge(cfg, counts_e: torch.Tensor, mass_e: torch.Tensor, weights: torch.Tensor | None):
     """Merge the (E', 8P) edge tensors into the root's (counts, mass):
     the (staleness-weighted) sum, or a robust merge of the vote rates
-    rescaled by the total mass."""
+    rescaled by the total mass. A group's (E, E', 8P) tensors merge each
+    run's edges on their own (the sort too)."""
     if cfg.edge_merge == "sum":
         if weights is None:
-            return _sum_rows(counts_e), _sum_rows(mass_e)
-        counts, mass = torch.zeros_like(counts_e[0]), torch.zeros_like(mass_e[0])
-        for w, c, m in zip(weights, counts_e, mass_e):
-            counts, mass = prng._fma(w, c, counts), prng._fma(w, m, mass)
+            return _sum_edges(counts_e, -2), _sum_edges(mass_e, -1)
+        counts, mass = torch.zeros_like(counts_e.select(-2, 0)), torch.zeros_like(mass_e.select(-1, 0))
+        for j in range(counts_e.shape[-2]):
+            w = weights.select(-1, j)
+            counts = prng._fma(w.unsqueeze(-1), counts_e.select(-2, j), counts)
+            mass = prng._fma(w, mass_e.select(-1, j), mass)
         return counts, mass
-    rates = counts_e / torch.clamp(mass_e, min=1.0)[:, None]
-    ordered = torch.sort(rates, dim=0).values
-    n = rates.shape[0]
+    rates = counts_e / torch.clamp(mass_e, min=1.0).unsqueeze(-1)
+    ordered = torch.sort(rates, dim=-2).values
+    n = rates.shape[-2]
     if cfg.edge_merge == "median":
-        rate = ordered[n // 2] if n % 2 else (ordered[n // 2 - 1] + ordered[n // 2]) * 0.5
+        mid = ordered.select(-2, n // 2)
+        rate = mid if n % 2 else (ordered.select(-2, n // 2 - 1) + mid) * 0.5
     else:  # "trimmed"
         t = cfg.edge_trim
-        rate = _sum_rows(ordered[t:n - t]) * recip32(n - 2 * t)
-    mass = _sum_rows(mass_e)
-    return rate * mass, mass
+        rate = _sum_edges(ordered[..., t:n - t, :], -2) * recip32(n - 2 * t)
+    mass = _sum_edges(mass_e, -1)
+    return rate * mass.unsqueeze(-1), mass
 
 
 def tree_fl_round(
@@ -157,16 +168,26 @@ def tree_fl_round(
     :func:`~repro_torch.fl.rounds.stream_fl_round` and ``edge_mass_min``
     (the lightest edge's shipped mass); a buffered tree adds ``buf_fill``
     and ``mean_age``.
+
+    A group of E runs, as :func:`~repro_torch.fl.rounds.stream_fl_round`'s
+    (keys (E, 2), a state with a leading E, ``params`` one value a run):
+    each edge's chunk loop launches each kernel once a chunk for the
+    group; each run draws its own cohort and arrivals (from its f64
+    latency), weighs its slots with its own decay (an (E,) f32 device
+    tensor), and its edge attack, root merge (the median's sort over its
+    own edges), estimate and metrics are its single round's.
     """
     cfg, d, dev = ctx.cfg, ctx.d, ctx.device
     n, n_edges, n_buf = cfg.n_active, cfg.tree_edges, cfg.edge_buffer
+    lead = tuple(key.shape[:-1])
     server = ctx.pipeline.server
     if cfg.participation < 1.0:
         with record_function("round.sample"):
-            sel = prng.choice(prng.fold_in(key, 99), cfg.n_clients, (n,))
+            sel = torch.stack([prng.choice(prng.fold_in(k, 99), cfg.n_clients, (n,)) for k in key.view(-1, 2)])
+            sel = sel.view(lead + (n,))
     else:
-        sel = torch.arange(cfg.n_clients, dtype=torch.int64, device=dev)
-    k_att, k_q = prng.split(prng.fold_in(key, 1), 2)
+        sel = torch.arange(cfg.n_clients, dtype=torch.int64, device=dev).expand(lead + (cfg.n_clients,))
+    k_att, k_q = prng.split(prng.fold_in(key, 1), 2).unbind(-2)
     n_byz = int(n * cfg.byz_frac)
     limit = min(n, int(params.m_active)) if ctx.masked else n
 
@@ -177,59 +198,61 @@ def tree_fl_round(
     edges, planes = [], None
     for row0, n_e in mine:
         acc, e_vote, e_losses, e_dsum, e_wsum, w_locals, residuals = _stream_chunks(
-            ctx, params, batches["key"], k_att, k_q, state, sel[row0:row0 + n_e], n_byz, True, limit,
-            row0=row0, planes=planes,
+            ctx, params, batches["key"], k_att, k_q, state, sel[..., row0:row0 + n_e], n_byz, True, limit,
+            row0=row0, planes=planes, data=batches.get("data"),
         )
         planes = (w_locals, residuals)
-        e_loss = _add_in_order(e_losses)
-        edges.append((acc, torch.stack([e_vote, e_loss, e_wsum]), e_dsum))
+        e_loss = _per_run(_add_in_order, lead, e_losses)
+        edges.append((acc, torch.stack([e_vote, e_loss, e_wsum], -1), e_dsum))
     w_locals, residuals = planes
-    counts_f, heartbeat, dsums = (torch.stack(x) for x in zip(*edges))
+    # each tensor's edge axis just before its last: (E', X), a group's (E, E', X)
+    counts_f, heartbeat, dsums = (torch.stack(x, -2) for x in zip(*edges))
     if group is not None:
         with record_function("round.collectives"):
-            # every rank's edges, stacked in rank order: the edge axis whole
-            counts_f, heartbeat, dsums = (distributed.all_gather_rows(x, group).flatten(0, 1)
+            # every rank's edges in rank order, the edge axis whole: one
+            # gather a tensor for the whole group
+            counts_f, heartbeat, dsums = (distributed.all_gather_rows(x, group).movedim(0, -3).flatten(-3, -2)
                                           for x in (counts_f, heartbeat, dsums))
-    mass_f = heartbeat[:, 2]
+    mass_f = heartbeat[..., 2]
     vote, loss, dsum = 0.0, 0.0, 0.0
-    for e_vote, e_loss, e_dsum in zip(heartbeat[:, 0], heartbeat[:, 1], dsums):
-        vote, loss, dsum = vote + e_vote, loss + e_loss, dsum + e_dsum
+    for j in range(n_edges):
+        vote, loss, dsum = vote + heartbeat[..., j, 0], loss + heartbeat[..., j, 1], dsum + dsums[..., j, :]
 
     with record_function("round.estimate"):
-        wsum = _sum_rows(mass_f)
+        wsum = _sum_edges(mass_f, -1)
         counts_s, mass_s = counts_f, mass_f
         if cfg.byz_edges:
             byz_mask = torch.arange(n_edges, device=dev) < cfg.byz_edges
             if n_buf:
                 slot_of = torch.arange(n_edges, device=dev) % n_buf
-                prev = (state.edge_counts[slot_of], state.edge_mass[slot_of], state.edge_valid[slot_of])
+                prev = (state.edge_counts[..., slot_of, :], state.edge_mass[..., slot_of],
+                        state.edge_valid[..., slot_of])
             else:
                 prev = (torch.zeros_like(counts_f), torch.zeros_like(mass_f),
-                        torch.zeros(n_edges, dtype=torch.bool, device=dev))
+                        torch.zeros(mass_f.shape, dtype=torch.bool, device=dev))
             counts_s, mass_s = apply_edge_attack(edge_attack_id(cfg.edge_attack), counts_f, mass_f, *prev, byz_mask)
         extra = {}
         if n_buf:
             # the asynchronous buffer one level up: edge e -> slot e mod B,
             # later edges winning a shared slot, misses age their slot
-            p_arrive = float(np.float32(1.0 / (1.0 + params.latency)))
-            delivered = prng.uniform(prng.fold_in(key, 7), (n_edges,)) < p_arrive
+            delivered = _arrivals(key, params.latency, n_edges)
             buf_c, buf_m = state.edge_counts.clone(), state.edge_mass.clone()
             hit = torch.zeros_like(state.edge_valid)
             for g0 in range(0, n_edges, n_buf):
-                got = delivered[g0:g0 + n_buf]
-                k = got.shape[0]
-                buf_c[:k] = torch.where(got[:, None], counts_s[g0:g0 + k], buf_c[:k])
-                buf_m[:k] = torch.where(got, mass_s[g0:g0 + k], buf_m[:k])
-                hit[:k] |= got
+                got = delivered[..., g0:g0 + n_buf]
+                k = got.shape[-1]
+                buf_c[..., :k, :] = torch.where(got.unsqueeze(-1), counts_s[..., g0:g0 + k, :], buf_c[..., :k, :])
+                buf_m[..., :k] = torch.where(got, mass_s[..., g0:g0 + k], buf_m[..., :k])
+                hit[..., :k] |= got
             age = torch.where(hit, torch.zeros_like(state.edge_age), state.edge_age + 1)
             valid = state.edge_valid | hit
-            weights = staleness_weights(age, params.staleness_decay, valid)
+            weights = _staleness(age, params.staleness_decay, valid)
             counts_root, mass_root = _root_merge(cfg, buf_c, buf_m, weights)
             extra = dict(edge_counts=buf_c, edge_mass=buf_m, edge_age=age, edge_valid=valid)
         else:
             counts_root, mass_root = _root_merge(cfg, counts_s, mass_s, None)
         b_vec = ctx.pipeline.compressor.b_vector(d, state.b.b)
-        theta = server.finalize_weighted(counts_root, mass_root, b_vec)
+        theta = _per_run(server.finalize_weighted, lead, counts_root, mass_root, b_vec)
     with record_function("round.finish"):
         b_new = update_b_from_vote(state.b, vote, cfg.bctrl)
         new_state = dataclasses.replace(state, w_global=state.w_global + theta, w_locals=w_locals, b=b_new,
@@ -238,12 +261,12 @@ def tree_fl_round(
         metrics = {
             "loss": loss * recip,
             "b": b_new.b,
-            "theta_mse": mean_rows((theta - dsum * recip) ** 2),
-            "edge_mass_min": mass_f.min(),
+            "theta_mse": _per_run(lambda t, ds, r: mean_rows((t - ds * r) ** 2), lead, theta, dsum, recip),
+            "edge_mass_min": mass_f.amin(-1),
             "theta": theta,
         }
         if n_buf:
-            n_valid = valid.float().sum()
+            n_valid = valid.float().sum(-1)
             metrics["buf_fill"] = n_valid * recip32(n_buf)
-            metrics["mean_age"] = (age.float() * valid).sum() / n_valid.clamp(min=1.0)
+            metrics["mean_age"] = (age.float() * valid).sum(-1) / n_valid.clamp(min=1.0)
     return new_state, metrics

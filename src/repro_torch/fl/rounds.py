@@ -47,16 +47,16 @@ pads the client axis to the group's largest cohort; the run's own cohort
 ``CellParams.m_active`` enters as a 0/1 row mask (:func:`client_mask`) on
 the weighted count path of the estimate, on the b-vote and on the metric
 means, so one context serves every M of the group. :func:`fl_round`,
-:func:`stream_fl_round` and :func:`async_fl_round` also take a group of E
-runs at once, with a leading E on the keys, the state and the batches:
-each kernel is launched once a step (a streamed round: once a chunk's
-step) for the group, and each run's draws, gates and float sums are its
-own. :func:`run_rounds` runs ``rounds`` rounds on ``FLSimulation``'s key
-schedule and returns the final state and each metric's trajectory; the
-campaign engine (:mod:`repro_torch.sim`) runs a synchronous, streamed or
-asynchronous group on the one-bit or dense wires through it as one group,
-and every other group (tree, a sharded streamed cohort, or on the k-bit,
-mixed-width or top-k wires) one run at a time.
+:func:`stream_fl_round`, :func:`async_fl_round` and the tree's round
+also take a group of E runs at once, on every wire, with a leading E on
+the keys, the state and the batches: each kernel is launched once a step
+(a streamed round or a tree's edge: once a chunk's step) for the group,
+and each run's draws, gates and float sums are its own. A sharded cohort
+(``stream_shard``) sums each carry of the whole group over the ranks in
+one collective. :func:`run_rounds` runs ``rounds`` rounds on
+``FLSimulation``'s key schedule and returns the final state and each
+metric's trajectory; the campaign engine (:mod:`repro_torch.sim`) runs
+every group through it as one group.
 
 Each step runs under a ``torch.profiler.record_function`` range
 (``round.batches``, ``round.sample`` under partial participation,
@@ -739,7 +739,8 @@ def stream_fl_round(
     A group of E runs, as :func:`fl_round`'s (a fused group's client data
     in ``batches["data"]``): each run draws its own cohort and chunks'
     batches, each kernel is launched once a chunk for the group, and each
-    run's estimate and metric means are its single round's."""
+    run's estimate and metric means are its single round's. Sharded, the
+    group's carries cross the ranks in one collective each."""
     cfg, d, dev = ctx.cfg, ctx.d, ctx.device
     n, C = cfg.n_active, cfg.client_chunk
     lead = tuple(key.shape[:-1])
@@ -758,8 +759,6 @@ def stream_fl_round(
     else:
         limit = min(n, int(params.m_active))
     group = ctx.group if cfg.stream_shard else None
-    if group is not None and lead:
-        raise ValueError("a group of runs cannot shard its streamed cohort over the ranks")
     n_loc = n // distributed.group_size(group)
     row0 = distributed.group_rank(group) * n_loc
     weighted = ctx.masked or n_loc % C != 0
@@ -769,12 +768,14 @@ def stream_fl_round(
     )
     if group is not None:
         with record_function("round.collectives"):
-            # vote counts, or FedAvg's (sum, weight) pair
+            # each carry of the whole group in one collective: the vote
+            # counts (or FedAvg's sum and weight), the b-vote, weight and
+            # delta sums, and the chunks' loss sums in chunk order
             acc = (tuple(distributed.all_reduce_sum(a, group) for a in acc) if isinstance(acc, tuple)
                    else distributed.all_reduce_sum(acc, group))
-            sums = distributed.all_reduce_sum(torch.cat([vote.view(1), wsum.view(1), dsum]), group)
-            vote, wsum, dsum = sums[0], sums[1], sums[2:]
-            losses = distributed.all_gather_rows(losses, group).flatten()
+            sums = distributed.all_reduce_sum(torch.cat([vote.unsqueeze(-1), wsum.unsqueeze(-1), dsum], -1), group)
+            vote, wsum, dsum = sums[..., 0], sums[..., 1], sums[..., 2:]
+            losses = distributed.all_gather_rows(losses, group).movedim(0, -2).flatten(-2)
     loss = _per_run(_add_in_order, lead, losses)
     with record_function("round.estimate"):
         if server.stream_kind == "counts":
@@ -911,9 +912,8 @@ def run_rounds(
     ``kr``), so at a fixed seed this is the sequential driver's run.
 
     Keys (E, 2) with a state of leading E run a group of E runs at once
-    (the group form of :func:`fl_round`, :func:`stream_fl_round` or
-    :func:`async_fl_round`; ``data``, a fused group's client data, see
-    :func:`round_batches`). Returns the final
+    (the group form of the round; ``data``, a fused group's client data,
+    see :func:`round_batches`). Returns the final
     state and each metric's trajectory, a ``(rounds,)`` tensor (``(E,
     rounds)`` for a group) on the context's device (``acc`` included when
     ``with_acc``; the (d,) ``theta`` is not kept). Nothing waits for the
@@ -921,8 +921,6 @@ def run_rounds(
     """
     rounds = rounds or ctx.cfg.rounds
     step = round_fn(ctx)
-    if key.dim() > 1 and step not in (fl_round, stream_fl_round, async_fl_round):
-        raise ValueError("a tree round runs one run at a time, not a group of runs")
     traj: dict[str, list] = {}
     for _ in range(rounds):
         key, kb, kr = prng.split(key, 3).unbind(-2)

@@ -192,10 +192,11 @@ def stoch_quant_compress_batch(
     """Eq.-5 compress of an (M, d) cohort onto the kernel wire, or of a
     group of E cohorts at once: keys (E, 2), deltas (E, M, d), b (E, d).
 
-    ``bits > 1`` (one cohort) emits the plane-major k-bit wire of
+    ``bits > 1`` emits the plane-major k-bit wire of
     :func:`~repro_torch.core.quantizer.packed_quantize_batch` (with
-    randomized response when ``gamma`` is given), each plane realigned to
-    ``padded_len(d)/8`` bytes: (M, bits * padded_len(d)/8). The reference
+    randomized response when ``gamma``, one row a run in a group, is
+    given), each plane realigned to ``padded_len(d)/8`` bytes: (M, bits *
+    padded_len(d)/8), with a leading E for a group. The reference
     has no kernel for it and quantizes with plain JAX on every backend; so
     does the port, with plain torch on either engine.
 
@@ -218,9 +219,9 @@ def stoch_quant_compress_batch(
         eff = deltas if residual is None else deltas + residual
         packed, res = packed_quantize_batch(key, eff, b, bits=bits, chunk=chunk, want_residual=want_residual,
                                             row_offset=row_offset, gamma=gamma)
-        m, d = deltas.shape
-        planes = realign_wire(packed.view(m, bits, -1), padded_len(d) // 8)
-        return planes.reshape(m, -1), res
+        rows = deltas.shape[:-1]
+        planes = realign_wire(packed.view(rows + (bits, -1)), padded_len(deltas.shape[-1]) // 8)
+        return planes.reshape(rows + (-1,)), res
     single = key.dim() == 1
     keys, group, b_rows = _as_group(key, deltas, b)
     e, m, d = group.shape

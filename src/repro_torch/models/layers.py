@@ -484,7 +484,7 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> t
     (ROADMAP C)."""
     k = w.shape[0]
     xp = F.pad(x, (0, 0, k - 1, 0))
-    out = sum(xp[:, i : i + x.shape[1], :] * w[i][None, None, :] for i in range(k))
+    out = sum(xp[:, i : i + x.shape[1], :] * w[i] for i in range(k))
     if b is not None:
-        out = out + b[None, None, :]
+        out = out + b
     return out

@@ -180,12 +180,31 @@ def _moe_on_mesh(p: dict, x2d, cfg: ModelConfig):
     return out.redistribute(mesh, tuple(Replicate() if i in psum else q for i, q in enumerate(out_pl)))
 
 
+def _whole_rows(x):
+    """A DTensor gathered along its leading dimension (its other
+    placements kept), anything else as it is. The redistribution is a node
+    of the graph even where nothing moves: its backward brings the
+    gradient back whole along that dimension."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if not distributed.is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, tuple(Replicate() if isinstance(q, Shard) and q.dim == 0 else q
+                                               for q in x.placements))
+
+
 def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b, s, d = x.shape
-    x2d = x.reshape(b * s, d)
     if distributed.is_dtensor(p["w1"]):
-        out = _moe_on_mesh(p, x2d, cfg).to(x.dtype).reshape(b, s, d)
+        # DTensor's view drops a dimension of size 1, so it can neither merge
+        # a batch of one sequence that the mesh shards into the token axis
+        # nor take the gradient of that view back: a batch of one is whole
+        # on both sides of each reshape.
+        whole = _whole_rows if b == 1 else (lambda t: t)
+        tokens = _moe_on_mesh(p, whole(x).reshape(b * s, d), cfg).to(x.dtype)
+        out = whole(whole(tokens).reshape(b, s, d))
     else:
+        x2d = x.reshape(b * s, d)
         gates, idx = _route(x2d, p["router"], cfg.top_k)
         out = _expert_compute(x2d, gates, idx, p["w1"], p["w3"], p["w2"], capacity(b * s, cfg)).reshape(b, s, d)
     if "sw1" in p:

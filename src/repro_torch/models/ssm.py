@@ -194,7 +194,10 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig, chunk: int = 256) ->
             drive = (dt_c * uf[:, sl, :, None] * bc[:, sl, None, :]).to(sdt)
             a_cum, b_cum = associative_scan(_combine, (adt, drive), dim=1)
             h = torch.addcmul(b_cum, a_cum, h0[:, None].to(sdt))
-            ys.append(torch.einsum("bcds,bcs->bcd", h.float(), cc[:, sl]))
+            # the reference's einsum "bcds,bcs->bcd" as a batched matmul:
+            # torch.einsum takes another path for a batch of one sequence
+            # (a rank's shard on a mesh) and rounds otherwise
+            ys.append(torch.matmul(h.float(), cc[:, sl, :, None])[..., 0])
             h0 = h[:, -1].float()
         return torch.cat(ys, dim=1) + uf * d_skip.float()
 

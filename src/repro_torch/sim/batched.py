@@ -3,18 +3,20 @@
 Counterpart of ``jax.vmap(cell_fn)`` in ``repro/sim/campaign.py``: where
 the reference vmaps one run's round over the group's E runs (and each
 Pallas kernel is launched once for the group through its batching rule),
-the port's rounds (:func:`repro_torch.fl.rounds.fl_round`,
-:func:`~repro_torch.fl.rounds.stream_fl_round` and
-:func:`~repro_torch.fl.rounds.async_fl_round`) and
+every round of the port (:func:`repro_torch.fl.rounds.fl_round`,
+:func:`~repro_torch.fl.rounds.stream_fl_round`,
+:func:`~repro_torch.fl.rounds.async_fl_round` and
+:func:`repro_torch.fl.hierarchy.tree_fl_round`, on every wire) and
 :func:`~repro_torch.fl.rounds.run_rounds` take a leading E on the keys,
 the state and the batches, and launch each kernel once a step (a streamed
-round: once a chunk's step) for the whole group. This module builds what
-that call needs:
+round or a tree's edge: once a chunk's step) for the whole group. This
+module builds what that call needs:
 
 * **State** (:func:`init_group_state`): ``w_global`` (E, d),
   ``w_locals`` and ``residuals`` (E, M, d) ((E, 1, d) for stateless
   clients), ``b`` (E,), and an asynchronous run's buffer planes (E, B,
-  ...), made directly in their stacked form.
+  ...) or a buffered tree's edge buffer (E, B, 8P), made directly in
+  their stacked form.
 * **Params** (:func:`device_params`): ``lr``, ``momentum``, ``lam`` and
   ``staleness_decay`` as (E,) f32 tensors on the device, where the prox
   kernel and the staleness weights read them (and a fused group's
@@ -23,11 +25,7 @@ that call needs:
 * **Data** (:class:`GroupData`): a fused group's client data, one row a
   cell; each run's batches come from its own cell's rows.
 
-Tree groups, groups whose streamed cohort is sharded over the ranks
-(``stream_shard``), and groups on the k-bit, mixed-width or top-k wires
-are not :func:`batchable`: they run one run at a time through
-``run_rounds`` (ROADMAP A11b lists batching the trees and the wires as
-later work).
+Every group the planner makes runs so; none runs one run at a time.
 """
 
 from __future__ import annotations
@@ -40,16 +38,7 @@ import torch
 from ..core import BState, init_b_state
 from ..fl import rounds as R
 
-__all__ = ["batchable", "GroupData", "init_group_state", "device_params"]
-
-
-def batchable(cfg) -> bool:
-    """Does a group of this config run as one group (the synchronous,
-    streamed or asynchronous round's group form, on the one-bit or dense
-    wires)? Tree groups, sharded streamed cohorts and the k-bit,
-    mixed-width and top-k wires run one run at a time."""
-    return (cfg.tree_edges == 0 and not cfg.stream_shard and cfg.wire_bits == 1 and cfg.client_bits is None
-            and cfg.topk_frac >= 1.0)
+__all__ = ["GroupData", "init_group_state", "device_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,8 +54,9 @@ class GroupData:
 
 def init_group_state(ctx: R.RoundContext, b_inits) -> R.RoundState:
     """The fresh state of E runs, one a ``b_inits`` entry, with a leading
-    E: what :func:`~repro_torch.fl.rounds.init_run_state` gives each run,
-    made as one plane of each kind."""
+    E: what :func:`~repro_torch.fl.rounds.init_run_state` gives each run
+    (asynchronous, a buffered tree's or synchronous), made as one plane of
+    each kind."""
     cfg, e = ctx.cfg, len(b_inits)
     n_rows = 1 if cfg.stateless_clients else cfg.n_clients
     bs = [init_b_state(dataclasses.replace(cfg.bctrl, init=b0), ctx.device) for b0 in b_inits]
@@ -76,9 +66,21 @@ def init_group_state(ctx: R.RoundContext, b_inits) -> R.RoundState:
         b=BState(b=torch.stack([s.b for s in bs]), prev_vote=torch.stack([s.prev_vote for s in bs])),
         residuals=torch.zeros((e, n_rows, ctx.d), dtype=torch.float32, device=ctx.device),
     )
+    dev = ctx.device
+    if cfg.tree_edges and cfg.edge_buffer:
+        from ..fl.hierarchy import TreeRoundState
+
+        n_buf, p_bytes = cfg.edge_buffer, ctx.pipeline.compressor.wire_bytes(ctx.d)
+        return TreeRoundState(
+            **vars(state),
+            edge_counts=torch.zeros((e, n_buf, 8 * p_bytes), dtype=torch.float32, device=dev),
+            edge_mass=torch.zeros((e, n_buf), dtype=torch.float32, device=dev),
+            edge_age=torch.zeros((e, n_buf), dtype=torch.int32, device=dev),
+            edge_valid=torch.zeros((e, n_buf), dtype=torch.bool, device=dev),
+        )
     if not cfg.async_buffer:
         return state
-    n_buf, dev = cfg.async_buffer, ctx.device
+    n_buf = cfg.async_buffer
     n_bytes = ctx.pipeline.compressor.wire_bytes(ctx.d)
     if n_bytes is None:
         rows = torch.zeros((e, n_buf, ctx.d), dtype=torch.float32, device=dev)

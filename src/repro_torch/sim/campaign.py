@@ -27,21 +27,20 @@ prepared runner:
 * each group is prepared once — its round contexts and stacked inputs on
   the device — through a process-wide :class:`~repro_torch.sim.plan.CompileCache`,
   so a repeated campaign prepares nothing;
-* a synchronous, streamed or asynchronous group on the one-bit or dense
-  wires runs all its E = cells x seeds runs at once through the round's
-  group form (:func:`~repro_torch.fl.rounds.fl_round`,
-  :func:`~repro_torch.fl.rounds.stream_fl_round` or
-  :func:`~repro_torch.fl.rounds.async_fl_round` with a leading E; its
-  inputs from :mod:`repro_torch.sim.batched`): each kernel is launched
-  once a step for the whole group. Tree groups, sharded streamed cohorts
-  and groups on the k-bit, mixed-width or top-k wires run one run at a
-  time through :func:`~repro_torch.fl.rounds.run_rounds`;
+* every group runs all its E = cells x seeds runs at once through the
+  round's group form (:func:`~repro_torch.fl.rounds.fl_round`,
+  :func:`~repro_torch.fl.rounds.stream_fl_round`,
+  :func:`~repro_torch.fl.rounds.async_fl_round` or
+  :func:`~repro_torch.fl.hierarchy.tree_fl_round` with a leading E, on
+  every wire; its inputs from :mod:`repro_torch.sim.batched`), as the
+  reference's ``jax.vmap(cell_fn)`` does: each kernel is launched once a
+  step for the whole group;
 * dispatch is **overlapped**: every group's rounds are queued on the device
   before the first group's results are read, and nothing inside a group's
   rounds waits for the device;
 * a sharded group pads its E runs to a multiple of the n ranks with copies
   of the last run; rank ``k`` prepares and runs only its contiguous
-  ``E_pad / n`` runs (as one group where the round allows), and the runs'
+  ``E_pad / n`` runs (as one group), and the runs'
   trajectories are gathered in rank order, so every rank assembles the
   same results;
 * per-group accounting lands in ``CampaignResult.groups`` (and its JSON),
@@ -188,10 +187,10 @@ def group_signature(cfg: FLConfig) -> tuple:
 
 def _batched_inputs(ctx, cfgs: list[FLConfig], seeds: Sequence[int], *, masked: bool = False):
     """Stack per-(cell, seed) CellParams (numpy (E,) arrays), PRNG keys
-    ((E, 2) on the context's device) and initial states: one state with a
-    leading E for a batchable context, a list of the runs' own otherwise."""
+    ((E, 2) on the context's device) and the runs' initial state with a
+    leading E."""
     params, keys, b_inits = _cell_inputs(ctx, cfgs, seeds, masked=masked)
-    return params, keys, _initial_states(ctx, b_inits)
+    return params, keys, batched.init_group_state(ctx, b_inits)
 
 
 def _cell_inputs(ctx, cfgs: list[FLConfig], seeds: Sequence[int], *, masked: bool = False):
@@ -213,12 +212,6 @@ def _cell_inputs(ctx, cfgs: list[FLConfig], seeds: Sequence[int], *, masked: boo
     keys = torch.stack([prng.key(s, ctx.device) for _, s in elems])
     b_inits = np.asarray([c.b_init for c, _ in elems], np.float32)
     return params, keys, b_inits
-
-
-def _initial_states(ctx, b_inits):
-    if batched.batchable(ctx.cfg):
-        return batched.init_group_state(ctx, b_inits)
-    return [R.init_run_state(ctx, b0) for b0 in b_inits]
 
 
 _WARNED_SINGLE_DEVICE = False
@@ -334,47 +327,30 @@ class _GroupRunner:
             wire_flip=wire_flip, masked=masked,
         )
         self.params, self.keys, self.b_inits = _cell_inputs(self.ctx, cfgs, seeds, masked=masked)
-        runs = [R.cell_params(c) for c in cfgs for _ in seeds]
         if group is not None:
             # this rank's contiguous block of the runs, padded to a multiple
             # of the ranks with copies of the last run
-            n, k = len(runs), distributed.group_rank(group)
+            n, k = len(self.b_inits), distributed.group_rank(group)
             block = -(-n // distributed.group_size(group))
             mine = [min(i, n - 1) for i in range(k * block, (k + 1) * block)]
             fields = {f.name: getattr(self.params, f.name) for f in dataclasses.fields(R.CellParams)}
             self.params = R.CellParams(**{k: None if v is None else v[mine] for k, v in fields.items()})
-            self.keys, self.b_inits, runs = self.keys[mine], self.b_inits[mine], [runs[i] for i in mine]
+            self.keys, self.b_inits = self.keys[mine], self.b_inits[mine]
             if data_idx is not None:
                 data_idx = np.asarray(data_idx)[mine]
-        self.batched = batched.batchable(ctx_cfg)
         self.data = None
         if masked:
             self.data = batched.GroupData(
                 client_x=R._to(client_x, device).float(), client_y=R._to(client_y, device).long(),
                 data_idx=torch.as_tensor(data_idx, dtype=torch.int64, device=device),
             )
-        if self.batched:
-            self.group_params = batched.device_params(self.params, device)
-        else:
-            self.runs = runs
+        self.group_params = batched.device_params(self.params, device)
 
     def run(self) -> tuple[dict, torch.Tensor]:
-        if self.batched:
-            state, traj = R.run_rounds(self.ctx, self.group_params, self.keys,
-                                       batched.init_group_state(self.ctx, self.b_inits),
-                                       data=self.data, with_acc=self.with_acc)
-            return traj, state.w_global
-        trajs, finals = [], []
-        for i, params in enumerate(self.runs):
-            ctx = self.ctx
-            if self.data is not None:
-                cell = self.data.data_idx[i]
-                ctx = dataclasses.replace(ctx, client_x=self.data.client_x[cell], client_y=self.data.client_y[cell])
-            state, traj = R.run_rounds(ctx, params, self.keys[i], R.init_run_state(ctx, self.b_inits[i]),
-                                       with_acc=self.with_acc)
-            trajs.append(traj)
-            finals.append(state.w_global)
-        return {k: torch.stack([t[k] for t in trajs]) for k in trajs[0]}, torch.stack(finals)
+        state, traj = R.run_rounds(self.ctx, self.group_params, self.keys,
+                                   batched.init_group_state(self.ctx, self.b_inits),
+                                   data=self.data, with_acc=self.with_acc)
+        return traj, state.w_global
 
     def __call__(self) -> dict:
         """The whole group's trajectories: this rank's runs', and on a

@@ -6,9 +6,8 @@ anything runs; the executor (:func:`repro_torch.sim.campaign.run_campaign`)
 walks the plan. Three decisions are encoded per group:
 
 1. **Bucketing.** Cells sharing a static signature share one group: one
-   prepared runner, and for synchronous, streamed and asynchronous rounds
-   on the one-bit or dense wires one batched pass over all their (cell,
-   seed) runs (:func:`repro_torch.sim.batched.batchable`). Cells that additionally satisfy
+   prepared runner and one batched pass over all their (cell, seed) runs
+   (:mod:`repro_torch.sim.batched`). Cells that additionally satisfy
    :func:`fusable` are bucketed by :func:`fused_signature` — the static
    signature *minus* ``n_clients`` — so a whole M-sweep lands in one bucket.
 2. **Fusion.** A bucket spanning several ``n_clients`` values becomes a

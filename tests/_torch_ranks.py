@@ -109,6 +109,40 @@ def campaign(base: dict, cells: list, seeds: tuple, task: tuple, mesh: tuple) ->
             "groups": res.groups}
 
 
+def cohort_campaigns(groups: dict, seeds: tuple, task: tuple) -> dict:
+    """Each named ``(base, cells)`` campaign through ``run_campaign`` (its
+    runs not spread: the cells shard their own cohort over the ranks), one
+    at a time: each cell's metrics, the key shapes its group's rounds ran
+    with, and the collectives and kernel launches of its run."""
+    from repro_torch import distributed
+    from repro_torch.kernels import _build
+    from repro_torch.sim import CampaignSpec, CellSpec, CompileCache, Task, run_campaign
+    from repro_torch.sim import campaign as tcampaign
+
+    p0, loss_fn, acc_fn, cx, cy, test = _fl_task(*task)
+    t = Task(p0, loss_fn, acc_fn, cx, cy, test, device="cpu")
+    orig, out = tcampaign.R.run_rounds, {}
+    for name, (base, cells) in groups.items():
+        shapes = []
+
+        def spy(ctx, params, key, state, *a, **kw):
+            shapes.append(tuple(key.shape))
+            return orig(ctx, params, key, state, *a, **kw)
+
+        spec = CampaignSpec(base=base, cells=tuple(CellSpec(n, o) for n, o in cells), seeds=seeds)
+        distributed.reset_collectives()
+        _build.reset_launches()
+        tcampaign.R.run_rounds = spy
+        try:
+            res = run_campaign(spec, lambda cfg: t, compile_cache=CompileCache())
+        finally:
+            tcampaign.R.run_rounds = orig
+        out[name] = {"cells": {c.name: {k: np.asarray(v) for k, v in c.metrics.items()} for c in res.cells},
+                     "shapes": shapes, "collectives": distributed.collectives["calls"],
+                     "launches": dict(_build.launches)}
+    return out
+
+
 def lm_pod_step(cfg, params: dict, batch: dict, b: float, key: torch.Tensor, fl: dict, device: str = "cpu") -> dict:
     """The LM round's step on a ("pod",) mesh of every rank on ``device``,
     on the whole (m_seq, n_pods, ...) batch: the new parameters (on the

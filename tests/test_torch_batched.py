@@ -282,14 +282,24 @@ def test_batched_round_leaves_its_state_and_reads_per_run_knobs():
 
 
 def test_group_state_is_the_runs_init_state():
-    """init_group_state makes each run's init_state, stacked, and a group
-    of runs is refused by the round that runs one run at a time (the
-    tree's)."""
+    """init_group_state makes each run's init_state, stacked; for a
+    buffered tree each run's init_tree_state (its edge buffer too), which
+    a tree round then takes as a group."""
     ctx = _sims()[1].ctx
     b_inits = np.asarray([0.01, 0.02], np.float32)
     group = batched.init_group_state(ctx, b_inits)
     for i, b0 in enumerate(b_inits):
         _same_state(_run(group, i), tr.init_state(ctx, b0))
-    sctx = _sims(client_chunk=3, tree_edges=2)[1].ctx
-    with pytest.raises(ValueError, match="group of runs"):
-        tr.run_rounds(sctx, tr.cell_params(sctx.cfg), torch.stack([tr.prng.key(0)] * 2), group, rounds=1)
+    from repro_torch.fl.hierarchy import init_tree_state
+
+    tctx = _sims(client_chunk=3, tree_edges=2, edge_buffer=1, async_latency=1.0)[1].ctx
+    tree = batched.init_group_state(tctx, b_inits)
+    for i, b0 in enumerate(b_inits):
+        one = init_tree_state(tctx, b0)
+        _same_state(_run(tree, i), one)
+        for f in ("edge_counts", "edge_mass", "edge_age", "edge_valid"):
+            assert torch.equal(getattr(tree, f)[i], getattr(one, f)), f
+    keys = torch.stack([tr.prng.key(0)] * 2)
+    state, traj = tr.run_rounds(tctx, batched.device_params(_batched_inputs(tctx, [tctx.cfg] * 2, (0,))[0],
+                                                            tctx.device), keys, tree, rounds=1)
+    assert state.edge_counts.shape == tree.edge_counts.shape and traj["buf_fill"].shape == (2, 1)

@@ -8,7 +8,7 @@ decay and attack, one armed with the straggler gate), a streamed group
 differing in attack, lr, momentum and b_init) and a fused M-sweep (M in
 {3, 5, 6}) that the planner streams in chunks of 4, each run masked to its
 own cohort. Each group's rounds run once, with a leading E on keys and
-state (``sim/batched.py: batchable`` is true for them). Each run equals
+state. Each run equals
 its sequential ``FLSimulation`` run of the port (b exact, loss rtol 1e-6,
 accuracy 1e-6) and the JAX package's ``run_campaign`` on the same cells
 (b exact, loss rtol 1e-4 and accuracy within one test sample, the bars of
@@ -16,6 +16,7 @@ accuracy 1e-6) and the JAX package's ``run_campaign`` on the same cells
 """
 
 import functools
+import warnings
 
 import numpy as np
 import pytest
@@ -94,7 +95,7 @@ def port_results():
         calls = []
 
         def spy(ctx, params, key, state, *a, **kw):
-            calls.append((tuple(key.shape), batched.batchable(ctx.cfg)))
+            calls.append((tuple(key.shape), tuple(state.w_global.shape)))
             return orig(ctx, params, key, state, *a, **kw)
 
         spec = _spec(tsim, name)
@@ -120,10 +121,12 @@ def jax_results():
 
 @pytest.mark.parametrize("name", list(GROUPS))
 def test_group_runs_as_one_group(port_results, name):
-    """One group, batchable, its rounds run once with keys (E, 2)."""
+    """One group, its rounds run once with keys (E, 2) and a state of
+    leading E."""
     res, calls = port_results[name]
+    e = len(GROUPS[name][1]) * len(SEEDS)
     assert len(res.groups) == 1
-    assert calls == [((len(GROUPS[name][1]) * len(SEEDS), 2), True)]
+    assert [(k, w[0]) for k, w in calls] == [((e, 2), e)]
     if name == "fused_stream":
         assert res.groups[0]["fused"] and res.groups[0]["client_chunk"] == 4
 
@@ -156,11 +159,21 @@ def test_group_run_equals_reference_campaign(port_results, jax_results, name, ce
 
 
 def test_batchable_groups():
-    """The asynchronous and streamed rounds batch; trees, sharded streamed
-    cohorts and the k-bit, mixed-width and top-k wires run one run at a
-    time."""
-    for name in ("async", "stream"):
-        assert batched.batchable(FLConfig(**GROUPS[name][0]))
-    for kw in (dict(client_chunk=2, tree_edges=2), dict(client_chunk=2, stream_shard=True, stateless_clients=True), dict(wire_bits=2),
+    """Every kind of group batches: the asynchronous and streamed rounds,
+    and trees, sharded streamed cohorts and the k-bit, mixed-width and
+    top-k wires (the five that ran one run at a time before), each a state
+    of leading E = 2 that runs one round as a group (keys (2, 2)) and
+    gives (2,) metrics."""
+    task = _ttask(6)
+    for kw in (GROUPS["async"][0], GROUPS["stream"][0], dict(client_chunk=2, tree_edges=2),
+               dict(client_chunk=2, stream_shard=True, stateless_clients=True), dict(wire_bits=2),
                dict(client_bits=(1, 2, 1, 2, 1, 2)), dict(topk_frac=0.5)):
-        assert not batched.batchable(FLConfig(n_clients=6, **kw)), kw
+        cfg = FLConfig(**{"n_clients": 6, **kw})
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "stream_shard is a no-op", RuntimeWarning)
+            ctx = tcampaign.R.make_context(cfg, task.init_params, task.loss_fn, task.acc_fn, task.client_x,
+                                           task.client_y, task.test, device="cpu")
+        params, keys, state = tcampaign._batched_inputs(ctx, [cfg], (0, 1))
+        assert state.w_global.shape == (2, ctx.d), kw
+        final, traj = tcampaign.R.run_rounds(ctx, batched.device_params(params, ctx.device), keys, state, rounds=1)
+        assert final.w_global.shape == (2, ctx.d) and traj["b"].shape == (2, 1), kw

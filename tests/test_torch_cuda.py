@@ -576,9 +576,11 @@ def test_campaign_on_kernels_equals_plain_versions(dev):
     count (no B3), and so do the asynchronous group (B1 once a round, B4
     once a local step, for all its runs) and the streamed group (chunks of
     4 of 6: B1 once a chunk, B4 once a local step of each chunk); the
-    2-bit wire's group and the sum tree's (2 edges of 3) run one run at a
-    time, each run with its own launches (no B1 on the 2-bit wire, B1 once
-    an edge on the tree, B4 once a local step of each edge)."""
+    2-bit wire's group, the top-k wire's and the sum tree's (2 edges of 3)
+    run as one group too: no B1 on the 2-bit wire, B1 once a round on the
+    top-k wire's gathered values, B1 once an edge's chunk on the tree, and
+    B4 once a local step (of each edge's chunk), for all the group's
+    runs."""
     from repro_torch.data import make_classification, partition_label_skew
     from repro_torch.models import accuracy, init_mlp, mlp_logits, xent_loss
     from repro_torch.sim import CampaignSpec, CellSpec, Task, plan_campaign
@@ -605,12 +607,13 @@ def test_campaign_on_kernels_equals_plain_versions(dev):
                CellSpec("stream", {"n_clients": 6, "client_chunk": 4, "byz_frac": 0.34, "attack": "bit_flip"}),
                CellSpec("stream2", {"n_clients": 6, "client_chunk": 4, "byz_frac": 0.34, "attack": "gaussian"}),
                CellSpec("kbit", {"n_clients": 6, "wire_bits": 2}),
+               CellSpec("topk", {"n_clients": 6, "topk_frac": 0.3}),
                CellSpec("tree", {"n_clients": 6, "tree_edges": 2, "client_chunk": 3})),
         seeds=(0, 1))
     plan = plan_campaign(spec)
     cfgs = spec.configs()
     steps = 2 * 20 // 10
-    runs, batched = {}, {}
+    runs = {}
     for engine in (None, "ref"):
         def task_fn(cfg):
             cx, cy = data(cfg.n_clients)
@@ -625,7 +628,6 @@ def test_campaign_on_kernels_equals_plain_versions(dev):
             traj, final = runner.run()
             torch.cuda.synchronize()
             runs[engine, group.cell_idx] = (traj, final, dict(_build.launches))
-            batched[group.cell_idx] = runner.batched
     for group in plan.groups:
         (kt, kf, kl), (rt, rf, rl) = runs[None, group.cell_idx], runs["ref", group.cell_idx]
         assert rl == {}
@@ -643,9 +645,11 @@ def test_campaign_on_kernels_equals_plain_versions(dev):
         elif names == {"stream", "stream2"}:
             assert kl == {"stoch_quant_pack": 2 * 2, "prox_sgd": 2 * steps * 2}
         elif names == {"kbit"}:
-            assert not batched[group.cell_idx] and kl == {"prox_sgd": 2 * steps * e}
+            assert kl == {"prox_sgd": 2 * steps}
+        elif names == {"topk"}:
+            assert kl == {"stoch_quant_pack": 2, "prox_sgd": 2 * steps}
         elif names == {"tree"}:
-            assert not batched[group.cell_idx] and kl == {"stoch_quant_pack": 2 * 2 * e, "prox_sgd": 2 * steps * 2 * e}
+            assert kl == {"stoch_quant_pack": 2 * 2, "prox_sgd": 2 * steps * 2}
         else:
             assert names == {"async", "async_decay"} and e == 4
             assert kl == {"stoch_quant_pack": 2, "prox_sgd": 2 * steps}

@@ -4,7 +4,9 @@ one-process runs and the JAX package's.
 
 One module fixture spawns 4 ranks (``tests/_torch_ranks.py``); each runs
 every sharded configuration over the world, then a sharded campaign over
-the ``"data"`` dimension (2 ranks) of a (2, 2) mesh. Against the port's
+the ``"data"`` dimension (2 ranks) of a (2, 2) mesh, then a campaign group
+of 3 runs whose cells shard their own streamed cohort (or tree edges) over
+the world. Against the port's
 unsharded runs: the count schemes' models, b, estimates and losses equal
 bit for bit (vote, count and weight sums are integers, the chunks' loss
 sums are added in chunk order), ``theta_mse`` within rtol 1e-6 (its delta
@@ -55,6 +57,9 @@ SHARDED = {**{k: dict(BASE, stream_shard=True, **v) for k, v in STREAM.items()},
            **{k: dict(BASE, tree_shard=True, **v) for k, v in TREE.items()}}
 # FLConfig fields of the unsharded twin of each sharded config
 UNSHARDED = {k: {f: v for f, v in cfg.items() if f not in ("stream_shard", "tree_shard")} for k, cfg in SHARDED.items()}
+# groups of 3 runs whose cells shard their own cohort over the 4 ranks
+KNOBS = (("lr", {"lr": 0.02}), ("mom", {"momentum": 0.5, "b_init": 0.02}), ("plain", {}))
+COHORTS = {"stream": (SHARDED["probit"], KNOBS), "tree": (SHARDED["tree"], KNOBS)}
 CAMPAIGN = dict(base=dict(n_clients=N, rounds=ROUNDS, local_epochs=1, use_kernels=True),
                 cells=[("sync", {}), ("async", {"async_buffer": 4, "async_latency": 1.0, "staleness_decay": 0.5})],
                 seeds=(0, 1, 2))
@@ -84,7 +89,8 @@ def ranks(tmp_path_factory):
     task = _task()
     return run_ranks(WORLD, tmp_path_factory.mktemp("shard"), "several",
                      fl=("fl_runs", dict(cfgs=SHARDED, task=task, rounds=ROUNDS)),
-                     campaign=("campaign", dict(**CAMPAIGN, task=task, mesh=MESH)))
+                     campaign=("campaign", dict(**CAMPAIGN, task=task, mesh=MESH)),
+                     cohorts=("cohort_campaigns", dict(groups=COHORTS, seeds=(0,), task=task)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -194,3 +200,33 @@ def test_sharded_campaign_equals_unsharded(ranks):
             np.testing.assert_array_equal(mine["b"], cell.metrics["b"])
             np.testing.assert_allclose(mine["loss"], cell.metrics["loss"], rtol=1e-6)
             np.testing.assert_array_equal(mine["loss"], cell.metrics["loss"])
+
+
+@pytest.mark.parametrize("name", list(COHORTS))
+def test_sharded_cohort_group_equals_unsharded(ranks, name):
+    """A campaign group of 3 runs whose cells shard their cohort over the 4
+    ranks runs its rounds once with keys (3, 2), and each carry of the
+    whole group crosses the ranks in one collective a round (the count
+    carry, the b-vote, weight and delta sums and the chunks' losses; a
+    tree's three gathers). Every rank assembles the same cells, each equal
+    to the one-process campaign of the unsharded twin: b and the loss bit
+    for bit, a stream's theta_mse within rtol 1e-6 (its delta sum crosses
+    the ranks), a tree's exact."""
+    base, cells = COHORTS[name]
+    twin = {f: v for f, v in base.items() if f not in ("stream_shard", "tree_shard")}
+    p0, cx, cy, test = _task()
+    task = Task(p0, functools.partial(tv.xent_loss, tv.mlp_logits), functools.partial(tv.accuracy, tv.mlp_logits),
+                cx, cy, test, device="cpu")
+    spec = CampaignSpec(base=twin, cells=tuple(CellSpec(n, o) for n, o in cells), seeds=(0,))
+    plain = run_campaign(spec, lambda cfg: task, compile_cache=CompileCache())
+    for r in ranks:
+        got = r["cohorts"][name]
+        assert got["shapes"] == [(len(cells), 2)]
+        assert got["collectives"] == 3 * ROUNDS
+        for cell in plain.cells:
+            mine = got["cells"][cell.name]
+            for m, want in cell.metrics.items():
+                if m == "theta_mse" and name == "stream":
+                    np.testing.assert_allclose(mine[m], want, rtol=1e-6)
+                else:
+                    np.testing.assert_array_equal(mine[m], want, err_msg=m)
